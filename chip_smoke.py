@@ -1,0 +1,352 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (ceph_tpu_torch) on one NVIDIA card.
+
+Run from the repository root:
+
+    python3 chip_smoke.py
+
+Phases; any failure exits nonzero and prints no result line:
+
+1. Build the CUDA kernels from ceph_tpu_torch/csrc and print the seconds it
+   took and what ptxas reports (registers, spills).
+2. Hold every kernel against its plain PyTorch version on the card at the
+   main path's shapes, bit-exact: the specialised GF kernel on RS 8+3
+   (reed_sol_van) over 64 stripes of 8 x 512 KiB; the generic GF kernel on
+   every single-erasure decode matrix of that code and one 3-erasure
+   matrix; the crc kernel on 704 blocks of 512 KiB and 90112 of 4 KiB.
+3. Drive the main path through the entry points a user calls: a codec
+   from create_erasure_code, ec_util.encode_with_hinfo over a 256 MiB
+   object (64 stripes of 4 MiB, 512 KiB chunks), ec_util.decode with each
+   data shard missing in turn, and decode_batch for all 11 single
+   erasures.  Parity and recovered chunks are checked against the numpy
+   oracle on sampled stripes, recovered objects against the original
+   bytes, the hinfo ledgers against the host crc32c on sampled shards and
+   the crc plain version on all of them, and the launch counters (zeroed
+   just before this phase) show that every kernel ran.
+4. Time each kernel with CUDA events (median of 20 after warm-up) beside
+   its plain version and its bound, and the end-to-end encode, decode and
+   fused encode+crc in GiB/s of object data (host clock, median of 3).
+
+The line before the last is {"kernels": [...]}; the last is
+{"ok": true, "device": {...}}.  The card's name and power limit, as
+nvidia-smi reports them, are printed on an earlier line.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+K, M = 8, 3
+CHUNK = 512 << 10
+B = 64                      # stripes of the 256 MiB object
+STRIPE = K * CHUNK          # 4 MiB
+SEED = 20261016
+
+# H100 SXM published peaks: HBM3 at 3.35 TB/s, and 67 TFLOP/s of FP32
+# outside the tensor cores, i.e. 33.5 T lane-instructions per second (128
+# lanes per SM per clock, 2 flops each).  No integer or logic instruction
+# issues faster than that lane rate, so it bounds the kernels' arithmetic.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12 / 2
+# Instructions per 32-bit word that the kernels' arithmetic needs at
+# least, counting a 3-input LOP3 once:
+XTIME_OPS = 5               # shr, and, shl, imad (hi * 0x1d), lop3 (and ^)
+GEN_OPS_PER_BIT = 1         # lop3: acc ^= power & mask
+CRC_OPS_PER_WORD = 7        # xor, 4 byte extracts, 2 lop3 for 3 xors
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def cuda_median_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_median_s(torch, fn, reps: int = 3) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def bound(n_bytes: float, ops: float) -> tuple:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a"
+             " CUDA card")
+    try:
+        from ceph_tpu_torch.device import to_device
+        from ceph_tpu_torch.ec import plan
+        from ceph_tpu_torch.ec.registry import create_erasure_code
+        from ceph_tpu_torch.models import reed_solomon as rs
+        from ceph_tpu_torch.ops import _build, crc_kernels, gf_kernels
+        from ceph_tpu_torch.ops import checksum as cks
+        from ceph_tpu_torch.ops.gf import gf_matmul_ref
+        from ceph_tpu_torch.osd import ec_util
+    except ImportError as e:
+        fail(f"cannot import the port (run from the repository root): {e}")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    print(json.dumps({"python": sys.version.split()[0],
+                      "torch": torch.__version__,
+                      "cuda": torch.version.cuda}))
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+
+    # -- 1. build ------------------------------------------------------------
+    _build.load()
+    regs, spills = [], 0
+    for log in _build.build_logs().values():
+        for line in log.splitlines():
+            if "Used" in line and "registers" in line:
+                regs.append(int(line.split("Used")[1].split()[0]))
+            if "spill stores" in line:
+                spills += int(line.split("bytes spill stores")[0]
+                              .split(",")[-1])
+    print(json.dumps({"phase": "build", "seconds": _build.build_seconds,
+                      "kernels_compiled": len(regs),
+                      "max_registers": max(regs) if regs else None,
+                      "spill_store_bytes": spills}))
+
+    # -- 2. kernels against their plain versions ----------------------------
+    rs_mat = rs.reed_sol_van_matrix(K, M)
+    gf_kernels.register_matrix(rs_mat)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    data = torch.randint(0, 256, (B, K, CHUNK), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    blocks = torch.randint(0, 256, (B * (K + M), CHUNK), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    blocks_4k = blocks.view(-1, 4096)
+
+    def err(a, b) -> int:
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        return int(d.max()) if d.numel() else 0
+
+    def u32(t):
+        return t.to(torch.int64) & 0xFFFFFFFF
+
+    spec_err = err(gf_kernels.gf_matmul_spec(rs_mat, data),
+                   gf_kernels.gf_matmul_spec_plain(rs_mat, data))
+    singles = [rs.decode_matrix(rs_mat, K, [e],
+                                [i for i in range(K + M) if i != e][:K])
+               for e in range(K + M)]
+    triple = rs.decode_matrix(rs_mat, K, [0, 4, 9],
+                              [1, 2, 3, 5, 6, 7, 8, 10])
+    gen_err = max(err(gf_kernels.gf_matmul_gen(mat, data),
+                      gf_kernels.gf_matmul_gen_plain(mat, data))
+                  for mat in singles + [triple])
+    crc_err = 0
+    for blk, length, init in ((blocks, CHUNK, 0), (blocks, CHUNK, 0xFFFFFFFF),
+                              (blocks_4k, 4096, 0)):
+        crc_err = max(crc_err, err(
+            u32(crc_kernels.crc32c_blocks(blk, length, init)),
+            u32(cks.crc32c_batch(blk, init))))
+    sync()
+    print(json.dumps({"phase": "kernels_vs_plain", "gf_matmul_spec": spec_err,
+                      "gf_matmul_gen": gen_err, "crc32c_blocks": crc_err,
+                      "gen_matrices": len(singles) + 1,
+                      "crc_shapes": [[B * (K + M), CHUNK],
+                                     [blocks_4k.shape[0], 4096]]}))
+    check(spec_err == gen_err == crc_err == 0,
+          "a kernel disagrees with its plain version")
+
+    # -- 3. the main path ---------------------------------------------------
+    codec = create_erasure_code({"plugin": "ec_torch",
+                                 "technique": "reed_sol_van",
+                                 "k": str(K), "m": str(M)})
+    check(codec.use_tpu and codec.device.type == "cuda",
+          "the codec is not on the card")
+    sinfo = ec_util.StripeInfo(K, STRIPE)
+    obj = np.random.default_rng(SEED).bytes(B * STRIPE)
+    obj_arr = np.frombuffer(obj, dtype=np.uint8)
+    n = K + M
+    wrappers = {"gf_matmul_spec": gf_kernels.gf_matmul_spec,
+                "gf_matmul_gen": gf_kernels.gf_matmul_gen,
+                "crc32c_blocks": crc_kernels.crc32c_blocks}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    shards, hinfo, data_crc = ec_util.encode_with_hinfo(
+        sinfo, codec, obj, range(n), logical_len=len(obj))
+    decoded_ok = []
+    for e in range(K):
+        out = ec_util.decode(sinfo, codec,
+                             {i: shards[i] for i in range(n) if i != e})
+        decoded_ok.append(np.array_equal(np.frombuffer(out, np.uint8),
+                                         obj_arr))
+    full = np.stack([np.frombuffer(shards[i], np.uint8).reshape(B, CHUNK)
+                     for i in range(n)], axis=1)       # (B, n, CHUNK)
+    batch_ok = []
+    for e in range(n):
+        have = tuple(i for i in range(n) if i != e)[:K]
+        got = codec.decode_batch(have, (e,),
+                                 np.ascontiguousarray(full[:, have, :]))
+        batch_ok.append(np.array_equal(got[:, 0, :], full[:, e, :]))
+    sync()
+    main_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    stripes = obj_arr.reshape(B, K, CHUNK)
+    sample = (0, B // 2, B - 1)
+    parity_ok = all(np.array_equal(full[s, K:], gf_matmul_ref(rs_mat,
+                                                              stripes[s]))
+                    and np.array_equal(full[s, :K], stripes[s])
+                    for s in sample)
+    host_ok = all(hinfo.cumulative_shard_hashes[i]
+                  == cks.crc32c(0xFFFFFFFF, shards[i]) for i in (0, K, n - 1))
+    dev_full = torch.from_numpy(np.ascontiguousarray(
+        full.transpose(1, 0, 2))).to(dev).view(n * B, CHUNK)
+    crc0 = cks.crc32c_batch(dev_full, 0).cpu().numpy().view(np.uint32)
+    plain_ok = (ec_util.fold_ledger(crc0.reshape(n, B).T, CHUNK)
+                == hinfo.cumulative_shard_hashes)
+    del dev_full
+    result = {"phase": "main_path", "object_bytes": len(obj),
+              "stripes": B, "chunk": CHUNK, "seconds": main_s,
+              "decodes_ok": sum(decoded_ok), "decode_batch_ok": sum(batch_ok),
+              "parity_vs_oracle_ok": parity_ok, "hinfo_vs_host_crc_ok": host_ok,
+              "hinfo_vs_plain_crc_ok": plain_ok,
+              "hinfo_total_chunk_size": hinfo.total_chunk_size,
+              "data_crc": data_crc, "launches": launches}
+    print(json.dumps(result))
+    check(all(decoded_ok), "a decoded object differs from the original")
+    check(all(batch_ok), "a decode_batch chunk differs from the original")
+    check(parity_ok, "parity differs from the numpy oracle")
+    check(host_ok and plain_ok, "a hinfo ledger differs from the reference")
+    check(hinfo.total_chunk_size == B * CHUNK, "wrong hinfo chunk size")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the main path never launched: {launches}")
+
+    # -- 4. times -----------------------------------------------------------
+    parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)
+    one = singles[0]
+    one_out = torch.empty((B, 1, CHUNK), dtype=torch.uint8, device=dev)
+    crc_out = torch.empty(blocks.shape[0], dtype=torch.int32, device=dev)
+    words = B * CHUNK // 4                       # 32-bit words per input row
+    set_bits = sum(bin(int(c)).count("1") for c in rs_mat.reshape(-1))
+    rows = []
+
+    def row(name, route, source, replaces, fn, plain, n_bytes, ops):
+        ms = cuda_median_ms(torch, fn)
+        plain_ms = cuda_median_ms(torch, plain, reps=5, warmup=1)
+        b_ms, by = bound(n_bytes, ops)
+        return {"name": name, "route": route, "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": {"gf_matmul_spec": spec_err,
+                                "gf_matmul_gen": gen_err,
+                                "crc32c_blocks": crc_err}[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": by, "library_ms": None}
+
+    rows.append(row(
+        "gf_matmul_spec", "cuda", "ceph_tpu_torch/csrc/gf_matmul.cu",
+        "ceph_tpu/ops/gf_pallas.py:137",
+        lambda: gf_kernels.gf_matmul_spec(rs_mat, data, out=parity_out),
+        lambda: gf_kernels.gf_matmul_spec_plain(rs_mat, data),
+        B * (K + M) * CHUNK, words * (K * 7 * XTIME_OPS + set_bits)))
+    rows.append(row(
+        "gf_matmul_gen", "cuda", "ceph_tpu_torch/csrc/gf_matmul.cu",
+        "ceph_tpu/ops/gf_pallas.py:158",
+        lambda: gf_kernels.gf_matmul_gen(one, data, out=one_out),
+        lambda: gf_kernels.gf_matmul_gen_plain(one, data),
+        B * (K + 1) * CHUNK,
+        words * K * (7 * XTIME_OPS + 8 * 1 * GEN_OPS_PER_BIT)))
+    n_blk = blocks.shape[0]
+    rows.append(row(
+        "crc32c_blocks", "cuda", "ceph_tpu_torch/csrc/crc32c.cu",
+        "ceph_tpu/ops/crc_pallas.py:111",
+        lambda: crc_kernels.crc32c_blocks(blocks, CHUNK, 0, out=crc_out),
+        lambda: cks.crc32c_batch(blocks, 0),
+        n_blk * CHUNK + 4 * n_blk, n_blk * CHUNK // 4 * CRC_OPS_PER_WORD))
+
+    # other shapes the main path and its users give the kernels
+    triple_ms = cuda_median_ms(
+        torch, lambda: gf_kernels.gf_matmul_gen(triple, data))
+    crc4k_ms = cuda_median_ms(
+        torch, lambda: crc_kernels.crc32c_blocks(blocks_4k, 4096, 0))
+    n4k = blocks_4k.shape[0]
+    print(json.dumps({"extra_shapes": [
+        {"name": "gf_matmul_gen", "erasures": 3, "ms": triple_ms,
+         "bound_ms": bound(B * (K + 3) * CHUNK, words * K * (
+             7 * XTIME_OPS + 8 * 3 * GEN_OPS_PER_BIT))[0]},
+        {"name": "crc32c_blocks", "blocks": n4k, "length": 4096,
+         "ms": crc4k_ms,
+         "bound_ms": bound(n4k * 4100, n4k * 1024 * CRC_OPS_PER_WORD)[0]}]}))
+
+    survivors = np.ascontiguousarray(full[:, 1:K + 1, :])
+    gib = len(obj) / (1 << 30)
+    e2e = {
+        "encode_batch_s": host_median_s(
+            torch, lambda: codec.encode_batch(stripes)),
+        "decode_batch_s": host_median_s(
+            torch, lambda: codec.decode_batch(tuple(range(1, K + 1)), (0,),
+                                              survivors)),
+        "encode_with_hinfo_s": host_median_s(
+            torch, lambda: ec_util.encode_with_hinfo(sinfo, codec, obj,
+                                                     range(n))),
+    }
+    e2e.update({name[:-2] + "_gib_per_s": gib / sec
+                for name, sec in list(e2e.items())})
+    # where the fused encode's time goes: staging the stripes onto the
+    # card, the device part of plan.encode_with_crc (kernels and the copy
+    # back), and the rest of encode_with_hinfo (ledger fold, shard views)
+    dev_parity = torch.empty(B * M * CHUNK, dtype=torch.uint8, device=dev)
+    e2e.update({
+        "stage_to_device_s": host_median_s(
+            torch, lambda: to_device(stripes, dev)),
+        "copy_back_parity_s": host_median_s(torch, dev_parity.cpu),
+        "plan_encode_with_crc_s": host_median_s(
+            torch, lambda: plan.encode_with_crc(rs_mat, stripes, dev)),
+    })
+    print(json.dumps({"end_to_end": e2e, "object_gib": gib, "card": card}))
+
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
