@@ -7,153 +7,196 @@
 // limited to blocks of at most 8 KiB; this one takes any block length that is
 // a multiple of 4 bytes (the main path's hinfo chunks are 512 KiB).
 //
-// What bounds it on the H100: every block byte is read once and 4 bytes are
-// written per block, so it is HBM-bound: the main path's 704 blocks of
-// 512 KiB are 352 MiB, 0.11 ms at 3.35 TB/s.  The table-driven crc costs
-// four shared-memory lookups and about seven integer instructions per 4
-// bytes, under 0.02 ms for those blocks when the card is full.
+// What bounds it on the H100.  Every byte is read once and 4 bytes are
+// written per block: the main path's 704 blocks of 512 KiB are 352 MiB,
+// 0.110 ms at 3.35 TB/s.  A table-driven crc costs four 4-byte shared-memory
+// lookups per 4-byte word, so the shared memory must serve one lookup per
+// data byte: 352 M lookups for those blocks.  An SM's shared memory serves
+// 32 banks x 4 bytes per clock, i.e. 32 lookups per clock when the 32 lanes
+// of a warp hit 32 different banks: 352 M / (132 SMs x 32) = 83 k clocks,
+// about 0.05 ms at 1.75 GHz, under the HBM bound.  With one table shared by
+// all lanes, random data sends the 32 lanes to random banks; the busiest bank
+// then takes about 3.5 lookups per request, which puts the lookups alone at
+// about 0.18 ms, above the HBM bound.  The compiled loop issues 21
+// instructions per word: 15 to turn its four bytes into addresses (3
+// shifts, 4 shift-multiplies, 4 masks, 4 multiply-adds), 4 loads and 2
+// three-input XORs.  92 M words x 21 = 1.9 G lane-instructions, about
+// 0.065 ms at 128 lanes per SM per clock, also under the HBM bound.
 //
-// What the design does about it: a crc is a serial chain, so parallelism has
-// to come from splitting each block.  One thread block (up to 256 threads)
-// takes one crc block at a time, in a grid-stride loop so that the
-// slicing-by-4 tables it builds in shared memory serve many blocks.  The
-// block is viewed as front-padded with zeros to threads x span bytes (leading
-// zeros leave a zero-seeded crc unchanged); each thread computes the
-// zero-seeded crc of its own contiguous span with 16-byte loads where the
-// layout allows.  The partial crcs are then folded in a tree: at level l the
-// left partial is advanced through span << l zero bytes by a 32x32 GF(2)
-// matrix and XORed into the right one (crc(A||B) = Z_|B|(crc(A)) ^ crc(B)),
-// the math of ceph_tpu/ops/checksum.py's tree combine.  The host builds the
-// matrices for the span lengths and passes them by value.  With 704 blocks of
-// 512 KiB on 132 SMs, one warp per block would leave most of the card idle;
-// that is why a thread block, not a warp, takes a crc block.
+// What the design does about it.
+//  * Lane-private, conflict-free tables.  A block is viewed as front-padded
+//    with zeros to whole 128-byte rows (leading zeros leave a zero-seeded crc
+//    unchanged).  In a warp, lane j takes word j of every row and keeps its
+//    own state, stepped by s = Z128(s ^ w): Z128, the advance through 128
+//    zero bytes, is linear, so it is four 256-entry byte tables, the same
+//    four lookups and XORs per word as slicing-by-4.  The tables sit in
+//    shared memory once per lane, entry (table k, index i, lane j) at word
+//    (k * 256 + i) * 32 + j, so lane j always reads bank j: 128 KiB, one
+//    thread block of 32 warps per SM.
+//  * Coalesced loads.  Each warp load is one 128-byte row.  A warp loads
+//    the next eight rows before it hashes the current eight, so it always
+//    has loads in flight.
+//  * A grid balanced over bytes.  One thread block per SM; the rows of all
+//    blocks of the launch are split evenly over all warps, whatever the
+//    block count (192 or 704 blocks on 132 SMs leave no SM doubly loaded).
+//    A warp's run of rows inside one crc block ends with a per-lane step:
+//    on the run's last row lane j advances through 128 - 4j bytes (a 32x32
+//    GF(2) matrix per lane, conflict-free in shared memory), so the XOR of
+//    the 32 lane states (one REDUX) is the run's zero-seeded crc.  That is
+//    advanced through the rows after the run, one warp-wide matrix product
+//    (a column per lane, one REDUX) per set bit of the row count, and
+//    atomically XORed into the block's crc (crc(A||B) = Z_|B|(crc(A)) ^
+//    crc(B)).  No __syncthreads runs after the tables are built.
+//
+// The host (ceph_tpu_torch/ops/crc_kernels.py kernel_consts) builds the byte
+// tables and matrices once; they do not depend on the block length.  Each
+// thread block reads them once from device memory and writes the 32 copies
+// with conflict-free stores.  Times against the bound are in PERF.md.
 
 #include <cuda_runtime.h>
 #include <cstdint>
-#include <cstring>
 
-#define CRC_MAX_LEVELS 8
-#define CRC_MAX_THREADS (1 << CRC_MAX_LEVELS)
-#define CRC_POLY 0x82F63B78u
+#define CRC_LANES 32
+#define CRC_WARPS 32                      // warps per thread block
+#define CRC_UNROLL 8                      // rows loaded ahead per warp
+#define CRC_ADV_LEVELS 24                 // row advances for 2^0 .. 2^23 rows
+// word offsets of the constants (TAB, FIN, ADV of crc_kernels.py):
+// [k * 256 + i] is Z128(i << 8k); [FIN + b * 32 + j] column b of
+// Z(128 - 4j); [ADV + l * 32 + b] column b of Z(128 << l)
+#define CRC_FIN (4 * 256)
+#define CRC_ADV (CRC_FIN + 32 * CRC_LANES)
+#define CRC_CONSTS (CRC_ADV + CRC_ADV_LEVELS * 32)
+// shared memory: the byte tables once per lane, then FIN and ADV as given
+#define CRC_SMEM_WORDS (CRC_FIN * CRC_LANES + CRC_CONSTS - CRC_FIN)
+#define CRC_SMEM_BYTES (CRC_SMEM_WORDS * 4)
 
-struct AdvanceParams {
-  // cols[l][b]: the crc that bit b advances to through (span << l) zeros
-  uint32_t cols[CRC_MAX_LEVELS][32];
-};
-
-__device__ __forceinline__ uint32_t gf2_apply(const uint32_t* cols,
-                                              uint32_t v) {
-  uint32_t out = 0u;
-#pragma unroll
-  for (int b = 0; b < 32; ++b) out ^= cols[b] & (0u - ((v >> b) & 1u));
-  return out;
+// s = Z128(x) with lane-private tables; `tab` is already offset by the lane
+__device__ __forceinline__ uint32_t z128(const uint32_t* tab, uint32_t x) {
+  return tab[(x & 0xffu) << 5] ^ tab[(256u + ((x >> 8) & 0xffu)) << 5] ^
+         tab[(512u + ((x >> 16) & 0xffu)) << 5] ^ tab[(768u + (x >> 24)) << 5];
 }
 
-__device__ __forceinline__ uint32_t crc_word(const uint32_t (*tab)[256],
-                                             uint32_t crc, uint32_t w) {
-  crc ^= w;
-  return tab[3][crc & 0xffu] ^ tab[2][(crc >> 8) & 0xffu] ^
-         tab[1][(crc >> 16) & 0xffu] ^ tab[0][crc >> 24];
-}
-
-template <bool VEC4>
-__global__ void __launch_bounds__(CRC_MAX_THREADS)
-    crc_kernel(const __grid_constant__ AdvanceParams p, int levels,
+__global__ void __launch_bounds__(CRC_WARPS * 32, 1)
+    crc_kernel(const uint32_t* __restrict__ consts,
                const uint8_t* __restrict__ blocks, long long n_blocks,
-               long long length, long long span, uint32_t* __restrict__ out) {
-  __shared__ uint32_t tab[4][256];
-  __shared__ uint32_t part[CRC_MAX_THREADS];
-  const int t = threadIdx.x;
-  const int nt = blockDim.x;
-
-  // slicing-by-4 tables: tab[0] is the bytewise table, tab[k][i] advances
-  // tab[k-1][i] by one more zero byte
-  for (int i = t; i < 256; i += nt) {
-    uint32_t c = (uint32_t)i;
-    for (int b = 0; b < 8; ++b) c = (c & 1u) ? (c >> 1) ^ CRC_POLY : c >> 1;
-    tab[0][i] = c;
+               long long length, long long rows, int pad,
+               uint32_t* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* fin = smem + CRC_FIN * CRC_LANES;
+  uint32_t* adv = fin + (CRC_ADV - CRC_FIN);
+  // each table word is read once and stored once per lane; thread t starts
+  // at copy t mod 32, so the 32 stores of a warp hit 32 banks
+  for (int e = threadIdx.x; e < CRC_FIN; e += blockDim.x) {
+    const uint32_t v = __ldg(consts + e);
+#pragma unroll
+    for (int j = 0; j < CRC_LANES; ++j)
+      smem[e * CRC_LANES + ((j + e) & (CRC_LANES - 1))] = v;
   }
+  for (int i = threadIdx.x; i < CRC_CONSTS - CRC_FIN; i += blockDim.x)
+    fin[i] = __ldg(consts + CRC_FIN + i);
   __syncthreads();
-  for (int k = 1; k < 4; ++k) {
-    for (int i = t; i < 256; i += nt) {
-      const uint32_t c = tab[k - 1][i];
-      tab[k][i] = (c >> 8) ^ tab[0][c & 0xffu];
-    }
-    __syncthreads();
-  }
 
-  const long long pad = span * nt - length;
-  long long lo = (long long)t * span - pad;
-  long long hi = lo + span;
-  lo = lo < 0 ? 0 : lo;
-  hi = hi < 0 ? 0 : hi;
-  for (long long n = blockIdx.x; n < n_blocks; n += gridDim.x) {
-    const uint8_t* base = blocks + n * length;
-    uint32_t crc = 0u;
-    if constexpr (VEC4) {
-      const uint4* v = reinterpret_cast<const uint4*>(base + lo);
-      const long long nv = (hi - lo) / 16;
-      for (long long q = 0; q < nv; ++q) {
-        const uint4 u = __ldg(v + q);
-        crc = crc_word(tab, crc, u.x);
-        crc = crc_word(tab, crc, u.y);
-        crc = crc_word(tab, crc, u.z);
-        crc = crc_word(tab, crc, u.w);
+  const unsigned lane = threadIdx.x & 31u;
+  const uint32_t* tab = smem + lane;
+  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
+  const long long warp =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const long long total = n_blocks * rows;
+  long long lo = total * warp / warps;
+  const long long hi = total * (warp + 1) / warps;
+  long long n = lo / rows;
+  long long r0 = lo - n * rows;
+  // words of row 0 that fall in the front pad read as zero
+  const bool in_pad = (int)(lane * 4) < pad;
+  while (lo < hi) {
+    const long long r1 = rows < r0 + (hi - lo) ? rows : r0 + (hi - lo);
+    const long long last = r1 - 1;
+    // word `lane` of row 0 of the front-padded block (never read in the pad)
+    const uint32_t* src =
+        reinterpret_cast<const uint32_t*>(blocks + n * length - pad) + lane;
+    uint32_t s = 0u;
+    long long r = r0;
+    if (r == 0 && pad != 0 && r < last) {
+      s = z128(tab, in_pad ? 0u : __ldg(src));
+      r = 1;
+    }
+    // groups of CRC_UNROLL rows; the next group's loads are issued before
+    // the current group is hashed, so a warp always has loads in flight
+    if (r + CRC_UNROLL <= last) {
+      uint32_t w[CRC_UNROLL], nw[CRC_UNROLL] = {};
+#pragma unroll
+      for (int u = 0; u < CRC_UNROLL; ++u) w[u] = __ldg(src + (r + u) * 32);
+      for (; r + CRC_UNROLL <= last; r += CRC_UNROLL) {
+        const bool more = r + 2 * CRC_UNROLL <= last;
+        if (more) {
+#pragma unroll
+          for (int u = 0; u < CRC_UNROLL; ++u)
+            nw[u] = __ldg(src + (r + CRC_UNROLL + u) * 32);
+        }
+#pragma unroll
+        for (int u = 0; u < CRC_UNROLL; ++u) s = z128(tab, s ^ w[u]);
+#pragma unroll
+        for (int u = 0; u < CRC_UNROLL; ++u) w[u] = nw[u];
       }
-    } else {
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(base + lo);
-      const long long nw = (hi - lo) / 4;
-      for (long long q = 0; q < nw; ++q) crc = crc_word(tab, crc, __ldg(w + q));
     }
-    part[t] = crc;
-    __syncthreads();
-    for (int l = 0; l < levels; ++l) {
-      const int stride = 1 << l;
-      if ((t & (2 * stride - 1)) == 0)
-        part[t] = gf2_apply(p.cols[l], part[t]) ^ part[t + stride];
-      __syncthreads();
-    }
-    if (t == 0) out[n] = part[0];
-    __syncthreads();  // part[] is rewritten by the next block
+    for (; r < last; ++r) s = z128(tab, s ^ __ldg(src + r * 32));
+    const uint32_t x =
+        s ^ ((last == 0 && in_pad) ? 0u : __ldg(src + last * 32));
+    // last row: lane j advances through 128 - 4j bytes
+    uint32_t v = 0u;
+#pragma unroll
+    for (int b = 0; b < 32; ++b)
+      v ^= fin[b * 32 + lane] & (0u - ((x >> b) & 1u));
+    uint32_t p = __reduce_xor_sync(0xffffffffu, v);
+    // through the rows after the run: lane b contributes column b
+    long long after = rows - r1;
+    for (int l = 0; after != 0; ++l, after >>= 1)
+      if (after & 1)
+        p = __reduce_xor_sync(0xffffffffu,
+                              adv[l * 32 + lane] & (0u - ((p >> lane) & 1u)));
+    if (lane == 0) atomicXor(out + n, p);
+    lo += r1 - r0;
+    ++n;
+    r0 = 0;
   }
 }
 
 extern "C" {
 
-// cols: host array of levels * 32 uint32 (advance matrices for span << l
-// zero bytes).  blocks: device pointer to n_blocks * length bytes, 16-byte
-// aligned; out: device pointer to n_blocks uint32.  Threads = 1 << levels,
-// each covering `span` bytes of the front-padded block.  Returns a
-// cudaError_t.
-int crc32c_blocks(const uint32_t* cols, int levels, int device,
-                  const void* blocks, long long n_blocks, long long length,
-                  long long span, void* out, void* stream) {
-  const int threads = 1 << levels;
-  if (levels < 0 || levels > CRC_MAX_LEVELS || n_blocks < 1 || length < 4 ||
-      length % 4 != 0 || span < 4 || span % 4 != 0 ||
-      span * threads < length)
+int crc32c_smem_bytes(void) { return CRC_SMEM_BYTES; }
+
+// consts: device pointer to CRC_CONSTS uint32 (crc_kernels.kernel_consts).
+// blocks: device pointer to n_blocks * length bytes, 16-byte aligned, each
+// block front-padded by `pad` zero bytes to `rows` rows of 128 bytes; out:
+// device pointer to n_blocks uint32, zeroed here and then XORed into.
+// Returns a cudaError_t.
+int crc32c_blocks(const void* consts, int device, const void* blocks,
+                  long long n_blocks, long long length, long long rows,
+                  int pad, void* out, void* stream) {
+  if (n_blocks < 1 || length < 4 || length % 4 != 0 || pad < 0 ||
+      pad >= 128 || pad % 4 != 0 || rows * 128 - pad != length ||
+      rows >= (1LL << CRC_ADV_LEVELS))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  AdvanceParams p;
-  memset(&p, 0, sizeof(p));
-  memcpy(p.cols, cols, sizeof(uint32_t) * 32 * levels);
+  err = cudaFuncSetAttribute(crc_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             CRC_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  // enough resident blocks to fill every SM (2048 threads, 32 blocks each)
-  const int per_sm = 2048 / threads < 32 ? 2048 / threads : 32;
-  long long grid = (long long)sms * per_sm;
-  if (grid > n_blocks) grid = n_blocks;
+  // one thread block per SM, fewer when there are fewer rows than warps
+  const long long total = n_blocks * rows;
+  long long grid = (total + CRC_WARPS - 1) / CRC_WARPS;
+  if (grid > sms) grid = sms;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* src = static_cast<const uint8_t*>(blocks);
-  uint32_t* dst = static_cast<uint32_t*>(out);
-  if (length % 16 == 0 && span % 16 == 0)
-    crc_kernel<true><<<(unsigned)grid, threads, 0, st>>>(
-        p, levels, src, n_blocks, length, span, dst);
-  else
-    crc_kernel<false><<<(unsigned)grid, threads, 0, st>>>(
-        p, levels, src, n_blocks, length, span, dst);
+  err = cudaMemsetAsync(out, 0, (size_t)n_blocks * 4, st);
+  if (err != cudaSuccess) return (int)err;
+  crc_kernel<<<(unsigned)grid, CRC_WARPS * 32, CRC_SMEM_BYTES, st>>>(
+      static_cast<const uint32_t*>(consts),
+      static_cast<const uint8_t*>(blocks), n_blocks, length, rows, pad,
+      static_cast<uint32_t*>(out));
   return (int)cudaGetLastError();
 }
 

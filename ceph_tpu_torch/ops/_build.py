@@ -37,7 +37,8 @@ _SIGNATURES = {
         "gf_matmul_gen": (_P, _I, _I, _I, _P, _P, _LL, _LL, _P),
     },
     "crc32c": {
-        "crc32c_blocks": (_P, _I, _I, _P, _LL, _LL, _LL, _P, _P),
+        "crc32c_blocks": (_P, _I, _P, _LL, _LL, _LL, _I, _P, _P),
+        "crc32c_smem_bytes": (),
     },
 }
 

@@ -13,7 +13,9 @@ Phases; any failure exits nonzero and prints no result line:
    main path's shapes, bit-exact: the specialised GF kernel on RS 8+3
    (reed_sol_van) over 64 stripes of 8 x 512 KiB; the generic GF kernel on
    every single-erasure decode matrix of that code and one 3-erasure
-   matrix; the crc kernel on 704 blocks of 512 KiB and 90112 of 4 KiB.
+   matrix; the crc kernel on 704 blocks of 512 KiB (seeds 0 and
+   0xFFFFFFFF), 90112 of 4 KiB and 4096 of 2052 bytes (a length that is
+   no multiple of 128 or 16).
 3. Drive the main path through the entry points a user calls: a codec
    from create_erasure_code, ec_util.encode_with_hinfo over a 256 MiB
    object (64 stripes of 4 MiB, 512 KiB chunks), ec_util.decode with each
@@ -24,8 +26,11 @@ Phases; any failure exits nonzero and prints no result line:
    the crc plain version on all of them, and the launch counters (zeroed
    just before this phase) show that every kernel ran.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
-   its plain version and its bound, and the end-to-end encode, decode and
-   fused encode+crc in GiB/s of object data (host clock, median of 3).
+   its plain version and its bound, the crc kernel also at the two
+   launches the main path makes (512 data and 192 parity blocks of
+   512 KiB) and at 90112 blocks of 4 KiB, and the end-to-end encode,
+   decode and fused encode+crc in GiB/s of object data (host clock,
+   median of 3).
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The card's name and power limit, as
@@ -148,7 +153,8 @@ def main() -> None:
     print(json.dumps({"phase": "build", "seconds": _build.build_seconds,
                       "kernels_compiled": len(regs),
                       "max_registers": max(regs) if regs else None,
-                      "spill_store_bytes": spills}))
+                      "spill_store_bytes": spills,
+                      "crc32c_dynamic_smem_bytes": crc_kernels.smem_bytes()}))
 
     # -- 2. kernels against their plain versions ----------------------------
     rs_mat = rs.reed_sol_van_matrix(K, M)
@@ -160,6 +166,8 @@ def main() -> None:
     blocks = torch.randint(0, 256, (B * (K + M), CHUNK), dtype=torch.uint8,
                            device=dev, generator=gen)
     blocks_4k = blocks.view(-1, 4096)
+    odd_len = 2052                       # no multiple of 128 or of 16
+    blocks_odd = blocks.view(-1)[:4096 * odd_len].view(-1, odd_len)
 
     def err(a, b) -> int:
         d = (a.to(torch.int64) - b.to(torch.int64)).abs()
@@ -180,7 +188,8 @@ def main() -> None:
                   for mat in singles + [triple])
     crc_err = 0
     for blk, length, init in ((blocks, CHUNK, 0), (blocks, CHUNK, 0xFFFFFFFF),
-                              (blocks_4k, 4096, 0)):
+                              (blocks_4k, 4096, 0),
+                              (blocks_odd, odd_len, 0xFFFFFFFF)):
         crc_err = max(crc_err, err(
             u32(crc_kernels.crc32c_blocks(blk, length, init)),
             u32(cks.crc32c_batch(blk, init))))
@@ -189,7 +198,8 @@ def main() -> None:
                       "gf_matmul_gen": gen_err, "crc32c_blocks": crc_err,
                       "gen_matrices": len(singles) + 1,
                       "crc_shapes": [[B * (K + M), CHUNK],
-                                     [blocks_4k.shape[0], 4096]]}))
+                                     [blocks_4k.shape[0], 4096],
+                                     [blocks_odd.shape[0], odd_len]]}))
     check(spec_err == gen_err == crc_err == 0,
           "a kernel disagrees with its plain version")
 
@@ -304,16 +314,22 @@ def main() -> None:
     # other shapes the main path and its users give the kernels
     triple_ms = cuda_median_ms(
         torch, lambda: gf_kernels.gf_matmul_gen(triple, data))
-    crc4k_ms = cuda_median_ms(
-        torch, lambda: crc_kernels.crc32c_blocks(blocks_4k, 4096, 0))
-    n4k = blocks_4k.shape[0]
-    print(json.dumps({"extra_shapes": [
-        {"name": "gf_matmul_gen", "erasures": 3, "ms": triple_ms,
-         "bound_ms": bound(B * (K + 3) * CHUNK, words * K * (
-             7 * XTIME_OPS + 8 * 3 * GEN_OPS_PER_BIT))[0]},
-        {"name": "crc32c_blocks", "blocks": n4k, "length": 4096,
-         "ms": crc4k_ms,
-         "bound_ms": bound(n4k * 4100, n4k * 1024 * CRC_OPS_PER_WORD)[0]}]}))
+    extra = [{"name": "gf_matmul_gen", "erasures": 3, "ms": triple_ms,
+              "bound_ms": bound(B * (K + 3) * CHUNK, words * K * (
+                  7 * XTIME_OPS + 8 * 3 * GEN_OPS_PER_BIT))[0]}]
+    # the crc launches of plan.encode_with_crc (data chunks, then parity
+    # chunks) and BlueStore-style 4 KiB block checksums
+    for blk, length in ((blocks[:B * K], CHUNK), (blocks[B * K:], CHUNK),
+                        (blocks_4k, 4096)):
+        nb = blk.shape[0]
+        nb_out = torch.empty(nb, dtype=torch.int32, device=dev)
+        extra.append({
+            "name": "crc32c_blocks", "blocks": nb, "length": length,
+            "ms": cuda_median_ms(torch, lambda: crc_kernels.crc32c_blocks(
+                blk, length, 0, out=nb_out)),
+            "bound_ms": bound(nb * (length + 4),
+                              nb * length // 4 * CRC_OPS_PER_WORD)[0]})
+    print(json.dumps({"extra_shapes": extra}))
 
     survivors = np.ascontiguousarray(full[:, 1:K + 1, :])
     gib = len(obj) / (1 << 30)

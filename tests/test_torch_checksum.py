@@ -119,26 +119,97 @@ def test_partial_bits_and_combine_match_jax():
                               jnp.asarray(jcomb))))
 
 
-@pytest.mark.parametrize("length", [36, 544, 4096, 524288])
-def test_kernel_launch_plan_folds_to_the_crc(length):
-    """The CUDA kernel's split (threads x span of the front-padded
-    block) and its tree of advance matrices, replayed on the host, give
-    the block's crc."""
-    levels, span, cols = crc_kernels.launch_plan(length)
-    threads = 1 << levels
-    pad = threads * span - length
-    assert 0 <= pad and span % 4 == 0 and threads <= 256
-    data = np.random.default_rng(length).integers(0, 256, length,
+def _kernel_tables():
+    c = crc_kernels.kernel_consts()
+    assert c.shape == (crc_kernels.N_CONSTS,)
+    return (c[crc_kernels.TAB:crc_kernels.FIN].reshape(4, 256),
+            c[crc_kernels.FIN:crc_kernels.ADV].reshape(32, 32),
+            c[crc_kernels.ADV:].reshape(crc_kernels.ADV_LEVELS, 32))
+
+
+def _columns(mat: np.ndarray) -> np.ndarray:
+    """(out_bit, in_bit) 0/1 matrix -> (32,) uint32 columns."""
+    weights = np.int64(1) << np.arange(32, dtype=np.int64)
+    return (mat.astype(np.int64) * weights[:, None]).sum(0).astype(np.uint32)
+
+
+def test_kernel_z128_tables_match_jax_zero_advance():
+    """Table k, entry i is the 128-zero-byte advance of byte i at byte
+    position k, as ceph_tpu's own advance matrix gives it."""
+    tab, _, _ = _kernel_tables()
+    mat = jck._zero_advance_matrix(128).astype(np.int64)    # (out, in)
+    byte_bits = (np.arange(256)[None, :] >> np.arange(8)[:, None]) & 1
+    weights = np.int64(1) << np.arange(32, dtype=np.int64)
+    for k in range(4):
+        out_bits = (mat[:, 8 * k:8 * k + 8] @ byte_bits) % 2  # (32, 256)
+        want = (out_bits * weights[:, None]).sum(0).astype(np.uint32)
+        assert np.array_equal(tab[k], want)
+
+
+def test_kernel_lane_and_row_advances_match_jax():
+    """Lane j's last-row advance is Z(128 - 4j); row-advance level l is
+    Z(128 << l)."""
+    _, fin, adv = _kernel_tables()
+    for j in range(32):
+        assert np.array_equal(fin[:, j],
+                              _columns(jck._zero_advance_matrix(128 - 4 * j)))
+    for lvl in range(crc_kernels.ADV_LEVELS):
+        assert np.array_equal(adv[lvl],
+                              _columns(jck._zero_advance_matrix(128 << lvl)))
+
+
+def _replay_kernel(blocks: np.ndarray, n_warps: int) -> np.ndarray:
+    """csrc/crc32c.cu's arithmetic on the host: the launch's rows split
+    evenly over n_warps warps; each warp's run of rows inside a block is
+    hashed lane-interleaved (lane j takes word j of every row, steps
+    s = Z128(s ^ w), and on the run's last row advances through 128 - 4j
+    bytes), the lane states XOR into the run's crc, which is advanced
+    through the rows after the run and XORed into the block's crc."""
+    n, length = blocks.shape
+    rows, pad = crc_kernels.launch_plan(length)
+    assert rows * 128 - pad == length and 0 <= pad < 128 and pad % 4 == 0
+    tab, fin, adv = _kernel_tables()
+    padded = np.zeros((n, rows * 128), dtype=np.uint8)
+    padded[:, pad:] = blocks
+    words = padded.view("<u4").reshape(n, rows, 32)
+    out = np.zeros(n, dtype=np.uint32)
+    total = n * rows
+    for g in range(n_warps):
+        lo, hi = total * g // n_warps, total * (g + 1) // n_warps
+        while lo < hi:
+            blk, r0 = divmod(lo, rows)
+            r1 = min(rows, r0 + hi - lo)
+            s = np.zeros(32, dtype=np.uint32)
+            for r in range(r0, r1 - 1):
+                x = s ^ words[blk, r]
+                s = (tab[0][x & 0xFF] ^ tab[1][(x >> 8) & 0xFF]
+                     ^ tab[2][(x >> 16) & 0xFF] ^ tab[3][x >> 24])
+            x = s ^ words[blk, r1 - 1]
+            lanes = np.zeros(32, dtype=np.uint32)
+            for b in range(32):
+                lanes ^= ((x >> np.uint32(b)) & np.uint32(1)) * fin[b]
+            part = np.bitwise_xor.reduce(lanes)
+            after, lvl = rows - r1, 0
+            while after:
+                if after & 1:
+                    part = tck.advance(adv[lvl], part)
+                after, lvl = after >> 1, lvl + 1
+            out[blk] ^= part
+            lo += r1 - r0
+    return out
+
+
+@pytest.mark.parametrize("n_warps", [1, 5])
+@pytest.mark.parametrize("length", [36, 544, 2052, 4096, 524288])
+def test_kernel_launch_plan_replays_the_crc(length, n_warps):
+    """The CUDA kernel's plan and constants, replayed on the host, give
+    ceph_tpu's crc32c of every block, with warp runs that end inside
+    blocks (5 warps) and that cover whole blocks (1 warp)."""
+    data = np.random.default_rng(length).integers(0, 256, (3, length),
                                                   dtype=np.uint8)
-    parts = []
-    for t in range(threads):
-        lo, hi = max(t * span - pad, 0), max((t + 1) * span - pad, 0)
-        parts.append(tck.crc32c(0, data[lo:hi]))
-    parts = np.array(parts, dtype=np.uint32)
-    for lvl in range(levels):
-        parts = tck.advance(cols[lvl * 32:(lvl + 1) * 32],
-                            parts[0::2]) ^ parts[1::2]
-    assert int(parts[0]) == jck.crc32c(0, data.tobytes())
+    got = _replay_kernel(data, n_warps)
+    assert [int(v) for v in got] == [jck.crc32c(0, row.tobytes())
+                                     for row in data]
 
 
 def test_blocks_wrapper_checks_and_out():
