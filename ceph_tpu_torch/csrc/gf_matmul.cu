@@ -4,33 +4,53 @@
 //   gf_matmul_spec <- _spec_kernel / _spec_call: registered encode generators
 //   gf_matmul_gen  <- _gen_kernel / _gen_call: runtime (decode) matrices
 // Both compute out[b, j, :] = XOR_i M[j][i] * data[b, i, :] over GF(2^8) with
-// polynomial 0x11d, on the byte layout (B, K, S) -> (B, R, S).
+// polynomial 0x11d, on the byte layout (B, K, S) -> (B, R, S).  Both work on
+// packed 32-bit words (four bytes each); xtime multiplies the four by x.
 //
-// What bounds it on the H100: each input byte is read once and each output
+// What bounds them on the H100: each input byte is read once and each output
 // byte written once, (K + R) * S bytes per stripe; RS 8+3 at B = 64 stripes of
-// 8 x 512 KiB moves 352 MiB, 0.11 ms at 3.35 TB/s.  The arithmetic is seven
-// xtime steps per input word (about 5 integer instructions each) plus one XOR
-// per set coefficient bit (spec) or one AND-XOR (a LOP3) per output row and
-// bit (gen): some 40 instructions per 4 input bytes, 0.09 ms for that batch
-// at the card's 33.5 T lane-instructions per second.  So the kernel needs
-// both HBM and integer issue near their peaks at once.
+// 8 x 512 KiB moves 352 MiB, 0.110 ms at 3.35 TB/s.  The arithmetic must stay
+// under that: shifts and logic ops issue at 64 lanes per clock per SM, so at
+// 1.75 GHz the card runs about 14.8 T of them per second.
 //
-// What the design does about it: one thread owns one 16-byte column vector
-// (uint4, four packed words) of one stripe and walks all K inputs, so every
-// load and store is 16 bytes per thread on consecutive addresses, and the
-// product never touches memory except as input and output.  The R
-// accumulators live in registers (R is a template parameter, the inner loops
-// unroll).  The ladder runs on uint32, so the >> 7 is a logical shift.  The
-// matrix travels by value as a __grid_constant__ kernel parameter: no
-// __constant__ symbol (module-global, racy across streams) and no compile per
-// matrix.
-//   spec: the host resolves M into the XOR selection sel[i][s], whose bit j is
-//         bit s of M[j][i]; the kernel XORs ladder power s of input i into
-//         the selected accumulators only (branches uniform across the grid).
-//   gen:  the kernel reads M[j][i] and ANDs each power with -(M >> s & 1),
-//         the mask form of the TPU generic kernel: one build for every matrix.
-// S only needs to be a multiple of 4: when S % 16 != 0 the kernel walks
-// single words (V = 1) instead of uint4 vectors.
+// spec (gf_spec_kernel): a Horner schedule per output.  P[j][s], the XOR of
+// the inputs whose coefficient in row j has bit s set, is all a row needs:
+// row j = P[j][top], then acc = xtime(acc) ^ P[j][s] for s = top - 1 .. 0
+// (multiplying by x is GF(2)-linear, so this equals the sum of the coefficient
+// products bit for bit).  RS 8+3 needs 14 xtime per column word (row 0, all
+// ones, none; rows 1 and 2 seven each) against the 56 of a ladder of powers
+// per input, and one XOR per set coefficient bit (83).  The design against
+// what held the previous (ladder) kernel at 39-41 % of its bound:
+//   - xtime per word: 7 * R * ceil(K / 8) instead of 7 * K.  This is more than
+//     the ladder only when R > 8 within one group; then the ladder would be
+//     cheaper, and no switch is kept for that case.
+//   - loads in flight: a thread loads all inputs of a group (up to 8, each
+//     two 16-byte vectors at V = 8) before any arithmetic, so 16 independent
+//     loads are in flight per thread.  Groups run one after another, each
+//     XORing its Horner result into the R accumulators held in registers.
+//   - selection: the host resolves the matrix into one input mask per
+//     (group, output, bit) and each (group, output)'s top bit, passed by value
+//     as a __grid_constant__ parameter (no __constant__ symbol, racy across
+//     streams, and no compile per matrix).  The kernel is templated on R and
+//     V and unrolls the 8 inputs of a group with compile-time indices, so
+//     every mask test is warp-uniform and indexes the parameter statically.
+//   - indexing: the stripe comes from blockIdx.y (a loop when B > 65535), the
+//     column from the block and thread; there is no division per vector.
+// Loads and stores are 16 bytes per thread on neighbouring addresses (V = 8:
+// two uint4 per input, a block's 256 threads apart).  When S % 16 != 0 the
+// kernel walks single words (V = 1) with the same schedule.
+// Compiled (cuobjdump -sass; tools/kernel_shapes.py gf --sass counts it),
+// RS 8+3 at V = 8 executes about 217 instructions per column word, 159 of
+// them on the ALU pipe: 86 XORs, 14 xtime of 5 (3 ALU, 2 IMAD), about 49
+// of mask tests and uniform branches, and 12 of addresses, loads and
+// stores; 112 registers, no spills.  At V = 4 the compiler turns the 4-XOR
+// branch bodies into predicated XORs that issue whether selected or not,
+// which doubles the time, so V = 8 it is.
+//
+// gen (gf_gen_kernel): one thread owns one 16-byte column vector of one
+// stripe and walks all K inputs through the ladder of their powers, ANDing
+// each power with -(M[j][i] >> s & 1), the mask form of the TPU generic
+// kernel: one build for every matrix, read from the parameter at run time.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -38,9 +58,12 @@
 
 #define GF_MAX_R 16
 #define GF_MAX_K 64
+#define GF_GROUP 8  // inputs held in registers at once
+#define GF_MAX_G (GF_MAX_K / GF_GROUP)
 
 struct SpecParams {
-  uint16_t sel[GF_MAX_K][8];  // bit j: XOR power s of input i into output j
+  uint8_t mask[GF_MAX_G][GF_MAX_R][8];  // bit i: input 8g + i is in P[j][s]
+  int8_t top[GF_MAX_G][GF_MAX_R];       // highest s of a nonzero mask, or -1
 };
 
 struct GenParams {
@@ -86,43 +109,111 @@ __device__ __forceinline__ void store_vec<1>(uint8_t* p, const Vec<1>& v) {
   *reinterpret_cast<uint32_t*>(p) = v.w[0];
 }
 
+// The spec kernel's column vector: V words per input, read as two uint4 a
+// block's threads apart (V = 8) or as one word (V = 1).  `second` says
+// whether the second uint4 lies inside the row.
+constexpr int kSpecThreads = 256;
+
+template <int V>
+__device__ __forceinline__ Vec<V> load_cols(const uint8_t* p, bool second) {
+  Vec<V> v;
+  if constexpr (V == 1) {
+    v = load_vec<1>(p);
+  } else {
+#pragma unroll
+    for (int u = 0; u < V / 4; ++u) {
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      if (u == 0 || second)
+        q = __ldg(reinterpret_cast<const uint4*>(p + u * kSpecThreads * 16));
+      v.w[4 * u] = q.x;
+      v.w[4 * u + 1] = q.y;
+      v.w[4 * u + 2] = q.z;
+      v.w[4 * u + 3] = q.w;
+    }
+  }
+  return v;
+}
+
+template <int V>
+__device__ __forceinline__ void store_cols(uint8_t* p, const Vec<V>& v,
+                                           bool second) {
+  if constexpr (V == 1) {
+    store_vec<1>(p, v);
+  } else {
+#pragma unroll
+    for (int u = 0; u < V / 4; ++u)
+      if (u == 0 || second)
+        *reinterpret_cast<uint4*>(p + u * kSpecThreads * 16) =
+            make_uint4(v.w[4 * u], v.w[4 * u + 1], v.w[4 * u + 2],
+                       v.w[4 * u + 3]);
+  }
+}
+
+// n_col: column vectors per input row, each V words (V = 8: counted in uint4,
+// two per thread).  Thread (blockIdx.x, threadIdx.x) owns one column of every
+// stripe blockIdx.y, blockIdx.y + gridDim.y, ...
 template <int R, int V>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kSpecThreads)
     gf_spec_kernel(const __grid_constant__ SpecParams p, int k,
                    const uint8_t* __restrict__ data, uint8_t* __restrict__ out,
-                   long long n_vec, long long total, long long s_bytes) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += step) {
-    const long long b = t / n_vec;
-    const long long off = (t - b * n_vec) * (4 * V);
-    const uint8_t* src = data + b * k * s_bytes + off;
+                   long long n_col, long long b, long long s_bytes) {
+  constexpr int kBytes = V == 1 ? 4 : 16;    // bytes per access
+  constexpr int kPerThread = V == 8 ? 2 : 1;  // accesses per input row
+  const long long col =
+      (long long)blockIdx.x * (kSpecThreads * kPerThread) + threadIdx.x;
+  if (col >= n_col) return;
+  const bool second = kPerThread == 2 && col + kSpecThreads < n_col;
+  const int groups = (k + GF_GROUP - 1) / GF_GROUP;
+  for (long long st = blockIdx.y; st < b; st += gridDim.y) {
+    const uint8_t* src = data + st * k * s_bytes + col * kBytes;
     Vec<V> acc[R];
 #pragma unroll
     for (int j = 0; j < R; ++j)
 #pragma unroll
       for (int q = 0; q < V; ++q) acc[j].w[q] = 0u;
-    for (int i = 0; i < k; ++i) {
-      Vec<V> x = load_vec<V>(src + i * s_bytes);
+    for (int g = 0; g < groups; ++g) {
+      const int kg = min(GF_GROUP, k - g * GF_GROUP);
+      const uint8_t* in = src + g * GF_GROUP * s_bytes;
+      Vec<V> x[GF_GROUP];
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const unsigned sel = p.sel[i][s];
+      for (int i = 0; i < GF_GROUP; ++i) {
+        if (i < kg) {
+          x[i] = load_cols<V>(in + i * s_bytes, second);
+        } else {
 #pragma unroll
-        for (int j = 0; j < R; ++j) {
-          if (sel & (1u << j)) {
-#pragma unroll
-            for (int q = 0; q < V; ++q) acc[j].w[q] ^= x.w[q];
-          }
-        }
-        if (s != 7) {
-#pragma unroll
-          for (int q = 0; q < V; ++q) x.w[q] = xtime(x.w[q]);
+          for (int q = 0; q < V; ++q) x[i].w[q] = 0u;
         }
       }
-    }
-    uint8_t* dst = out + b * R * s_bytes + off;
 #pragma unroll
-    for (int j = 0; j < R; ++j) store_vec<V>(dst + j * s_bytes, acc[j]);
+      for (int j = 0; j < R; ++j) {
+        const int top = p.top[g][j];
+        Vec<V> h;
+#pragma unroll
+        for (int q = 0; q < V; ++q) h.w[q] = 0u;
+#pragma unroll
+        for (int s = 7; s >= 0; --s) {
+          if (s > top) continue;
+          if (s < top) {
+#pragma unroll
+            for (int q = 0; q < V; ++q) h.w[q] = xtime(h.w[q]);
+          }
+          const unsigned m = p.mask[g][j][s];
+#pragma unroll
+          for (int i = 0; i < GF_GROUP; ++i) {
+            if (m & (1u << i)) {
+#pragma unroll
+              for (int q = 0; q < V; ++q) h.w[q] ^= x[i].w[q];
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < V; ++q) acc[j].w[q] ^= h.w[q];
+      }
+    }
+    uint8_t* dst = out + st * R * s_bytes + col * kBytes;
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      store_cols<V>(dst + j * s_bytes, acc[j], second);
   }
 }
 
@@ -186,18 +277,19 @@ unsigned grid_for(long long total) {
 
 int launch_spec(const SpecParams& p, int r, int k, const uint8_t* data,
                 uint8_t* out, long long b, long long s, cudaStream_t stream) {
-  const int v = (s % 16 == 0) ? 4 : 1;
-  const long long n_vec = s / (4 * v);
-  const long long total = b * n_vec;
-  const unsigned grid = grid_for(total);
-#define GF_SPEC_CASE(RR)                                                    \
-  case RR:                                                                  \
-    if (v == 4)                                                             \
-      gf_spec_kernel<RR, 4><<<grid, kThreads, 0, stream>>>(p, k, data, out, \
-                                                           n_vec, total, s); \
-    else                                                                    \
-      gf_spec_kernel<RR, 1><<<grid, kThreads, 0, stream>>>(p, k, data, out, \
-                                                           n_vec, total, s); \
+  const bool wide = s % 16 == 0;
+  const long long n_col = wide ? s / 16 : s / 4;
+  const long long per_block = wide ? 2 * kSpecThreads : kSpecThreads;
+  const dim3 grid((unsigned)((n_col + per_block - 1) / per_block),
+                  (unsigned)(b < 65535 ? b : 65535));
+#define GF_SPEC_CASE(RR)                                                   \
+  case RR:                                                                 \
+    if (wide)                                                              \
+      gf_spec_kernel<RR, 8><<<grid, kSpecThreads, 0, stream>>>(            \
+          p, k, data, out, n_col, b, s);                                   \
+    else                                                                   \
+      gf_spec_kernel<RR, 1><<<grid, kSpecThreads, 0, stream>>>(            \
+          p, k, data, out, n_col, b, s);                                   \
     break;
   switch (r) {
     GF_CASES(GF_SPEC_CASE)
@@ -241,18 +333,25 @@ bool bad_shape(int r, int k, long long b, long long s) {
 
 extern "C" {
 
-// sel: host array of k * 8 uint16 (row i, ladder step s); data (b, k, s) and
-// out (b, r, s) are device pointers, 16-byte aligned.  Returns a cudaError_t.
-int gf_matmul_spec(const uint16_t* sel, int r, int k, int device,
-                   const void* data, void* out, long long b, long long s,
-                   void* stream) {
+// masks: host array of ceil(k / 8) * r * 8 uint8 (group, row, bit) and tops
+// of ceil(k / 8) * r int8 (group, row), as ops/gf_kernels.spec_schedule
+// builds them; data (b, k, s) and out (b, r, s) are device pointers, 16-byte
+// aligned.  Returns a cudaError_t.
+int gf_matmul_spec(const uint8_t* masks, const int8_t* tops, int r, int k,
+                   int device, const void* data, void* out, long long b,
+                   long long s, void* stream) {
   if (bad_shape(r, k, b, s)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   SpecParams p;
   memset(&p, 0, sizeof(p));
-  for (int i = 0; i < k; ++i)
-    for (int st = 0; st < 8; ++st) p.sel[i][st] = sel[i * 8 + st];
+  const int groups = (k + GF_GROUP - 1) / GF_GROUP;
+  for (int g = 0; g < groups; ++g)
+    for (int j = 0; j < r; ++j) {
+      p.top[g][j] = tops[g * r + j];
+      for (int st = 0; st < 8; ++st)
+        p.mask[g][j][st] = masks[(g * r + j) * 8 + st];
+    }
   return launch_spec(p, r, k, static_cast<const uint8_t*>(data),
                      static_cast<uint8_t*>(out), b, s,
                      static_cast<cudaStream_t>(stream));

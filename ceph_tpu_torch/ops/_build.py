@@ -23,7 +23,8 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,7 +34,7 @@ _LL = ctypes.c_longlong
 # as c_void_p, so ctypes never truncates them to 32-bit ints)
 _SIGNATURES = {
     "gf_matmul": {
-        "gf_matmul_spec": (_P, _I, _I, _I, _P, _P, _LL, _LL, _P),
+        "gf_matmul_spec": (_P, _P, _I, _I, _I, _P, _P, _LL, _LL, _P),
         "gf_matmul_gen": (_P, _I, _I, _I, _P, _P, _LL, _LL, _P),
     },
     "crc32c": {

@@ -1,26 +1,29 @@
 """GF(2^8) matrix x stripe-batch kernels (port of ceph_tpu/ops/gf_pallas.py).
 
-Two CUDA kernels in csrc/gf_matmul.cu share the packed-word xtime ladder:
-each 32-bit word carries 4 data bytes, and multiplying a word by x (the
-GF(2^8) doubling step, polynomial 0x11d) is
+Both CUDA kernels in csrc/gf_matmul.cu work on packed 32-bit words: each
+word carries 4 data bytes, and multiplying a word by x (the GF(2^8)
+doubling step, polynomial 0x11d) is
 
     hi  = (v >> 7) & 0x01010101      # bit 7 of every byte, logical shift
     out = ((v << 1) & 0xfefefefe) ^ (hi * 0x1d)
 
-A coefficient c contributes the XOR of the ladder powers selected by its
-set bits.
-
 * `gf_matmul_spec` serves the generators registered by codecs
-  (`register_matrix`, at most 64): the host resolves the matrix into the
-  XOR selection per (input, ladder step), and the kernel XORs each power
-  into the selected outputs only.
+  (`register_matrix`, at most 64).  It runs a Horner schedule per output:
+  with P[j][s] the XOR of the inputs whose coefficient in row j has bit s
+  set, row j is acc = P[j][top], then acc = xtime(acc) ^ P[j][s] for s
+  from top - 1 down to 0 (multiplying by x is GF(2)-linear, so this equals
+  the sum of the coefficient products bit for bit).  The inputs are held
+  in registers in groups of up to 8; `spec_schedule` resolves the matrix
+  on the host into one input mask per (group, output, bit) and each
+  (group, output)'s top bit, which is exactly what the kernel receives.
 * `gf_matmul_gen` serves every other matrix (the decode rows, which vary
-  with the erasure pattern): the kernel ANDs each power with the mask
-  -(c >> s & 1).  One build covers every matrix.
+  with the erasure pattern): the kernel walks the ladder of powers of
+  each input and ANDs each power with the mask -(c >> s & 1).  One build
+  covers every matrix.
 
 The interface is bytes: (..., K, S) uint8 in, (..., R, S) uint8 out, any
 S % 4 == 0.  On a CUDA tensor each wrapper launches its kernel or raises;
-on a CPU tensor it runs the plain version below, which repeats the same
+on a CPU tensor it runs the plain version below, which repeats the
 ladder on int32 words in PyTorch.
 """
 
@@ -31,25 +34,29 @@ import torch
 
 from ceph_tpu_torch.ops import _build
 
-MAX_R = 16  # GF_MAX_R / GF_MAX_K of csrc/gf_matmul.cu
+MAX_R = 16  # GF_MAX_R / GF_MAX_K / GF_GROUP of csrc/gf_matmul.cu
 MAX_K = 64
+GROUP = 8   # inputs the spec kernel holds in registers at once
 
 _MFE = int(0xFEFEFEFE) - (1 << 32)  # as signed int32 literals
 
 # Encode matrices registered by codecs: these (and only these) take the
-# specialised kernel; everything else takes the generic one.
-_registered: set = set()
+# specialised kernel; everything else takes the generic one.  Each keeps
+# its spec_schedule, built once here instead of on every launch (it takes
+# tens of microseconds of host time).
+_registered: dict = {}
 
 
 def _coeff_key(matrix: np.ndarray) -> tuple:
-    m = np.asarray(matrix, dtype=np.uint8)
-    return tuple(tuple(int(c) for c in row) for row in m)
+    m = np.ascontiguousarray(matrix, dtype=np.uint8)
+    return m.shape, m.tobytes()
 
 
 def register_matrix(matrix: np.ndarray) -> None:
     """Mark a generator matrix as hot: it takes the specialised kernel."""
-    if len(_registered) < 64:
-        _registered.add(_coeff_key(matrix))
+    key = _coeff_key(matrix)
+    if key not in _registered and len(_registered) < 64:
+        _registered[key] = spec_schedule(matrix)
 
 
 def is_registered(matrix: np.ndarray) -> bool:
@@ -98,6 +105,28 @@ def gf_matmul_spec_plain(matrix: np.ndarray,
     zero = torch.zeros_like(w[..., 0, :])
     out = torch.stack([zero if a is None else a for a in acc], dim=-2)
     return out.view(torch.uint8)
+
+
+def spec_schedule(matrix: np.ndarray) -> tuple:
+    """The spec kernel's schedule of a matrix, as the kernel receives it.
+
+    Returns (masks, tops): masks (G, R, 8) uint8 with G = ceil(K / 8),
+    bit i of masks[g, j, s] set when bit s of M[j, 8g + i] is set (so
+    P[j][s] of group g is the XOR of the inputs its bits select); tops
+    (G, R) int8, the highest s with a nonzero mask in group g, row j, or
+    -1 when the group adds nothing to row j."""
+    m = np.asarray(matrix, dtype=np.uint8)
+    r, k = m.shape
+    g = -(-k // GROUP)
+    padded = np.zeros((r, g * GROUP), dtype=np.uint8)
+    padded[:, :k] = m
+    bits = (padded.reshape(r, g, GROUP, 1) >> np.arange(8, dtype=np.uint8)) & 1
+    masks = (bits << np.arange(GROUP, dtype=np.uint8)[:, None]).sum(
+        axis=2, dtype=np.uint8).transpose(1, 0, 2)            # (G, R, 8)
+    nz = masks != 0
+    tops = np.where(nz.any(axis=-1), 7 - np.argmax(nz[..., ::-1], axis=-1),
+                    -1).astype(np.int8)
+    return np.ascontiguousarray(masks), np.ascontiguousarray(tops)
 
 
 def gf_matmul_gen_plain(matrix: np.ndarray,
@@ -171,17 +200,15 @@ def gf_matmul_spec(matrix: np.ndarray, data: torch.Tensor,
     m, r, k, s, b, out = _check_cuda(matrix, data, out)
     if b == 0:
         return out
-    bits = (m[:, :, None] >> np.arange(8)) & 1                 # (R, K, 8)
-    sel = np.ascontiguousarray(
-        (bits.astype(np.uint16) << np.arange(r, dtype=np.uint16)[:, None,
-                                                                  None])
-        .sum(axis=0, dtype=np.uint16))                         # (K, 8)
+    sched = _registered.get(_coeff_key(m))
+    masks, tops = sched if sched is not None else spec_schedule(m)
     lib = _build.load()["gf_matmul"]
     gf_matmul_spec.launches += 1
     _build.check(lib.gf_matmul_spec(
-        sel.ctypes.data, r, k, data.device.index or 0, data.data_ptr(),
-        out.data_ptr(), b, s, torch.cuda.current_stream(data.device)
-        .cuda_stream), "gf_matmul_spec")
+        masks.ctypes.data, tops.ctypes.data, r, k, data.device.index or 0,
+        data.data_ptr(), out.data_ptr(), b, s,
+        torch.cuda.current_stream(data.device).cuda_stream),
+        "gf_matmul_spec")
     return out
 
 

@@ -11,8 +11,12 @@ Phases; any failure exits nonzero and prints no result line:
    took and what ptxas reports (registers, spills).
 2. Hold every kernel against its plain PyTorch version on the card at the
    main path's shapes, bit-exact: the specialised GF kernel on RS 8+3
-   (reed_sol_van) over 64 stripes of 8 x 512 KiB; the generic GF kernel on
-   every single-erasure decode matrix of that code and one 3-erasure
+   (reed_sol_van) over 64 stripes of 8 x 512 KiB, and also on RS 10+4 over
+   64 stripes of 10 x 512 KiB (two input groups), RS 8+3 over 16384
+   stripes of 2052 bytes (single words), a random 16 x 64 matrix (the
+   kernel's limits), RS 8+3 at 4096 and 12304 bytes (the column tail of
+   the 16-byte path) and RS 8+3 with a zero row and a zero column; the
+   generic GF kernel on every single-erasure decode matrix of that code and one 3-erasure
    matrix; the crc kernel on 704 blocks of 512 KiB (seeds 0 and
    0xFFFFFFFF), 90112 of 4 KiB and 4096 of 2052 bytes (a length that is
    no multiple of 128 or 16).
@@ -28,7 +32,9 @@ Phases; any failure exits nonzero and prints no result line:
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
-   512 KiB) and at 90112 blocks of 4 KiB, and the end-to-end encode,
+   512 KiB) and at 90112 blocks of 4 KiB, the generic GF kernel also on
+   the RS 8+3 generator (the specialised kernel's yardstick), and the
+   end-to-end encode,
    decode and fused encode+crc in GiB/s of object data (host clock,
    median of 3).
 
@@ -66,6 +72,16 @@ GEN_OPS_PER_BIT = 1         # lop3: acc ^= power & mask
 CRC_OPS_PER_WORD = 7        # xor, 4 byte extracts, 2 lop3 for 3 xors
 
 
+def spec_ops_per_word(gf_kernels, matrix) -> int:
+    """The spec kernel's Horner schedule per column word: xtime steps
+    below each (group, row)'s top bit, one XOR per set coefficient bit,
+    and one XOR of each (group, row) result into its accumulator."""
+    masks, tops = gf_kernels.spec_schedule(matrix)
+    set_bits = int(np.unpackbits(masks).sum())
+    return (XTIME_OPS * int(np.maximum(tops, 0).sum()) + set_bits
+            + int((tops >= 0).sum()))
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -74,22 +90,6 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
-
-
-def cuda_median_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def host_median_s(torch, fn, reps: int = 3) -> float:
@@ -124,15 +124,14 @@ def main() -> None:
         from ceph_tpu_torch.ops import checksum as cks
         from ceph_tpu_torch.ops.gf import gf_matmul_ref
         from ceph_tpu_torch.osd import ec_util
+        from ceph_tpu_torch.tools.kernel_shapes import alone_ms, card_name
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    try:
+        card = card_name()
+    except (OSError, subprocess.SubprocessError) as e:
+        fail(f"nvidia-smi failed: {e}")
     print(card)
     print(json.dumps({"python": sys.version.split()[0],
                       "torch": torch.__version__,
@@ -176,8 +175,31 @@ def main() -> None:
     def u32(t):
         return t.to(torch.int64) & 0xFFFFFFFF
 
-    spec_err = err(gf_kernels.gf_matmul_spec(rs_mat, data),
-                   gf_kernels.gf_matmul_spec_plain(rs_mat, data))
+    zero_mat = rs_mat.copy()
+    zero_mat[1] = 0
+    zero_mat[:, 5] = 0
+    wide_mat = np.random.default_rng(SEED).integers(
+        0, 256, (gf_kernels.MAX_R, gf_kernels.MAX_K)).astype(np.uint8)
+    n_odd = 16384                        # stripes of odd_len-byte chunks
+    spec_cases = {
+        "rs8+3": (rs_mat, data),
+        "rs10+4": (rs.reed_sol_van_matrix(10, 4),
+                   blocks[:B * 10].view(B, 10, CHUNK)),
+        "rs8+3 S=2052": (rs_mat, blocks.view(-1)[:n_odd * K * odd_len]
+                         .view(n_odd, K, odd_len)),
+        "16x64": (wide_mat, blocks.view(-1)[:4 * 64 * (64 << 10)]
+                  .view(4, 64, 64 << 10)),
+        # chunks that fill no whole block of 512 uint4 columns: at 4096
+        # bytes no thread has a second uint4, at 12304 some have one
+        "rs8+3 S=4096": (rs_mat, blocks.view(-1)[:2048 * K * 4096]
+                         .view(2048, K, 4096)),
+        "rs8+3 S=12304": (rs_mat, blocks.view(-1)[:1024 * K * 12304]
+                          .view(1024, K, 12304)),
+        "zero row and column": (zero_mat, data)}
+    spec_errs = {name: err(gf_kernels.gf_matmul_spec(mat, d),
+                           gf_kernels.gf_matmul_spec_plain(mat, d))
+                 for name, (mat, d) in spec_cases.items()}
+    spec_err = max(spec_errs.values())
     singles = [rs.decode_matrix(rs_mat, K, [e],
                                 [i for i in range(K + M) if i != e][:K])
                for e in range(K + M)]
@@ -196,6 +218,9 @@ def main() -> None:
     sync()
     print(json.dumps({"phase": "kernels_vs_plain", "gf_matmul_spec": spec_err,
                       "gf_matmul_gen": gen_err, "crc32c_blocks": crc_err,
+                      "spec_shapes": {name: [list(d.shape), e] for (name, (
+                          _, d)), e in zip(spec_cases.items(),
+                                           spec_errs.values())},
                       "gen_matrices": len(singles) + 1,
                       "crc_shapes": [[B * (K + M), CHUNK],
                                      [blocks_4k.shape[0], 4096],
@@ -275,12 +300,11 @@ def main() -> None:
     one_out = torch.empty((B, 1, CHUNK), dtype=torch.uint8, device=dev)
     crc_out = torch.empty(blocks.shape[0], dtype=torch.int32, device=dev)
     words = B * CHUNK // 4                       # 32-bit words per input row
-    set_bits = sum(bin(int(c)).count("1") for c in rs_mat.reshape(-1))
     rows = []
 
     def row(name, route, source, replaces, fn, plain, n_bytes, ops):
-        ms = cuda_median_ms(torch, fn)
-        plain_ms = cuda_median_ms(torch, plain, reps=5, warmup=1)
+        ms = alone_ms(fn)
+        plain_ms = alone_ms(plain, reps=5, warmup=1)
         b_ms, by = bound(n_bytes, ops)
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": launches[name],
@@ -295,7 +319,7 @@ def main() -> None:
         "ceph_tpu/ops/gf_pallas.py:137",
         lambda: gf_kernels.gf_matmul_spec(rs_mat, data, out=parity_out),
         lambda: gf_kernels.gf_matmul_spec_plain(rs_mat, data),
-        B * (K + M) * CHUNK, words * (K * 7 * XTIME_OPS + set_bits)))
+        B * (K + M) * CHUNK, words * spec_ops_per_word(gf_kernels, rs_mat)))
     rows.append(row(
         "gf_matmul_gen", "cuda", "ceph_tpu_torch/csrc/gf_matmul.cu",
         "ceph_tpu/ops/gf_pallas.py:158",
@@ -312,11 +336,19 @@ def main() -> None:
         n_blk * CHUNK + 4 * n_blk, n_blk * CHUNK // 4 * CRC_OPS_PER_WORD))
 
     # other shapes the main path and its users give the kernels
-    triple_ms = cuda_median_ms(
-        torch, lambda: gf_kernels.gf_matmul_gen(triple, data))
+    triple_ms = alone_ms(
+        lambda: gf_kernels.gf_matmul_gen(triple, data))
     extra = [{"name": "gf_matmul_gen", "erasures": 3, "ms": triple_ms,
               "bound_ms": bound(B * (K + 3) * CHUNK, words * K * (
                   7 * XTIME_OPS + 8 * 3 * GEN_OPS_PER_BIT))[0]}]
+    # the generic kernel on the encode matrix: the yardstick of the
+    # specialised one on the same work
+    extra.append({
+        "name": "gf_matmul_gen", "matrix": "rs8+3 generator",
+        "ms": alone_ms(lambda: gf_kernels.gf_matmul_gen(
+            rs_mat, data, out=parity_out)),
+        "bound_ms": bound(B * (K + M) * CHUNK, words * K * (
+            7 * XTIME_OPS + 8 * M * GEN_OPS_PER_BIT))[0]})
     # the crc launches of plan.encode_with_crc (data chunks, then parity
     # chunks) and BlueStore-style 4 KiB block checksums
     for blk, length in ((blocks[:B * K], CHUNK), (blocks[B * K:], CHUNK),
@@ -325,7 +357,7 @@ def main() -> None:
         nb_out = torch.empty(nb, dtype=torch.int32, device=dev)
         extra.append({
             "name": "crc32c_blocks", "blocks": nb, "length": length,
-            "ms": cuda_median_ms(torch, lambda: crc_kernels.crc32c_blocks(
+            "ms": alone_ms(lambda: crc_kernels.crc32c_blocks(
                 blk, length, 0, out=nb_out)),
             "bound_ms": bound(nb * (length + 4),
                               nb * length // 4 * CRC_OPS_PER_WORD)[0]})

@@ -1,16 +1,19 @@
 """ceph_tpu_torch GF(2^8) layer against the JAX package, on the CPU.
 
 The port's host tables and helpers, the plain versions of its two GF
-kernels and its bit-decomposition product are held bit-for-bit against
-ceph_tpu.ops.gf and the Pallas kernels of ceph_tpu.ops.gf_pallas (run in
-interpret mode).  Inputs come from numpy with fixed seeds; every output is
-an integer, so the tolerance is exact equality.
+kernels, the spec kernel's schedule (replayed on the CPU) and its
+bit-decomposition product are held bit-for-bit against ceph_tpu.ops.gf and
+the Pallas kernels of ceph_tpu.ops.gf_pallas (run in interpret mode).
+Inputs come from numpy with fixed seeds; every output is an integer, so the
+tolerance is exact equality.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from ceph_tpu.models import reed_solomon as jrs
 from ceph_tpu.ops import gf as jgf
@@ -165,3 +168,134 @@ def test_plain_rejects_unaligned_chunks():
     with pytest.raises(ValueError):
         gf_kernels.gf_matmul_spec_plain(mat, torch.zeros((3, 8),
                                                          dtype=torch.uint8))
+
+
+def _random(r, k, seed):
+    return np.random.default_rng(seed).integers(0, 256, (r, k)).astype(
+        np.uint8)
+
+
+def _zero_row():
+    m = trs.reed_sol_van_matrix(8, 3)
+    m[1] = 0
+    return m
+
+
+def _zero_col():
+    m = trs.reed_sol_van_matrix(8, 3)
+    m[:, 5] = 0
+    return m
+
+
+def _spec_replay(matrix, data):
+    """The spec kernel's schedule, replayed on int32 words in its order:
+    for each group of up to 8 inputs, each row runs Horner from its top
+    bit down and its result XORs into the row's accumulator."""
+    masks, tops = gf_kernels.spec_schedule(matrix)
+    r, k = np.asarray(matrix).shape
+    w = gf_kernels._words(data, k)
+    acc = [torch.zeros_like(w[..., 0, :]) for _ in range(r)]
+    for g in range(masks.shape[0]):
+        x = [w[..., g * gf_kernels.GROUP + i, :]
+             for i in range(min(gf_kernels.GROUP, k - g * gf_kernels.GROUP))]
+        for j in range(r):
+            top = int(tops[g, j])
+            h = torch.zeros_like(acc[j])
+            for s in range(top, -1, -1):
+                if s < top:
+                    h = gf_kernels._xtime(h)
+                for i, xi in enumerate(x):
+                    if (int(masks[g, j, s]) >> i) & 1:
+                        h = h ^ xi
+            acc[j] = acc[j] ^ h
+    return torch.stack(acc, dim=-2).view(torch.uint8)
+
+
+# (matrix, stripes, chunk bytes): the spec kernel's schedule cases: one
+# group and two (10+4), a one-input tail group (K = 9), the kernel's
+# limits (R = 16, K = 64), k = 1, a Cauchy generator, a zero row (top -1)
+# and a zero column, and chunk lengths that are no multiple of 512 bytes
+# (544) or of 16 (2052).  The replay walks words one by one; how the
+# kernel splits a row into uint4 columns, and its tail of the last block
+# of columns, can be checked only on the card (chip_smoke.py phase 2).
+SPEC_CASES = {
+    "rs8+3": (lambda: trs.reed_sol_van_matrix(8, 3), 2, 1024),
+    "rs4+2": (lambda: trs.reed_sol_van_matrix(4, 2), 3, 512),
+    "rs10+4": (lambda: trs.reed_sol_van_matrix(10, 4), 2, 1024),
+    "k9": (lambda: _random(3, 9, 9), 2, 512),
+    "r16k64": (lambda: _random(16, 64, 64), 1, 512),
+    "k1": (lambda: trs.reed_sol_van_matrix(1, 2), 2, 512),
+    "cauchy6+3": (lambda: trs.cauchy_good_matrix(6, 3), 2, 512),
+    "zero_row": (_zero_row, 2, 512),
+    "zero_col": (_zero_col, 2, 512),
+    "s544": (lambda: trs.reed_sol_van_matrix(8, 3), 2, 544),
+    "s2052": (lambda: trs.reed_sol_van_matrix(8, 3), 2, 2052),
+}
+
+
+@pytest.mark.parametrize("case", list(SPEC_CASES))
+def test_spec_replay_matches_pallas_spec_kernel(pallas_interpret, case):
+    """The spec kernel's schedule (groups of 8 inputs, Horner per row from
+    its top bit, XOR into the accumulators), replayed on int32 words,
+    equals the JAX specialised kernel and the plain version.  Pallas takes
+    chunks of whole 512-byte rows, so a shorter tail is zero-padded for it
+    and cut off after (the product is word by word)."""
+    make, b, s = SPEC_CASES[case]
+    mat = make()
+    k = mat.shape[1]
+    data = np.random.default_rng(70 + s + k).integers(
+        0, 256, (b, k, s), dtype=np.uint8)
+    got = _spec_replay(mat, torch.from_numpy(data))
+    assert got.shape == (b, mat.shape[0], s)
+    assert torch.equal(got, gf_kernels.gf_matmul_spec_plain(
+        mat, torch.from_numpy(data)))
+    pallas_interpret.register_matrix(mat)
+    padded = np.zeros((b, k, -(-s // 512) * 512), dtype=np.uint8)
+    padded[..., :s] = data
+    want = pallas_interpret.gf_matmul_pallas(mat, padded)[..., :s]
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", list(SPEC_CASES))
+def test_spec_schedule_masks_and_tops(case):
+    """masks[g, j, s] bit i is bit s of M[j, 8g + i]; tops[g, j] is the
+    highest s with a nonzero mask, -1 for none; shapes follow the groups."""
+    mat = SPEC_CASES[case][0]()
+    r, k = mat.shape
+    masks, tops = gf_kernels.spec_schedule(mat)
+    groups = -(-k // gf_kernels.GROUP)
+    assert masks.shape == (groups, r, 8) and masks.dtype == np.uint8
+    assert tops.shape == (groups, r) and tops.dtype == np.int8
+    for g in range(groups):
+        for j in range(r):
+            for s in range(8):
+                want = sum(1 << i for i in range(gf_kernels.GROUP)
+                           if g * 8 + i < k and (mat[j, g * 8 + i] >> s) & 1)
+                assert masks[g, j, s] == want
+            set_s = [s for s in range(8) if masks[g, j, s]]
+            assert tops[g, j] == (max(set_s) if set_s else -1)
+
+
+def test_spec_schedule_xtime_count_rs8_3():
+    """RS 8+3 needs 14 xtime steps per column word on the Horner schedule
+    (row 0 is all ones; rows 1 and 2 reach bit 7), against the 56 of a
+    ladder of powers per input, and 83 XORs for its 83 set bits."""
+    masks, tops = gf_kernels.spec_schedule(trs.reed_sol_van_matrix(8, 3))
+    assert tops.tolist() == [[0, 7, 7]]
+    assert int(np.maximum(tops, 0).sum()) == 14
+    assert int(np.unpackbits(masks).sum()) == 83
+
+
+@settings(max_examples=25, deadline=None)
+@given(r=st.integers(1, gf_kernels.MAX_R), k=st.integers(1, gf_kernels.MAX_K),
+       words=st.integers(1, 3), seed=st.integers(0, 2**32 - 1))
+def test_spec_replay_matches_plain_property(r, k, words, seed):
+    """Any matrix within the kernel's limits: the replayed schedule equals
+    the plain version bit for bit."""
+    rng = np.random.default_rng(seed)
+    mat = rng.integers(0, 256, (r, k)).astype(np.uint8)
+    mat[rng.random((r, k)) < 0.2] = 0
+    data = torch.from_numpy(rng.integers(0, 256, (2, k, 4 * words),
+                                         dtype=np.uint8))
+    assert torch.equal(_spec_replay(mat, data),
+                       gf_kernels.gf_matmul_spec_plain(mat, data))
