@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)      # a host int array (the rule)
 
 # C entry points and their argument types (every pointer and the stream
 # as c_void_p, so ctypes never truncates them to 32-bit ints)
@@ -40,6 +41,10 @@ _SIGNATURES = {
     "crc32c": {
         "crc32c_blocks": (_P, _I, _P, _LL, _LL, _LL, _I, _P, _P),
         "crc32c_smem_bytes": (),
+    },
+    "crush": {
+        "crush_do_rule_batch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _PI, _I, _P, _LL, _P, _P),
     },
 }
 

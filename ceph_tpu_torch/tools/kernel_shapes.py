@@ -2,7 +2,8 @@
 """Time the port's kernels at the shapes the main path gives them, on one
 CUDA card.
 
-    python3 ceph_tpu_torch/tools/kernel_shapes.py {crc,gf} [--root DIR] [--sass]
+    python3 ceph_tpu_torch/tools/kernel_shapes.py {crc,gf,crush} [--root DIR]
+                                                  [--sass]
 
 `--root` names the checkout whose ceph_tpu_torch is built and timed
 (default: the one holding this script), so that two versions of a kernel
@@ -32,6 +33,21 @@ and, with `--sass`, the instructions of each spec kernel that runs RS 8+3
 (R = 3) by opcode and by a few forms (predicated, XOR, mask test, xtime
 shift), counted over the whole function in `cuobjdump -sass` of the built
 library: every branch's body counts once, taken or not.
+
+crush: crush_do_rule_batch on the 10,000-OSD map of chip_smoke.py
+(build_flat_cluster(10000, 20, 10): 50 racks, 500 hosts, straw2) over
+x = 0 .. 2^20 - 1, for the replicated rule (chooseleaf firstn over hosts,
+3 replicas) and the EC rule (set_chooseleaf_tries 5, chooseleaf indep
+over hosts, 11 = 8+3 slots), each with all OSDs in and with a rebalance
+weight vector (a seeded 5% of OSDs out, another 10% at weight 0x8000).
+Each shape is checked bit for bit against the plain version on all 2^20
+inputs, which also counts the straw2 draws and is_out hashes the inputs
+need; "bound_ms" there is those operations at 33.5 T lane-instructions/s
+(the kernel moves a few tens of MB, far under that time at 3.35 TB/s),
+and "plain_ms" the plain version's time on the card (host clock).  With
+`--sass` it also counts the instructions of the straw2 draw loop in
+`cuobjdump -sass` of the built library (crush_sass), from which DRAW_OPS
+below is taken.
 """
 
 from __future__ import annotations
@@ -44,8 +60,11 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
+from typing import List, NamedTuple
 
+import numpy as np
 import torch
 
 REPS = 20
@@ -55,6 +74,21 @@ CRC_SHAPES = ((704, 512 << 10), (512, 512 << 10), (192, 512 << 10),
               (90112, 4096))
 GF_SHAPES = (("rs8+3", 8, 3, 64, 512 << 10), ("rs10+4", 10, 4, 64, 512 << 10),
              ("rs8+3 S=2052", 8, 3, 16384, 2052))
+# H100 SXM: 67 TFLOP/s of FP32 outside the tensor cores, i.e. 33.5 T
+# lane-instructions per second; no integer instruction issues faster
+INT_OPS_PER_S = 67e12 / 2
+CRUSH_INPUTS = 1 << 20
+CRUSH_RULES = (("replicated", 0, 3), ("ec8+3", 1, 11))
+# Instructions a straw2 draw of the placement kernel executes at least,
+# counted in its SASS by `crush --sass` (draw_paths) on the H100 build of
+# csrc/crush.cu (CUDA 12.8): 177-186 from the loop's head to the CALL of
+# the signed 64-bit division routine (the hash32_3 is 139 of them), 83 in
+# the routine, 15-19 after it, 279-284 per draw over the four inlined
+# copies of straw2; the least is taken.  An is_out test that hashes is a
+# hash32_2 (two XORs and three mix rounds of 27) and about 4 more, an
+# estimate (under a thousandth of the draws' instructions here).
+DRAW_OPS = 279
+IS_OUT_OPS = 2 + 3 * 27 + 4
 
 
 def card_name() -> str:
@@ -161,6 +195,160 @@ def gf_shapes(dev, gen) -> list:
     return shapes
 
 
+def crush_map_10k():
+    """BASELINE config 4's map with the replicated rule (rule 0) and the
+    EC rule of tests/test_crush.py (rule 1)."""
+    from ceph_tpu_torch.crush.map import (
+        CRUSH_RULE_CHOOSELEAF_INDEP, CRUSH_RULE_EMIT,
+        CRUSH_RULE_SET_CHOOSELEAF_TRIES, CRUSH_RULE_TAKE, Rule, RuleStep,
+        build_flat_cluster)
+    cmap = build_flat_cluster(10000, osds_per_host=20, hosts_per_rack=10)
+    cmap.add_simple_rule("data", "default", "host", mode="firstn")
+    cmap.add_rule(Rule("ec", [
+        RuleStep(CRUSH_RULE_SET_CHOOSELEAF_TRIES, 5),
+        RuleStep(CRUSH_RULE_TAKE, cmap.name_to_item("default")),
+        RuleStep(CRUSH_RULE_CHOOSELEAF_INDEP, 0, cmap.type_id("host")),
+        RuleStep(CRUSH_RULE_EMIT)], rule_type=3))
+    return cmap
+
+
+def crush_weights(cmap, seed: int = SEED) -> dict:
+    """{"all in": ..., "rebalance": ...}: the rebalance vector puts a
+    seeded 5% of the devices out (0) and another 10% at 0x8000."""
+    n = cmap.max_devices
+    order = np.random.default_rng(seed).permutation(n)
+    w = np.full(n, 0x10000, dtype=np.int64)
+    w[order[: n // 20]] = 0
+    w[order[n // 20: n // 20 + n // 10]] = 0x8000
+    return {"all in": cmap.full_weight_vector(), "rebalance": w.tolist()}
+
+
+def random_crush_case(seed: int, levels: int, firstn: bool, leaf: bool,
+                      result_max: int, numrep_past: int = 0):
+    """A seeded random straw2 hierarchy with one rule (rule 0) and a weight
+    vector -> (cmap, weight, numrep).
+
+    root (type `levels`) -> ... -> devices, bucket sizes 1-12 (1 once 120
+    devices exist), item weights including 0 and buckets at weight 0;
+    random tunables (chooseleaf_vary_r 0-3, chooseleaf_stable,
+    chooseleaf_descend_once, choose_total_tries 1-19); the rule takes the
+    root, then CHOOSE(LEAF)_FIRSTN or _INDEP to a random type (with `leaf`
+    and levels > 1, CHOOSELEAF to a type above the devices) with numrep in
+    (-result_max, result_max + numrep_past], at times after a
+    SET_CHOOSELEAF_TRIES step; the weight vector puts devices out, partly
+    in and in."""
+    from ceph_tpu_torch.crush.map import (
+        CRUSH_RULE_CHOOSELEAF_FIRSTN, CRUSH_RULE_CHOOSELEAF_INDEP,
+        CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSE_INDEP, CRUSH_RULE_EMIT,
+        CRUSH_RULE_SET_CHOOSELEAF_TRIES, CRUSH_RULE_TAKE, CrushMap, Rule,
+        RuleStep)
+    rng = np.random.default_rng(seed)
+    cmap = CrushMap()
+    cmap.types = {t: f"t{t}" for t in range(levels + 1)}
+    weights = (0, 0x8000, 0x10000, 0x10000, 0x30000)
+
+    def build(level: int):
+        if level == 0:
+            dev = cmap.max_devices
+            cmap.add_device(dev)
+            w = int(rng.choice(weights)) if rng.random() < 0.8 else int(
+                rng.integers(1, 0x40000))
+            return dev, w
+        b = cmap.add_bucket(None, level, f"b{len(cmap.buckets)}")
+        size = int(rng.integers(1, 13)) if cmap.max_devices < 120 else 1
+        for _ in range(size):
+            item, w = build(level - 1)
+            b.add_item(item, w)
+        return b.id, (b.weight if rng.random() < 0.9 else 0)
+
+    root, _ = build(levels)
+    cmap.chooseleaf_vary_r = int(rng.integers(0, 4))
+    cmap.chooseleaf_stable = int(rng.integers(0, 2))
+    cmap.chooseleaf_descend_once = int(rng.integers(0, 2))
+    cmap.choose_total_tries = int(rng.integers(1, 20))
+    leaf = leaf and levels > 1
+    target = int(rng.integers(1 if leaf else 0, levels))
+    if leaf:
+        op = (CRUSH_RULE_CHOOSELEAF_FIRSTN if firstn
+              else CRUSH_RULE_CHOOSELEAF_INDEP)
+    else:
+        op = CRUSH_RULE_CHOOSE_FIRSTN if firstn else CRUSH_RULE_CHOOSE_INDEP
+    numrep = int(rng.integers(-result_max + 1, result_max + numrep_past + 1))
+    steps = [RuleStep(CRUSH_RULE_TAKE, root), RuleStep(op, numrep, target),
+             RuleStep(CRUSH_RULE_EMIT)]
+    if rng.random() < 0.5:
+        steps.insert(0, RuleStep(CRUSH_RULE_SET_CHOOSELEAF_TRIES,
+                                 int(rng.integers(1, 6))))
+    cmap.add_rule(Rule("r", steps))
+    weight = [int(rng.choice((0, 0x4000, 0xC000, 0x10000, 0x10000)))
+              for _ in range(cmap.max_devices)]
+    return cmap, weight, numrep
+
+
+def crush_ops(stats: dict) -> int:
+    """Instructions the placement arithmetic of one run needs, from the
+    plain version's counts of draws and is_out hashes."""
+    return stats["draws"] * DRAW_OPS + stats["is_out_hashes"] * IS_OUT_OPS
+
+
+def crush_bound_ms(stats: dict, n: int, result_max: int) -> float:
+    """The operations bound; the bytes (inputs, outputs and a 0.4 MB map)
+    take under a hundredth of it."""
+    return max(crush_ops(stats) / INT_OPS_PER_S,
+               4 * n * (1 + result_max) / HBM_BYTES_PER_S) * 1e3
+
+
+class CrushShape(NamedTuple):
+    """One rule and weight vector of crush_shapes: `row` is what this
+    script prints; the rest is what chip_smoke.py checks further."""
+
+    row: dict
+    cmap: object
+    ruleno: int
+    weight: list
+    got: torch.Tensor          # the kernel's placements of all inputs
+
+
+def crush_shapes(dev) -> List[CrushShape]:
+    """Each rule and weight vector on the 10,000-OSD map: the kernel over
+    all CRUSH_INPUTS inputs held against the plain version (which counts
+    the draws and is_out hashes for the bound), then timed."""
+    from ceph_tpu_torch.crush import kernel as ck
+    from ceph_tpu_torch.ops import crush_kernels
+    cmap = crush_map_10k()
+    xs = torch.arange(CRUSH_INPUTS, dtype=torch.int32, device=dev)
+    shapes = []
+    for wname, weight in crush_weights(cmap).items():
+        dm = ck.DenseMap.from_crush_map(cmap, weight, dev)
+        for rname, ruleno, rmax in CRUSH_RULES:
+            prog = ck.rule_program(cmap, ruleno, rmax)
+            out = torch.empty((CRUSH_INPUTS, rmax), dtype=torch.int32,
+                              device=dev)
+            run = lambda: crush_kernels.crush_do_rule_batch(dm, prog, xs,
+                                                            out=out)
+            got = run().clone()
+            stats = {}
+            t0 = time.perf_counter()
+            want = ck.crush_do_rule_batch_plain(dm, prog, xs, stats)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            mism = int((got != want).any(1).sum())
+            row = {
+                "rule": rname, "weights": wname, "inputs": CRUSH_INPUTS,
+                "result_max": rmax, "exact": mism == 0,
+                "mismatches_vs_plain": mism,
+                "max_abs_err": int((got.long() - want.long()).abs().max()),
+                "ms": alone_ms(run), "back_to_back_ms": back_to_back_ms(run),
+                "bound_ms": crush_bound_ms(stats, CRUSH_INPUTS, rmax),
+                "draws_per_input": stats["draws"] / CRUSH_INPUTS,
+                "is_out_hashes_per_input": stats["is_out_hashes"]
+                / CRUSH_INPUTS,
+                "plain_ms": plain_ms}
+            shapes.append(CrushShape(row, cmap, ruleno, weight, got))
+            del want, out
+    return shapes
+
+
 def ptxas_lines(build) -> list:
     """ptxas's register and spill lines for the spec kernels."""
     log = build.build_logs().get("gf_matmul", "").splitlines()
@@ -188,43 +376,144 @@ FORMS = {
 
 def sass_counts(build) -> dict:
     """{spec kernel (R = 3): {opcode: count}} from cuobjdump -sass."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    libs = sorted(build.BUILD_DIR.glob("gf_matmul-*.so"),
-                  key=lambda p: p.stat().st_mtime)
-    text = subprocess.run([tool, "-sass", str(libs[-1])], capture_output=True,
-                          text=True, timeout=300).stdout
-    counts, cur = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            cur = (collections.Counter()
-                   if "gf_spec_kernelILi3E" in name else None)
-            if cur is not None:
-                counts[name] = cur
+    counts = {}
+    for name, code in _sass(build, "gf_matmul").items():
+        if "gf_spec_kernelILi3E" not in name:
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z]\S*)"
-                     r"\s*([^;]*)", line)
-        if cur is not None and m:
-            op = m.group(2).rstrip(";").split(".")[0]
-            cur[op] += 1
-            if m.group(1):
+        cur = counts[name] = collections.Counter()
+        for _, pred, op, args in code:
+            cur[op.split(".")[0]] += 1
+            if pred:
                 cur["(predicated)"] += 1
             for form, hit in FORMS.items():
-                if hit(m.group(2), m.group(3)):
+                if hit(op, args):
                     cur[form] += 1
     return {name: dict(c.most_common()) | {"total": sum(
         v for k, v in c.items() if not k.startswith("("))}
         for name, c in counts.items()}
 
 
+_SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z]\S*)\s*([^;]*)")
+
+
+def _sass(build, stem: str) -> dict:
+    """{function: [(address, predicate, opcode, operands)]} from
+    cuobjdump -sass of the newest library built from csrc/<stem>.cu."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    libs = sorted(build.BUILD_DIR.glob(f"{stem}-*.so"),
+                  key=lambda p: p.stat().st_mtime)
+    return parse_sass(subprocess.run(
+        [tool, "-sass", str(libs[-1])], capture_output=True, text=True,
+        timeout=300).stdout)
+
+
+def parse_sass(text: str) -> dict:
+    """cuobjdump -sass text -> {function: [(address, predicate, opcode,
+    operands)]}."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = _SASS_LINE.match(line)
+        if cur is not None and m:
+            cur.append((int(m.group(1), 16), m.group(2),
+                        m.group(3).rstrip(";"), m.group(4).strip()))
+    return funcs
+
+
+def draw_paths(code: list) -> list:
+    """The straw2 draw loops of crush_kernel's SASS (parse_sass's list for
+    the function) and the instructions a draw executes in each.
+
+    A loop is the span from a backward branch's target to the branch; the
+    draw loops are the innermost loops that CALL a routine (the signed
+    64-bit division; each inlined copy of straw2 gives one loop).  A draw
+    that divides executes at least the shortest path from the loop's head
+    to the CALL, the routine's shortest path to its RET, and the shortest
+    path from the return to the loop's branch; the paths skip what a draw
+    need not run (the division's 32-bit fast path, which the 48-bit
+    dividend never takes, and crush_ln's normalisation when the hash is
+    large)."""
+    at = {a: i for i, (a, _, _, _) in enumerate(code)}
+
+    def target(ops: str):
+        m = re.search(r"0x([0-9a-f]+)", ops)
+        return at.get(int(m.group(1), 16)) if m else None
+
+    def succ(i: int) -> list:
+        _, pred, op, ops = code[i]
+        if op.startswith(("EXIT", "RET")):
+            return [i + 1] if pred else []
+        if op.startswith("BRA"):
+            t = target(ops)
+            # a predicate, or a second one before the target: conditional
+            return [i + 1, t] if pred or "," in ops else [t]
+        return [i + 1]
+
+    def path(src: int, dst: int, lo: int, hi: int) -> int | None:
+        """Instructions executed from src to dst inclusive (BFS)."""
+        seen, frontier, n = {src}, [src], 1
+        while frontier:
+            if dst in frontier:
+                return n
+            nxt = []
+            for i in frontier:
+                for j in succ(i):
+                    if j is not None and lo <= j <= hi and j not in seen:
+                        seen.add(j)
+                        nxt.append(j)
+            frontier, n = nxt, n + 1
+        return None
+
+    def routine(start: int) -> int | None:
+        ret = next(i for i in range(start, len(code))
+                   if code[i][2].startswith("RET"))
+        return path(start, ret, start, ret)
+
+    loops = [(target(ops), i) for i, (_, _, op, ops) in enumerate(code)
+             if op.startswith("BRA") and target(ops) is not None
+             and target(ops) <= i]
+    inner = [(s, e) for s, e in loops
+             if not any(s <= s2 and e2 <= e and (s2, e2) != (s, e)
+                        for s2, e2 in loops)]
+    draws = []
+    for s, e in inner:
+        for c in range(s, e + 1):
+            if not code[c][2].startswith("CALL"):
+                continue
+            parts = (path(s, c, s, e), routine(target(code[c][3])),
+                     path(c + 1, e, s, e))
+            draws.append({"loop": [hex(code[s][0]), hex(code[e][0])],
+                          "span": e - s + 1,
+                          "to_call": parts[0], "routine": parts[1],
+                          "after_call": parts[2],
+                          "per_draw": None if None in parts else sum(parts)})
+    return draws
+
+
+def crush_sass(build) -> dict:
+    """The per-draw instruction count of crush_kernel (draw_paths), beside
+    the DRAW_OPS that the bound takes."""
+    funcs = _sass(build, "crush")
+    name = next(n for n in funcs if "crush_kernel" in n)
+    draws = draw_paths(funcs[name])
+    counts = [d["per_draw"] for d in draws if d["per_draw"] is not None]
+    return {"function": name, "instructions": len(funcs[name]),
+            "draw_loops": draws, "min_per_draw": min(counts, default=None),
+            "DRAW_OPS": DRAW_OPS}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("kernel", choices=("crc", "gf"))
+    ap.add_argument("kernel", choices=("crc", "gf", "crush"))
     ap.add_argument("--root", default=str(Path(__file__).resolve()
                                           .parents[2]))
     ap.add_argument("--sass", action="store_true",
-                    help="gf: count the spec kernels' SASS instructions")
+                    help="gf: count the spec kernels' SASS instructions;"
+                    " crush: count the straw2 draw loop's")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -241,6 +530,14 @@ def main() -> None:
     res = {"root": str(root), "card": card_name(), "kernel": args.kernel}
     if args.kernel == "crc":
         res["shapes"] = crc_shapes(dev, gen)
+    elif args.kernel == "crush":
+        res["shapes"] = [shape.row for shape in crush_shapes(dev)]
+        res["build_seconds"] = _build.build_seconds
+        res["ptxas"] = [line.strip() for line in _build.build_logs().get(
+            "crush", "").splitlines() if "registers" in line
+            or "spill" in line]
+        if args.sass:
+            res["sass"] = crush_sass(_build)
     else:
         res["shapes"] = gf_shapes(dev, gen)
         res["build_seconds"] = _build.build_seconds

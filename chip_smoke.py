@@ -7,8 +7,9 @@ Run from the repository root:
 
 Phases; any failure exits nonzero and prints no result line:
 
-1. Build the CUDA kernels from ceph_tpu_torch/csrc and print the seconds it
-   took and what ptxas reports (registers, spills).
+1. Build the CUDA kernels from ceph_tpu_torch/csrc (GF, crc and the CRUSH
+   placement kernel, one nvcc per source, started together) and print the
+   seconds it took and what ptxas reports (registers per source, spills).
 2. Hold every kernel against its plain PyTorch version on the card at the
    main path's shapes, bit-exact: the specialised GF kernel on RS 8+3
    (reed_sol_van) over 64 stripes of 8 x 512 KiB, and also on RS 10+4 over
@@ -29,14 +30,34 @@ Phases; any failure exits nonzero and prints no result line:
    bytes, the hinfo ledgers against the host crc32c on sampled shards and
    the crc plain version on all of them, and the launch counters (zeroed
    just before this phase) show that every kernel ran.
+3b. CRUSH placement (BASELINE config 4): the 10,000-OSD map
+   build_flat_cluster(10000, 20, 10) with the replicated rule (chooseleaf
+   firstn over hosts, 3 replicas) and the EC rule (set_chooseleaf_tries 5,
+   chooseleaf indep over hosts, 11 slots), each with all OSDs in and with
+   a rebalance weight vector (5% out, 10% at half weight).  The placement
+   kernel is held bit for bit against its plain version on all 2^20
+   inputs (and timed there, see phase 4), and also on a 64-OSD map with a
+   CHOOSE_FIRSTN osd rule, on a map with an empty host bucket and on 24
+   seeded random hierarchies of 2-4 levels with random rules and weights
+   (firstn and indep, leaf and not, stable 0 and 1, vary_r 0-3,
+   descend_once 0 and 1, numrep other than result_max); and against the host mapper on 256 sampled inputs per
+   rule and weight vector of the big map, x = 0 and 2^20 - 1 among them,
+   and on 64 inputs of each small map.  Then the entry point a user calls: crushtool.run --test
+   --num-rep 3 --show-statistics --show-utilization over x = 0 .. 2^20 - 1
+   on the map written to a JSON file, its printed counts checked against
+   the placements (3 distinct OSDs per input), the kernel's launch
+   counter zeroed just before it.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
    512 KiB) and at 90112 blocks of 4 KiB, the generic GF kernel also on
    the RS 8+3 generator (the specialised kernel's yardstick), and the
-   end-to-end encode,
-   decode and fused encode+crc in GiB/s of object data (host clock,
-   median of 3).
+   end-to-end encode, decode and fused encode+crc in GiB/s of object data
+   (host clock, median of 3); for CRUSH, the kernel per rule and weight
+   vector (timed alone and back to back in phase 3b) beside its
+   operations bound and the plain version's time, compile_rule(...)(xs)
+   on 2^20 inputs in placements/s (host clock, median of 3) and the
+   crushtool.run call.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The card's name and power limit, as
@@ -58,6 +79,7 @@ CHUNK = 512 << 10
 B = 64                      # stripes of the 256 MiB object
 STRIPE = K * CHUNK          # 4 MiB
 SEED = 20261016
+RANDOM_CRUSH_MAPS = 24      # seeded random hierarchies of phase 3b
 
 # H100 SXM published peaks: HBM3 at 3.35 TB/s, and 67 TFLOP/s of FP32
 # outside the tensor cores, i.e. 33.5 T lane-instructions per second (128
@@ -109,6 +131,183 @@ def bound(n_bytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def crush_phase(torch, dev, card: str) -> dict:
+    """Phase 3b: the CRUSH placement kernel against its plain version and
+    the host mapper, then crushtool.run over 2^20 inputs.  Returns what
+    phase 4 needs."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from ceph_tpu_torch.crush import kernel as ck
+    from ceph_tpu_torch.crush.map import (CRUSH_ITEM_NONE, build_flat_cluster)
+    from ceph_tpu_torch.crush.mapper import crush_do_rule
+    from ceph_tpu_torch.crush.serialize import to_json
+    from ceph_tpu_torch.ops import crush_kernels
+    from ceph_tpu_torch.tools import crushtool
+    from ceph_tpu_torch.tools import kernel_shapes as ks
+
+    n = ks.CRUSH_INPUTS
+    rng = np.random.default_rng(SEED)
+    samples = np.concatenate([[0, n - 1], rng.choice(np.arange(1, n - 1),
+                                                     254, replace=False)])
+
+    def vs_host(cmap, ruleno, rmax, weight, got_rows, xs_host) -> int:
+        bad = 0
+        for x, row in zip(xs_host, got_rows):
+            want = crush_do_rule(cmap, ruleno, int(x), rmax, weight)
+            want = want + [CRUSH_ITEM_NONE] * (rmax - len(want))
+            bad += list(row) != want
+        return bad
+
+    # the 10,000-OSD map: kernel_shapes holds every rule and weight vector
+    # against the plain version on all 2^20 inputs, and times it (phase 4
+    # prints the times); the plain version takes 1-5 s here (H100)
+    shapes = ks.crush_shapes(dev)
+    cases, worst, max_err = [], 0, 0
+    for sh in shapes:
+        host_bad = vs_host(sh.cmap, sh.ruleno, sh.row["result_max"],
+                           sh.weight,
+                           sh.got[torch.from_numpy(samples).to(dev)]
+                           .cpu().numpy(), samples)
+        worst = max(worst, sh.row["mismatches_vs_plain"], host_bad)
+        max_err = max(max_err, sh.row["max_abs_err"])
+        cases.append({"rule": sh.row["rule"], "weights": sh.row["weights"],
+                      "plain_inputs": n,
+                      "mismatches_vs_plain": sh.row["mismatches_vs_plain"],
+                      "max_abs_err": sh.row["max_abs_err"],
+                      "host_samples": len(samples),
+                      "mismatches_vs_host": host_bad,
+                      "plain_s": sh.row["plain_ms"] / 1e3,
+                      "draws_per_input": sh.row["draws_per_input"],
+                      "is_out_hashes_per_input":
+                          sh.row["is_out_hashes_per_input"]})
+    big = shapes[0].cmap
+
+    # small maps: 64 OSDs with CHOOSE_FIRSTN osd, an empty host bucket, and
+    # seeded random hierarchies with random tunables, so that every branch
+    # of the kernel runs (stable 0, vary_r 0 and > 1, descend_once 0,
+    # indep to devices, numrep other than result_max)
+    small = build_flat_cluster(64, osds_per_host=4)
+    small.add_simple_rule("flat", "default", "osd", mode="firstn")
+    holed = build_flat_cluster(64, osds_per_host=4)
+    empty = holed.add_bucket(None, holed.type_id("host"), "empty")
+    holed.buckets[-1].add_item(empty.id, 0x40000)
+    holed.add_simple_rule("data", "default", "host", mode="firstn")
+    small_x = torch.arange(1 << 16, dtype=torch.int32, device=dev)
+    maps = [("64 osds, choose firstn osd", small, 3, small_x,
+             ks.crush_weights(small)),
+            ("empty host bucket", holed, 3, small_x,
+             ks.crush_weights(holed))]
+    for seed in range(RANDOM_CRUSH_MAPS):
+        # firstn and indep, leaf and not, in turns; the chooseleaf tunables
+        # in turns too (they act on chooseleaf firstn)
+        k = seed // 4
+        rmax = 1 + (5 * seed) % 12
+        cmap, weight, _ = ks.random_crush_case(
+            SEED + seed, levels=2 + k % 3, firstn=seed % 2 == 0,
+            leaf=seed % 4 < 2, result_max=rmax)
+        cmap.chooseleaf_stable = k % 2
+        cmap.chooseleaf_vary_r = k % 4
+        cmap.chooseleaf_descend_once = k // 2 % 2
+        rand_x = torch.from_numpy(rng.integers(0, 2**31, 1 << 14)
+                                  .astype(np.int32)).to(dev)
+        maps.append((f"random {seed}", cmap, rmax, rand_x,
+                     {"random": weight}))
+    for name, cmap, rmax, xs_in, weights in maps:
+        prog = ck.rule_program(cmap, 0, rmax)
+        for wname, weight in weights.items():
+            dm = ck.DenseMap.from_crush_map(cmap, weight, dev)
+            got = crush_kernels.crush_do_rule_batch(dm, prog, xs_in)
+            want = ck.crush_do_rule_batch_plain(dm, prog, xs_in)
+            mism = int((got != want).any(1).sum())
+            max_err = max(max_err, int((got.long() - want.long()).abs()
+                                       .max()))
+            host_bad = vs_host(cmap, 0, rmax, weight, got[:64].cpu().numpy(),
+                               xs_in[:64].cpu().numpy())
+            worst = max(worst, mism, host_bad)
+            cases.append({"map": name, "weights": wname,
+                          "program": prog._asdict(),
+                          "plain_inputs": xs_in.numel(),
+                          "mismatches_vs_plain": mism, "host_samples": 64,
+                          "mismatches_vs_host": host_bad})
+    print(json.dumps({"phase": "crush_vs_plain_and_host", "cases": cases}))
+    check(worst == max_err == 0, "the placement kernel disagrees with its"
+          " plain version or the host mapper")
+
+    # the entry point a user calls
+    fd, path = tempfile.mkstemp(suffix=".json")
+    with os.fdopen(fd, "w") as f:
+        json.dump(to_json(big), f)
+    try:
+        argv = ["-i", path, "--test", "--rule", "0", "--num-rep", "3",
+                "--min-x", "0", "--max-x", str(n - 1), "--show-statistics",
+                "--show-utilization"]
+        out, err_out = io.StringIO(), io.StringIO()
+        crush_kernels.crush_do_rule_batch.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err_out):
+            rc = crushtool.run(argv)
+        tool_s = time.perf_counter() - t0
+        launches = crush_kernels.crush_do_rule_batch.launches
+    finally:
+        os.unlink(path)
+    text = out.getvalue()
+    stored = {}
+    for line in text.splitlines():
+        if line.startswith("  device "):
+            dev_id = int(line.split()[1].rstrip(":"))
+            stored[dev_id] = int(line.split("stored :")[1].split()[0])
+    placements = ck.compile_rule(big, 0, 3)(np.arange(n))
+    distinct = bool(((placements[:, 0] != placements[:, 1])
+                     & (placements[:, 0] != placements[:, 2])
+                     & (placements[:, 1] != placements[:, 2])).all()
+                    and (placements >= 0).all()
+                    and (placements < big.max_devices).all())
+    counts = np.bincount(placements.ravel(), minlength=big.max_devices)
+    stats_line = f"result size == 3:\t{n}/{n}"
+    tool = {"phase": "crushtool", "rc": rc, "seconds": tool_s,
+            "launches": launches, "inputs": n,
+            "three_distinct_osds_each": distinct,
+            "stored_sum": sum(stored.values()),
+            "all_inputs_size_3": stats_line in text,
+            "stored_matches_placements": [stored.get(d, -1) for d in
+                                          range(big.max_devices)]
+            == counts.tolist()}
+    print(json.dumps(tool))
+    check(rc == 0 and distinct and tool["stored_sum"] == 3 * n
+          and tool["all_inputs_size_3"] and tool["stored_matches_placements"],
+          "crushtool --test output is wrong")
+    check(launches > 0, "crushtool never launched the placement kernel")
+    return {"big": big, "shapes": shapes, "launches": launches,
+            "max_abs_err": max_err, "crushtool_run_s": tool_s}
+
+
+def crush_times(torch, dev, card: str, state: dict) -> dict:
+    """Phase 4's CRUSH part: the kernel per rule and weight vector beside
+    its bound and the plain version's time (timed in phase 3b by
+    kernel_shapes.crush_shapes), compile_rule on 2^20 inputs and the
+    crushtool.run call.  Returns the kernels line's row."""
+    from ceph_tpu_torch.crush import kernel as ck
+    from ceph_tpu_torch.tools import kernel_shapes as ks
+
+    times = [{k: sh.row[k] for k in ("rule", "weights", "ms",
+                                     "back_to_back_ms", "bound_ms",
+                                     "plain_ms")}
+             for sh in state["shapes"]]
+    n = ks.CRUSH_INPUTS
+    compile_s = host_median_s(torch, lambda: ck.compile_rule(
+        state["big"], 0, 3, device=dev)(np.arange(n)))
+    print(json.dumps({"crush_times": times, "compile_rule_run_s": compile_s,
+                      "placements_per_s": n / compile_s,
+                      "crushtool_run_s": state["crushtool_run_s"],
+                      "card": card}))
+    return {"launches": state["launches"],
+            "max_abs_err": state["max_abs_err"], **times[0]}
+
+
 def main() -> None:
     import torch
 
@@ -141,15 +340,17 @@ def main() -> None:
 
     # -- 1. build ------------------------------------------------------------
     _build.load()
-    regs, spills = [], 0
-    for log in _build.build_logs().values():
-        for line in log.splitlines():
-            if "Used" in line and "registers" in line:
-                regs.append(int(line.split("Used")[1].split()[0]))
-            if "spill stores" in line:
-                spills += int(line.split("bytes spill stores")[0]
-                              .split(",")[-1])
+    regs, regs_by_source, spills = [], {}, 0
+    for name, log in _build.build_logs().items():
+        used = [int(line.split("Used")[1].split()[0])
+                for line in log.splitlines()
+                if "Used" in line and "registers" in line]
+        regs += used
+        regs_by_source[name] = max(used) if used else None
+        spills += sum(int(line.split("bytes spill stores")[0].split(",")[-1])
+                      for line in log.splitlines() if "spill stores" in line)
     print(json.dumps({"phase": "build", "seconds": _build.build_seconds,
+                      "max_registers_by_source": regs_by_source,
                       "kernels_compiled": len(regs),
                       "max_registers": max(regs) if regs else None,
                       "spill_store_bytes": spills,
@@ -294,6 +495,9 @@ def main() -> None:
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
 
+    # -- 3b. CRUSH placement ------------------------------------------------
+    crush_state = crush_phase(torch, dev, card)
+
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)
     one = singles[0]
@@ -390,6 +594,15 @@ def main() -> None:
     })
     print(json.dumps({"end_to_end": e2e, "object_gib": gib, "card": card}))
 
+    crush = crush_times(torch, dev, card, crush_state)
+    rows.append({
+        "name": "crush_do_rule_batch", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/crush.cu",
+        "replaces": "ceph_tpu/crush/kernel.py:374",
+        "launches": crush["launches"], "max_abs_err": crush["max_abs_err"],
+        "ms": crush["ms"], "plain_ms": crush["plain_ms"],
+        "bound_ms": crush["bound_ms"], "bound_by": "operations",
+        "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
