@@ -6,8 +6,9 @@ rule is resolved on the host into a `ChooseProgram` (its one TAKE /
 CHOOSE(LEAF)_FIRSTN or _INDEP / EMIT group, with tries, leaf tries and the
 map's tunables), the map into a `DenseMap` of tensors on one device, and
 `ceph_tpu_torch.ops.crush_kernels.crush_do_rule_batch` places every input:
-on a CUDA tensor with the hand-written kernel of csrc/crush.cu (one thread
-per input), on a CPU tensor with `crush_do_rule_batch_plain` below, where
+on a CUDA tensor with the hand-written kernel of csrc/crush.cu (lanes that
+each run one input's tries, refilled from a work counter), on a CPU tensor
+with `crush_do_rule_batch_plain` below, where
 the vmap is the batch dimension and each while_loop a masked loop over the
 lanes still active, within the same trip bounds.
 
@@ -25,7 +26,9 @@ silently computes something else than the host mapper: a map with
 `choose_args` (balancer weight sets), a rule with a SET_CHOOSELEAF_VARY_R,
 SET_CHOOSELEAF_STABLE or SET_CHOOSE_LOCAL_* step, a rule of more than one
 TAKE / CHOOSE / EMIT group, a firstn step that asks for more replicas than
-result_max, and a bucket that names a missing bucket.
+result_max, a bucket that names a missing bucket, and an item weight above
+0xFFFFFFFF (Ceph's weights are 32-bit; `straw2_reciprocal` is proven up to
+there).
 Callers then use the exact host mapper (ceph_tpu_torch.crush.mapper).
 """
 
@@ -53,7 +56,9 @@ from ceph_tpu_torch.device import resolve_device
 from ceph_tpu_torch.ops.rjenkins import hash32_2_torch, hash32_3_torch
 
 S64_MIN = -(2**63)
-MAX_RESULT = 32     # the kernel's per-thread output arrays
+MAX_RESULT = 32     # the kernel's per-lane output arrays
+MAX_ITEM_WEIGHT = 0xFFFFFFFF
+RECIP_SHIFT = 56    # a packed reciprocal is m | s << RECIP_SHIFT
 _CHOOSES = (CRUSH_RULE_CHOOSE_FIRSTN, CRUSH_RULE_CHOOSE_INDEP,
             CRUSH_RULE_CHOOSELEAF_FIRSTN, CRUSH_RULE_CHOOSELEAF_INDEP)
 # rule steps the JAX kernel drops but the host mapper honours
@@ -89,6 +94,7 @@ class DenseMap:
 
     items: torch.Tensor       # (NB, MS) int32, padded with 0
     weights: torch.Tensor     # (NB, MS) int64 16.16, padded with 0
+    recips: torch.Tensor      # (NB, MS) int64 straw2_reciprocal(weights)
     sizes: torch.Tensor       # (NB,) int32
     types: torch.Tensor       # (NB,) int32
     dev_weight: torch.Tensor  # (W,) int64 16.16 in/out vector
@@ -102,6 +108,8 @@ class DenseMap:
         ms = max((b.size for b in cmap.buckets.values()), default=1) or 1
         items = np.zeros((nb, ms), dtype=np.int32)
         weights = np.zeros((nb, ms), dtype=np.int64)
+        recips = np.zeros((nb, ms), dtype=np.int64)
+        recip = functools.lru_cache(maxsize=None)(straw2_reciprocal)
         sizes = np.zeros(nb, dtype=np.int32)
         types = np.zeros(nb, dtype=np.int32)
         for bid, b in cmap.buckets.items():
@@ -113,9 +121,14 @@ class DenseMap:
                 raise NotImplementedError(
                     f"bucket {bid} names a missing bucket; use the host"
                     " mapper")
+            if any(w > MAX_ITEM_WEIGHT for w in b.weights):
+                raise NotImplementedError(
+                    f"bucket {bid} has an item weight above 0xFFFFFFFF; use"
+                    " the host mapper")
             row = -1 - bid
             items[row, : b.size] = b.items
             weights[row, : b.size] = b.weights
+            recips[row, : b.size] = [recip(w) for w in b.weights]
             sizes[row] = b.size
             types[row] = b.type
         depth = {}
@@ -134,10 +147,39 @@ class DenseMap:
         def put(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(a).to(device)
 
-        return cls(items=put(items), weights=put(weights), sizes=put(sizes),
-                   types=put(types),
+        return cls(items=put(items), weights=put(weights),
+                   recips=put(recips), sizes=put(sizes), types=put(types),
                    dev_weight=put(np.asarray(w, dtype=np.int64).reshape(-1)),
                    max_devices=cmap.max_devices, max_depth=max_depth)
+
+
+def straw2_reciprocal(w: int) -> int:
+    """The kernel's exact reciprocal of a straw2 item weight w in
+    [1, MAX_ITEM_WEIGHT], packed as m | s << RECIP_SHIFT; 0 for w <= 0
+    (the kernel skips such an item, as the division skipped it).
+
+    straw2 divides n = 2^48 - crush_ln(u), which lies in [0, 2^48], by w.
+    With s = ceil(log2 w), k = 49 + s and m = ceil(2^k / w):
+
+        n // w == (n * m) >> k   for every n in [0, 2^48],
+
+    which the kernel computes as umulhi(n << 15, m) >> s (n << 15 < 2^64,
+    and flooring by 2^64 then by 2^s is flooring by 2^(64+s)).  Proof
+    (Granlund and Montgomery, PLDI 1994, section 4): m * w = 2^k + e with
+    0 <= e < w.  Write n = q * w + r, 0 <= r < w.  Then
+    n * m / 2^k = n / w + n * e / (w * 2^k) = q + (r + n * e / 2^k) / w.
+    Since n <= 2^48 < 2^49 and e < w <= 2^s, n * e < 2^(49+s) = 2^k, so
+    0 <= r + n * e / 2^k < r + 1 <= w and the floor is q.  m < 2^51
+    (m <= 2^k / w + 1 and w > 2^(s-1)) and s <= 32 pack into 63 bits."""
+    if w <= 0:
+        return 0
+    if w > MAX_ITEM_WEIGHT:
+        raise NotImplementedError(
+            f"item weight {w:#x} above 0xFFFFFFFF: use the host mapper")
+    s = (w - 1).bit_length()
+    k = 49 + s
+    m = -(-(1 << k) // w)
+    return m | s << RECIP_SHIFT
 
 
 @functools.lru_cache(maxsize=None)

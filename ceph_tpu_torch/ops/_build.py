@@ -44,7 +44,7 @@ _SIGNATURES = {
     },
     "crush": {
         "crush_do_rule_batch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _PI, _I, _P, _LL, _P, _P),
+                                _PI, _I, _P, _LL, _P, _P, _P),
     },
 }
 

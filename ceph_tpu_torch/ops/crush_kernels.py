@@ -3,11 +3,14 @@
 
 `crush_do_rule_batch` places N inputs through one rule resolved by
 `ceph_tpu_torch.crush.kernel.rule_program` on a `DenseMap`, with the CUDA
-kernel of csrc/crush.cu: one thread per input runs the rule's descent,
-retries, collision checks and weight-vector rejections in its own
-registers and local arrays, the map read from device memory (it stays in
-L2), the ln tables from shared memory.  The rule rides by value, so one
-build serves every rule and map.
+kernel of csrc/crush.cu: each lane of a persistent grid runs one input's
+tries (descent, collision checks, leaf choice, weight-vector rejection) a
+step at a time in its own registers and local arrays, and takes the next
+input from a per-launch work counter when its input is done, so a warp
+never waits on one lane's retries.  A straw2 draw divides by an exact
+per-item reciprocal (`DenseMap.recips`).  The map is read from device
+memory (it stays in L2), the ln tables from shared memory.  The rule
+rides by value, so one build serves every rule and map.
 
 On a CPU tensor the wrapper runs the plain version,
 `ceph_tpu_torch.crush.kernel.crush_do_rule_batch_plain`.
@@ -26,8 +29,8 @@ from ceph_tpu_torch.crush.kernel import (
 from ceph_tpu_torch.ops import _build
 
 _DTYPES = {"items": torch.int32, "weights": torch.int64,
-           "sizes": torch.int32, "types": torch.int32,
-           "dev_weight": torch.int64}
+           "recips": torch.int64, "sizes": torch.int32,
+           "types": torch.int32, "dev_weight": torch.int64}
 
 
 def crush_do_rule_batch(dm: DenseMap, program: ChooseProgram,
@@ -72,12 +75,15 @@ def crush_do_rule_batch(dm: DenseMap, program: ChooseProgram,
     tables = ln_tables(xs.device)
     rule = (ctypes.c_int * len(program))(*program)
     nb, ms = dm.items.shape
+    # the work counter, on the launch's stream (the launcher zeroes it there)
+    counter = torch.empty(1, dtype=torch.int64, device=xs.device)
     crush_do_rule_batch.launches += 1
     _build.check(lib.crush_do_rule_batch(
-        tables.data_ptr(), dm.items.data_ptr(), dm.weights.data_ptr(),
+        tables.data_ptr(), dm.items.data_ptr(), dm.recips.data_ptr(),
         dm.sizes.data_ptr(), dm.types.data_ptr(), dm.dev_weight.data_ptr(),
         nb, ms, dm.dev_weight.shape[0], dm.max_devices, dm.max_depth, rule,
         xs.device.index or 0, xs.data_ptr(), n, out.data_ptr(),
+        counter.data_ptr(),
         torch.cuda.current_stream(xs.device).cuda_stream),
         "crush_do_rule_batch")
     return out

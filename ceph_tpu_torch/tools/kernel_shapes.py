@@ -42,18 +42,28 @@ over hosts, 11 = 8+3 slots), each with all OSDs in and with a rebalance
 weight vector (a seeded 5% of OSDs out, another 10% at weight 0x8000).
 Each shape is checked bit for bit against the plain version on all 2^20
 inputs, which also counts the straw2 draws and is_out hashes the inputs
-need; "bound_ms" there is those operations at 33.5 T lane-instructions/s
-(the kernel moves a few tens of MB, far under that time at 3.35 TB/s),
-and "plain_ms" the plain version's time on the card (host clock).  With
-`--sass` it also counts the instructions of the straw2 draw loop in
-`cuobjdump -sass` of the built library (crush_sass), from which DRAW_OPS
-below is taken.
+need; "bound_ms" there is the largest of those instructions at 33.5 T
+lane-instructions/s (one warp-instruction per scheduler per clock) and
+the shares that only the integer ALU pipe or only the FMA pipe can issue,
+each pipe at half that rate (16 lanes per scheduler per clock), all
+counted per draw in the kernel's SASS (DRAW_OPS, DRAW_ALU_OPS,
+DRAW_FMA_OPS); the kernel moves a few tens of MB, far under that time at
+3.35 TB/s.  "plain_ms" is the plain version's time on the card (host
+clock).  "lane_utilization" is the straw2 loop's active lanes summed
+over __activemask() per trip, over 32 x trips, from a counting build:
+a copy of the checkout's csrc/crush.cu with one counting line at the
+head of the straw2 loop, built beside the library and swapped in for one
+launch (the wrapper's own library never counts).  With `--sass` it also
+counts the instructions of the straw2 draw loop in `cuobjdump -sass` of
+the built library (crush_sass), from which DRAW_OPS, DRAW_ALU_OPS and
+DRAW_FMA_OPS below are taken.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import json
 import re
 import shutil
@@ -79,16 +89,64 @@ GF_SHAPES = (("rs8+3", 8, 3, 64, 512 << 10), ("rs10+4", 10, 4, 64, 512 << 10),
 INT_OPS_PER_S = 67e12 / 2
 CRUSH_INPUTS = 1 << 20
 CRUSH_RULES = (("replicated", 0, 3), ("ec8+3", 1, 11))
-# Instructions a straw2 draw of the placement kernel executes at least,
+# The integer pipes of an SM sub-partition each take 16 lanes per clock,
+# half the issue rate (Nsight Compute's pipe descriptions).  What the ALU
+# pipe alone can issue: logic, right and funnel shifts, compares, selects,
+# the high word of a shifted sum (LEA.HI).  What the FMA pipe alone can
+# issue: multiplies.  An add, a one-word left shift, a move or an address
+# sum has a form on each (IADD3, SHF.L, MOV, LEA on the ALU pipe;
+# IMAD.IADD, IMAD.SHL, IMAD.MOV, IMAD.WIDE on the FMA pipe), so the two
+# pipes can share it; loads, branches and uniform-datapath instructions
+# take only their issue slot.
+PIPE_OPS_PER_S = INT_OPS_PER_S / 2
+ALU_ONLY = frozenset((
+    "LOP3", "LOP", "PLOP3", "SHR", "ISETP", "SEL", "FSEL", "PRMT", "IMNMX",
+    "VIMNMX", "IABS", "BMSK", "SGXT", "FLO", "POPC", "BREV"))
+EITHER_PIPE = frozenset(("IADD3", "IADD", "VIADD", "MOV", "SHL", "LEA"))
+FMA_FORMS_OF_EITHER = frozenset(("IMAD.IADD", "IMAD.SHL", "IMAD.MOV"))
+
+
+def pipe(op: str) -> str:
+    """The pipes that can issue a SASS instruction (opcode with its
+    modifiers): "alu", "fma", "either" or "issue" (neither)."""
+    base = op.split(".")[0]
+    if base == "SHF":
+        # a left shift of one word is a multiply by a power of two; a right
+        # shift, or a funnel shift across two words, is not
+        return "either" if op.startswith("SHF.L") and not any(
+            m in op.split(".") for m in ("HI", "W")) else "alu"
+    if base == "LEA":
+        return "alu" if ".HI" in op else "either"
+    if base in ALU_ONLY:
+        return "alu"
+    if base in EITHER_PIPE or op.startswith(tuple(FMA_FORMS_OF_EITHER)):
+        return "either"
+    if base in ("IMAD", "IMUL"):
+        return "fma"
+    return "issue"
+
+
+# Instructions a straw2 draw of the placement kernel executes at least, and
+# how many of them only the ALU pipe and only the FMA pipe can issue,
 # counted in its SASS by `crush --sass` (draw_paths) on the H100 build of
-# csrc/crush.cu (CUDA 12.8): 177-186 from the loop's head to the CALL of
-# the signed 64-bit division routine (the hash32_3 is 139 of them), 83 in
-# the routine, 15-19 after it, 279-284 per draw over the four inlined
-# copies of straw2; the least is taken.  An is_out test that hashes is a
-# hash32_2 (two XORs and three mix rounds of 27) and about 4 more, an
-# estimate (under a thousandth of the draws' instructions here).
-DRAW_OPS = 279
+# csrc/crush.cu (CUDA 12.8): the shortest path from the straw2 loop's head
+# through its shared-memory load of the ln tables to the loop's branch,
+# over the two inlined copies of straw2, 200 (101 only on the ALU pipe, 13
+# only on the FMA pipe, 70 on either) and 206 (103, 14, 70); the least is
+# taken.  What only the ALU pipe can issue (the hash's logic and right
+# shifts, compares, selects) then takes 1% longer than the issue slots, so
+# it sets the bound; the hash's subtracts can go to either pipe.  (The
+# kernel's one-thread-per-input design, which called the signed 64-bit
+# division routine, took 279-284 per draw, 120-123 only on the ALU pipe.)
+# An is_out test that hashes is a hash32_2: an XOR, three mix rounds of 27
+# (9 subtract pairs, which either pipe can issue, and 6 right and 3 left
+# shifts each folded in by an XOR) and about 4 more, an estimate (under a
+# thousandth of the draws' instructions here).
+DRAW_OPS = 200
+DRAW_ALU_OPS = 101
+DRAW_FMA_OPS = 13
 IS_OUT_OPS = 2 + 3 * 27 + 4
+IS_OUT_ALU_OPS = 1 + 3 * (6 * 2 + 3) + 2
 
 
 def card_name() -> str:
@@ -285,16 +343,45 @@ def random_crush_case(seed: int, levels: int, firstn: bool, leaf: bool,
     return cmap, weight, numrep
 
 
-def crush_ops(stats: dict) -> int:
-    """Instructions the placement arithmetic of one run needs, from the
-    plain version's counts of draws and is_out hashes."""
-    return stats["draws"] * DRAW_OPS + stats["is_out_hashes"] * IS_OUT_OPS
+def reweight_devices(cmap, weight_of) -> None:
+    """Give every device item the weight weight_of(device) and every bucket
+    above the sum of its items' weights, level by level."""
+    for b in cmap.buckets.values():
+        b.weights = [weight_of(i) if i >= 0 else w
+                     for i, w in zip(b.items, b.weights)]
+    depth = {}
+
+    def height(bid: int) -> int:
+        if bid not in depth:
+            depth[bid] = 1 + max((height(i) for i in cmap.buckets[bid].items
+                                  if i < 0), default=0)
+        return depth[bid]
+
+    for bid in sorted(cmap.buckets, key=height):
+        b = cmap.buckets[bid]
+        b.weights = [cmap.buckets[i].weight if i < 0 else w
+                     for i, w in zip(b.items, b.weights)]
+
+
+def crush_ops(stats: dict) -> tuple:
+    """(instructions, of which only the ALU pipe can issue, of which only
+    the FMA pipe can) that the placement arithmetic of one run needs, from
+    the plain version's counts of draws and is_out hashes."""
+    draws, hashes = stats["draws"], stats["is_out_hashes"]
+    return (draws * DRAW_OPS + hashes * IS_OUT_OPS,
+            draws * DRAW_ALU_OPS + hashes * IS_OUT_ALU_OPS,
+            draws * DRAW_FMA_OPS)
 
 
 def crush_bound_ms(stats: dict, n: int, result_max: int) -> float:
-    """The operations bound; the bytes (inputs, outputs and a 0.4 MB map)
-    take under a hundredth of it."""
-    return max(crush_ops(stats) / INT_OPS_PER_S,
+    """The operations bound: the largest of the issue time, the ALU pipe's
+    time for what only it can issue and the FMA pipe's likewise (what
+    either can issue, they share: together they match the issue rate); the
+    bytes (inputs, outputs and a 0.8 MB map) take under a hundredth of
+    it."""
+    ops, alu, fma = crush_ops(stats)
+    return max(ops / INT_OPS_PER_S, alu / PIPE_OPS_PER_S,
+               fma / PIPE_OPS_PER_S,
                4 * n * (1 + result_max) / HBM_BYTES_PER_S) * 1e3
 
 
@@ -309,12 +396,93 @@ class CrushShape(NamedTuple):
     got: torch.Tensor          # the kernel's placements of all inputs
 
 
+# the counting build: one line at the head of the straw2 loop (of the
+# one-thread-per-input design, or of the one whose lanes may share a bucket)
+# adds the trip and its active lanes (the leader of __activemask() does)
+STRAW2_LOOP_HEADS = ("for (int i = 0; i < size; ++i) {",
+                     "for (int i = g.sub; i < size; i += g.size) {")
+_COUNT_HEAD = """#include <cuda_runtime.h>
+__device__ unsigned long long crush_lane_counts_[2];
+#define CRUSH_COUNT_TRIP() do { const unsigned m_ = __activemask(); \\
+  if ((threadIdx.x & 31u) == (unsigned)(__ffs(m_) - 1)) { \\
+    atomicAdd(&crush_lane_counts_[0], 1ull); \\
+    atomicAdd(&crush_lane_counts_[1], (unsigned long long)__popc(m_)); \\
+  } } while (0)
+"""
+_COUNT_TAIL = """
+// trips and active lanes counted since the last call, which zeroes them
+extern "C" int crush_lane_counts(unsigned long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, crush_lane_counts_,
+                                         sizeof(crush_lane_counts_));
+  const unsigned long long zero[2] = {0, 0};
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(crush_lane_counts_, zero, sizeof(zero));
+  return (int)err;
+}
+"""
+
+
+def with_trip_count(src: str) -> str:
+    """csrc/crush.cu's text with CRUSH_COUNT_TRIP(); at the head of its
+    straw2 loop."""
+    heads = [h for h in STRAW2_LOOP_HEADS if src.count(h) == 1]
+    if len(heads) != 1:
+        raise RuntimeError("the straw2 loop's head is not found once in"
+                           " csrc/crush.cu")
+    return src.replace(heads[0], heads[0] + " CRUSH_COUNT_TRIP();")
+
+
+def counting_source(src: str) -> str:
+    """csrc/crush.cu with the lane count at the head of its straw2 loop."""
+    return _COUNT_HEAD + with_trip_count(src) + _COUNT_TAIL
+
+
+def counting_library(build):
+    """Build the counting copy of the checkout's csrc/crush.cu beside its
+    libraries and load it, with the argument types of the real one."""
+    build.load()
+    src = build.BUILD_DIR / "count-crush.cu"
+    lib = build.BUILD_DIR / "count-crush.so"
+    src.write_text(counting_source((build.SRC_DIR / "crush.cu")
+                                   .read_text()))
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True, timeout=600)
+    cdll = ctypes.CDLL(str(lib))
+    for fn, argtypes in build._SIGNATURES["crush"].items():
+        getattr(cdll, fn).argtypes = argtypes
+        getattr(cdll, fn).restype = ctypes.c_int
+    cdll.crush_lane_counts.argtypes = (ctypes.c_void_p,)
+    cdll.crush_lane_counts.restype = ctypes.c_int
+    return cdll
+
+
+def lane_utilization(build, counting, run) -> float:
+    """Active lanes over 32 x trips of the straw2 loop in one launch of
+    `run` through the counting library."""
+    libs = build.load()
+    real = libs["crush"]
+    counts = (ctypes.c_ulonglong * 2)()
+    libs["crush"] = counting
+    try:
+        build.check(counting.crush_lane_counts(ctypes.addressof(counts)),
+                    "crush_lane_counts")
+        run()
+        torch.cuda.synchronize()
+        build.check(counting.crush_lane_counts(ctypes.addressof(counts)),
+                    "crush_lane_counts")
+    finally:
+        libs["crush"] = real
+    return counts[1] / (32 * counts[0])
+
+
 def crush_shapes(dev) -> List[CrushShape]:
     """Each rule and weight vector on the 10,000-OSD map: the kernel over
     all CRUSH_INPUTS inputs held against the plain version (which counts
-    the draws and is_out hashes for the bound), then timed."""
+    the draws and is_out hashes for the bound), then timed, and its straw2
+    lane utilization counted."""
     from ceph_tpu_torch.crush import kernel as ck
-    from ceph_tpu_torch.ops import crush_kernels
+    from ceph_tpu_torch.ops import _build, crush_kernels
+    counting = counting_library(_build)
     cmap = crush_map_10k()
     xs = torch.arange(CRUSH_INPUTS, dtype=torch.int32, device=dev)
     shapes = []
@@ -343,7 +511,9 @@ def crush_shapes(dev) -> List[CrushShape]:
                 "draws_per_input": stats["draws"] / CRUSH_INPUTS,
                 "is_out_hashes_per_input": stats["is_out_hashes"]
                 / CRUSH_INPUTS,
+                "lane_utilization": lane_utilization(_build, counting, run),
                 "plain_ms": plain_ms}
+            row["bound_share"] = row["bound_ms"] / row["back_to_back_ms"]
             shapes.append(CrushShape(row, cmap, ruleno, weight, got))
             del want, out
     return shapes
@@ -426,15 +596,17 @@ def parse_sass(text: str) -> dict:
 
 def draw_paths(code: list) -> list:
     """The straw2 draw loops of crush_kernel's SASS (parse_sass's list for
-    the function) and the instructions a draw executes in each.
+    the function) and the instructions a draw executes in each, all and by
+    the pipes that can issue them (`pipe`).
 
     A loop is the span from a backward branch's target to the branch; the
     draw loops are the innermost loops that CALL a routine (the signed
-    64-bit division; each inlined copy of straw2 gives one loop).  A draw
-    that divides executes at least the shortest path from the loop's head
-    to the CALL, the routine's shortest path to its RET, and the shortest
-    path from the return to the loop's branch; the paths skip what a draw
-    need not run (the division's 32-bit fast path, which the 48-bit
+    64-bit division of the earlier design) or load from shared memory
+    (LDS: the ln tables); each inlined copy of straw2 gives one.  A draw
+    executes at least the shortest path from the loop's head to its branch
+    through the CALL and the routine's shortest path to its RET, or, in a
+    loop with no CALL, through an LDS; the paths skip what a draw need not
+    run (a dead item, the division's 32-bit fast path, which the 48-bit
     dividend never takes, and crush_ln's normalisation when the hash is
     large)."""
     at = {a: i for i, (a, _, _, _) in enumerate(code)}
@@ -453,25 +625,32 @@ def draw_paths(code: list) -> list:
             return [i + 1, t] if pred or "," in ops else [t]
         return [i + 1]
 
-    def path(src: int, dst: int, lo: int, hi: int) -> int | None:
-        """Instructions executed from src to dst inclusive (BFS)."""
-        seen, frontier, n = {src}, [src], 1
-        while frontier:
-            if dst in frontier:
-                return n
+    def path(src: int, dst: int, lo: int, hi: int) -> list | None:
+        """The instructions executed from src to dst inclusive (BFS)."""
+        prev, frontier = {src: None}, [src]
+        while frontier and dst not in prev:
             nxt = []
             for i in frontier:
                 for j in succ(i):
-                    if j is not None and lo <= j <= hi and j not in seen:
-                        seen.add(j)
+                    if j is not None and lo <= j <= hi and j not in prev:
+                        prev[j] = i
                         nxt.append(j)
-            frontier, n = nxt, n + 1
-        return None
+            frontier = nxt
+        if dst not in prev:
+            return None
+        out = [dst]
+        while prev[out[-1]] is not None:
+            out.append(prev[out[-1]])
+        return out[::-1]
 
-    def routine(start: int) -> int | None:
+    def routine(start: int) -> list | None:
         ret = next(i for i in range(start, len(code))
                    if code[i][2].startswith("RET"))
         return path(start, ret, start, ret)
+
+    def pipes(parts) -> collections.Counter:
+        return collections.Counter(pipe(code[i][2])
+                                   for part in parts for i in part)
 
     loops = [(target(ops), i) for i, (_, _, op, ops) in enumerate(code)
              if op.startswith("BRA") and target(ops) is not None
@@ -481,29 +660,47 @@ def draw_paths(code: list) -> list:
                         for s2, e2 in loops)]
     draws = []
     for s, e in inner:
-        for c in range(s, e + 1):
-            if not code[c][2].startswith("CALL"):
-                continue
+        calls = [c for c in range(s, e + 1) if code[c][2].startswith("CALL")]
+        shared = [c for c in range(s, e + 1) if code[c][2].startswith("LDS")]
+        found = []
+        for c in calls:
             parts = (path(s, c, s, e), routine(target(code[c][3])),
                      path(c + 1, e, s, e))
+            found.append((c, parts))
+        if not calls:
+            for c in shared:
+                head, tail = path(s, c, s, e), path(c, e, s, e)
+                found.append((c, (head, [], tail[1:] if tail else None)))
+            found = sorted((f for f in found if None not in f[1]),
+                           key=lambda f: sum(map(len, f[1])))[:1]
+        for c, parts in found:
+            ok = None not in parts
+            n = [None if part is None else len(part) for part in parts]
+            by_pipe = pipes(parts) if ok else {}
             draws.append({"loop": [hex(code[s][0]), hex(code[e][0])],
-                          "span": e - s + 1,
-                          "to_call": parts[0], "routine": parts[1],
-                          "after_call": parts[2],
-                          "per_draw": None if None in parts else sum(parts)})
+                          "span": e - s + 1, "via": code[c][2],
+                          "to_via": n[0], "routine": n[1], "after_via": n[2],
+                          "per_draw": sum(n) if ok else None,
+                          **{f"{k}_per_draw": by_pipe.get(k, 0) if ok
+                             else None for k in ("alu", "fma", "either")}})
     return draws
 
 
 def crush_sass(build) -> dict:
-    """The per-draw instruction count of crush_kernel (draw_paths), beside
-    the DRAW_OPS that the bound takes."""
+    """The per-draw instruction counts of crush_kernel (draw_paths), beside
+    the DRAW_OPS, DRAW_ALU_OPS and DRAW_FMA_OPS that the bound takes."""
     funcs = _sass(build, "crush")
     name = next(n for n in funcs if "crush_kernel" in n)
     draws = draw_paths(funcs[name])
-    counts = [d["per_draw"] for d in draws if d["per_draw"] is not None]
+    done = [d for d in draws if d["per_draw"] is not None]
+    least = min(done, key=lambda d: d["per_draw"], default=None)
     return {"function": name, "instructions": len(funcs[name]),
-            "draw_loops": draws, "min_per_draw": min(counts, default=None),
-            "DRAW_OPS": DRAW_OPS}
+            "draw_loops": draws,
+            "min_per_draw": least and least["per_draw"],
+            "alu_per_draw_on_it": least and least["alu_per_draw"],
+            "fma_per_draw_on_it": least and least["fma_per_draw"],
+            "DRAW_OPS": DRAW_OPS, "DRAW_ALU_OPS": DRAW_ALU_OPS,
+            "DRAW_FMA_OPS": DRAW_FMA_OPS}
 
 
 def main() -> None:

@@ -36,13 +36,17 @@ Phases; any failure exits nonzero and prints no result line:
    chooseleaf indep over hosts, 11 slots), each with all OSDs in and with
    a rebalance weight vector (5% out, 10% at half weight).  The placement
    kernel is held bit for bit against its plain version on all 2^20
-   inputs (and timed there, see phase 4), and also on a 64-OSD map with a
-   CHOOSE_FIRSTN osd rule, on a map with an empty host bucket and on 24
-   seeded random hierarchies of 2-4 levels with random rules and weights
-   (firstn and indep, leaf and not, stable 0 and 1, vary_r 0-3,
-   descend_once 0 and 1, numrep other than result_max); and against the host mapper on 256 sampled inputs per
-   rule and weight vector of the big map, x = 0 and 2^20 - 1 among them,
-   and on 64 inputs of each small map.  Then the entry point a user calls: crushtool.run --test
+   inputs (and timed there, with its straw2 lane utilization, see phase
+   4), on odd input counts (1, 31, 33, 2^20 + 17; rebalance vector), on
+   the same map with a seeded weight per OSD (many distinct reciprocals;
+   2^18 inputs), and also on a 64-OSD map with a CHOOSE_FIRSTN osd rule,
+   on a map with an empty host bucket and on 24 seeded random
+   hierarchies of 2-4 levels with random rules and weights (firstn and
+   indep, leaf and not, stable 0 and 1, vary_r 0-3, descend_once 0 and
+   1, numrep other than result_max); and against the host mapper on 256
+   sampled inputs per rule and weight vector of the big map, x = 0 and
+   2^20 - 1 among them, and on 64 inputs of each other case.  Then the
+   entry point a user calls: crushtool.run --test
    --num-rep 3 --show-statistics --show-utilization over x = 0 .. 2^20 - 1
    on the map written to a JSON file, its printed counts checked against
    the placements (3 distinct OSDs per input), the kernel's launch
@@ -55,7 +59,8 @@ Phases; any failure exits nonzero and prints no result line:
    end-to-end encode, decode and fused encode+crc in GiB/s of object data
    (host clock, median of 3); for CRUSH, the kernel per rule and weight
    vector (timed alone and back to back in phase 3b) beside its
-   operations bound and the plain version's time, compile_rule(...)(xs)
+   operations bound, its share of it, its straw2 lane utilization and
+   the plain version's time, compile_rule(...)(xs)
    on 2^20 inputs in placements/s (host clock, median of 3) and the
    crushtool.run call.
 
@@ -80,6 +85,7 @@ B = 64                      # stripes of the 256 MiB object
 STRIPE = K * CHUNK          # 4 MiB
 SEED = 20261016
 RANDOM_CRUSH_MAPS = 24      # seeded random hierarchies of phase 3b
+ODD_COUNTS = (1, 31, 33, (1 << 20) + 17)   # CRUSH inputs of phase 3b
 
 # H100 SXM published peaks: HBM3 at 3.35 TB/s, and 67 TFLOP/s of FP32
 # outside the tensor cores, i.e. 33.5 T lane-instructions per second (128
@@ -129,6 +135,19 @@ def bound(n_bytes: float, ops: float) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def varied_weight_map(rng):
+    """build_flat_cluster(10000, 20, 10) with both rules of the big map and
+    a seeded weight per OSD, from 1 (1/65536) to 0x40000, so that hosts and
+    racks carry distinct sums."""
+    from ceph_tpu_torch.tools import kernel_shapes as ks
+    cmap = ks.crush_map_10k()
+    small = rng.integers(1, 0x100, cmap.max_devices)
+    wide = rng.integers(0x100, 0x40001, cmap.max_devices)
+    per_osd = np.where(rng.random(cmap.max_devices) < 0.05, small, wide)
+    ks.reweight_devices(cmap, lambda dev: int(per_osd[dev]))
+    return cmap
 
 
 def crush_phase(torch, dev, card: str) -> dict:
@@ -184,6 +203,38 @@ def crush_phase(torch, dev, card: str) -> dict:
                       "is_out_hashes_per_input":
                           sh.row["is_out_hashes_per_input"]})
     big = shapes[0].cmap
+
+    # odd input counts (a lane left over in the last warp, a grid smaller
+    # than the card) on the big map, and a map whose item weights differ per
+    # item, so that many distinct reciprocals run
+    odd = {"rebalance": ks.crush_weights(big)["rebalance"]}
+    varied = varied_weight_map(np.random.default_rng(SEED + 1))
+    for name, cmap, counts, weights in (
+            ("10k osds, odd counts", big, ODD_COUNTS, odd),
+            ("10k osds, per-item weights", varied, (1 << 18,),
+             ks.crush_weights(varied))):
+        for rname, ruleno, rmax in ks.CRUSH_RULES:
+            prog = ck.rule_program(cmap, ruleno, rmax)
+            for wname, weight in weights.items():
+                dm = ck.DenseMap.from_crush_map(cmap, weight, dev)
+                for count in counts:
+                    xs_in = torch.arange(count, dtype=torch.int32, device=dev)
+                    got = crush_kernels.crush_do_rule_batch(dm, prog, xs_in)
+                    want = ck.crush_do_rule_batch_plain(dm, prog, xs_in)
+                    mism = int((got != want).any(1).sum())
+                    max_err = max(max_err, int((got.long() - want.long())
+                                               .abs().max()))
+                    tail = xs_in[-64:]
+                    host_bad = vs_host(cmap, ruleno, rmax, weight,
+                                       got[-64:].cpu().numpy(),
+                                       tail.cpu().numpy())
+                    worst = max(worst, mism, host_bad)
+                    cases.append({
+                        "map": name, "rule": rname, "weights": wname,
+                        "distinct_recips": int(dm.recips.unique().numel()),
+                        "plain_inputs": count, "mismatches_vs_plain": mism,
+                        "host_samples": tail.numel(),
+                        "mismatches_vs_host": host_bad})
 
     # small maps: 64 OSDs with CHOOSE_FIRSTN osd, an empty host bucket, and
     # seeded random hierarchies with random tunables, so that every branch
@@ -295,6 +346,7 @@ def crush_times(torch, dev, card: str, state: dict) -> dict:
 
     times = [{k: sh.row[k] for k in ("rule", "weights", "ms",
                                      "back_to_back_ms", "bound_ms",
+                                     "bound_share", "lane_utilization",
                                      "plain_ms")}
              for sh in state["shapes"]]
     n = ks.CRUSH_INPUTS

@@ -37,7 +37,8 @@ from ceph_tpu_torch.crush.map import (
 from ceph_tpu_torch.ops import crush_kernels
 from ceph_tpu_torch.ops import rjenkins as trj
 from ceph_tpu_torch.tools import crushtool as tcrushtool
-from ceph_tpu_torch.tools.kernel_shapes import (draw_paths, parse_sass,
+from ceph_tpu_torch.tools import kernel_shapes
+from ceph_tpu_torch.tools.kernel_shapes import (draw_paths, parse_sass, pipe,
                                                 random_crush_case)
 
 
@@ -413,6 +414,20 @@ FAULTS = {"choose_args": _choose_args_map, "vary_r_step": _vary_r_rule_map,
           "firstn_past_result_max": _firstn_past_map}
 
 
+def _heavy_item_map():
+    """A host weighing 2^32 in the root: past the 32-bit item weights the
+    kernel's reciprocals are proven for."""
+    cmap = jmap.build_flat_cluster(16, osds_per_host=4)
+    cmap.add_simple_rule("data", "default", "host", mode="firstn")
+    cmap.buckets[-1].weights[0] = 1 << 32
+    return cmap
+
+
+# shapes the batched mapper refuses and crushtool answers through the host
+# mapper: the reference faults, and weights past the reciprocals' proof
+HOST_MAPPER_SHAPES = {**FAULTS, "item_weight_past_32_bits": _heavy_item_map}
+
+
 @pytest.mark.parametrize("fault,least", [("choose_args", 129),
                                          ("firstn_past_result_max", 2)])
 def test_jax_kernel_parts_from_the_host_mapper(fault, least):
@@ -431,9 +446,9 @@ def test_jax_kernel_parts_from_the_host_mapper(fault, least):
     assert (got != want).any(axis=1).sum() >= least
 
 
-@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("fault", sorted(HOST_MAPPER_SHAPES))
 def test_unhonoured_shapes_go_to_the_host_mapper(fault, tmp_path):
-    jax_map = FAULTS[fault]()
+    jax_map = HOST_MAPPER_SHAPES[fault]()
     cmap = _to_port(jax_map)
     ruleno = len(cmap.rules) - 1
     with pytest.raises(NotImplementedError):
@@ -505,6 +520,80 @@ def test_no_silent_cpu(monkeypatch, tmp_path):
         tkernel.compile_rule(cmap, 0, 3)
 
 
+# -- the kernel's straw2 reciprocals -----------------------------------------
+
+
+def _divide(n: int, packed: int) -> int:
+    """The kernel's quotient: umulhi(n << 15, m) >> s."""
+    m = packed & ((1 << tkernel.RECIP_SHIFT) - 1)
+    return (((n << 15) * m) >> 64) >> (packed >> tkernel.RECIP_SHIFT)
+
+
+def _map_item_weights(cmap) -> set:
+    return {w for b in cmap.buckets.values() for w in b.weights}
+
+
+def _random_map_weights() -> set:
+    out = set()
+    for seed in range(24):
+        cmap, weight, _ = random_crush_case(seed, 1 + seed % 4, seed % 2 == 0,
+                                            seed % 4 < 2, 1 + seed % 12)
+        out |= _map_item_weights(cmap)
+    return out
+
+
+RECIP_WEIGHTS = {
+    "sweep": lambda: {1, 2, 3, 0xFFFF, 0x10000, 0xC80000, 0xFFFFFFFF}
+    | {(1 << j) + d for j in range(1, 33) for d in (-1, 0, 1)}
+    - {1 << 32, (1 << 32) + 1},
+    "map_10k": lambda: _map_item_weights(
+        jmap.build_flat_cluster(10000, osds_per_host=20, hosts_per_rack=10)),
+    "random_maps": _random_map_weights,
+}
+
+
+@pytest.mark.parametrize("source", sorted(RECIP_WEIGHTS))
+def test_straw2_reciprocal_divides_exactly(source):
+    """crush/kernel.straw2_reciprocal: the proof's inequality, which makes
+    n // w == (n * m) >> (49 + s) for every n in [0, 2^48], and the kernel's
+    two-step form of it at the ends of the range and around multiples of
+    w, against Python's integer division."""
+    weights = sorted(w for w in RECIP_WEIGHTS[source]() if w > 0)
+    assert weights and max(weights) <= 0xFFFFFFFF
+    rng = np.random.default_rng(len(weights))
+    top = 1 << 48
+    for w in weights:
+        packed = tkernel.straw2_reciprocal(w)
+        m = packed & ((1 << tkernel.RECIP_SHIFT) - 1)
+        s = packed >> tkernel.RECIP_SHIFT
+        k = 49 + s
+        e = m * w - (1 << k)
+        assert 0 <= e < w and e * top < 1 << k
+        assert m < 1 << 51 and s <= 32 and packed < 1 << 63
+        last = top // w
+        ks = {0, 1, 2, last - 1, last, last + 1} | {
+            int(v) for v in rng.integers(0, last + 1, 64)}
+        ns = {0, 1, top - 1, top} | {
+            k * w + d for k in ks for d in (-1, 0, 1) if 0 <= k * w + d <= top}
+        for n in ns:
+            assert _divide(n, packed) == n // w, (w, n)
+
+
+def test_straw2_reciprocal_skips_and_refuses():
+    assert tkernel.straw2_reciprocal(0) == 0
+    assert tkernel.straw2_reciprocal(-5) == 0
+    with pytest.raises(NotImplementedError):
+        tkernel.straw2_reciprocal(1 << 32)
+    with pytest.raises(NotImplementedError):
+        tkernel.DenseMap.from_crush_map(_to_port(_heavy_item_map()), None,
+                                        torch.device("cpu"))
+    cmap = _to_port(_reweighted())
+    dm = tkernel.DenseMap.from_crush_map(cmap, None, torch.device("cpu"))
+    want = [[tkernel.straw2_reciprocal(int(w)) for w in row]
+            for row in dm.weights.tolist()]
+    assert dm.recips.dtype == torch.int64 and dm.recips.tolist() == want
+
+
 def test_plain_counts_the_draws_it_makes():
     cmap = _to_port(_simple(jmap.build_flat_cluster(16, 4), "osd"))
     run = tkernel.compile_rule(cmap, 0, 1, device="cpu")
@@ -540,14 +629,88 @@ SASS = """\
         /*00e0*/                   BRA 0xe0;                        /* 0x000 */
 """
 
+# the same loop with the reciprocal in place of the division: no CALL; the
+# draw's ln table load (LDS) lies past a dead-item skip and a skippable
+# block, then a 64-bit product, a compare and a select
+SASS_RECIPROCAL = """\
+\t\tFunction : _Z12crush_kernel11CrushParams
+        /*0000*/                   MOV R1, c[0x0][0x28] ;          /* 0x000 */
+        /*0010*/                   LDG.E.64.CONSTANT R2, [R4.64] ;  /* 0x000 */
+        /*0020*/              @!P0 BRA 0xa0 ;                       /* 0x000 */
+        /*0030*/                   LOP3.LUT R3, R3, R6, RZ, 0x3c, !PT ;
+        /*0040*/               @P1 BRA 0x60 ;                       /* 0x000 */
+        /*0050*/                   SHF.L.U32 R3, R3, 0x1, RZ ;      /* 0x000 */
+        /*0060*/                   LDS.64 R8, [R3] ;                /* 0x000 */
+        /*0070*/                   IMAD.WIDE.U32 R10, R8, R2, RZ ;  /* 0x000 */
+        /*0080*/                   ISETP.GE.U32.AND P2, PT, R10, R12, PT ;
+        /*0090*/                   SEL R13, R14, R13, !P2 ;         /* 0x000 */
+        /*00a0*/                   IADD3 R5, R5, 0x1, RZ ;          /* 0x000 */
+        /*00b0*/                   ISETP.GE.AND P0, PT, R5, R7, PT ;
+        /*00c0*/              @!P0 BRA 0x10 ;                       /* 0x000 */
+        /*00d0*/                   EXIT ;                           /* 0x000 */
+        /*00e0*/                   BRA 0xe0;                        /* 0x000 */
+"""
 
-def test_draw_count_follows_the_shortest_path_through_the_division():
+
+@pytest.mark.parametrize("listing,size,want", [
+    # head -> CALL (5), the routine (2), return -> the loop's branch (3);
+    # ISETP only on the ALU pipe, IADD3 and IADD3 in the routine on either
+    pytest.param(SASS, 15, {
+        "loop": ["0x10", "0xa0"], "span": 10, "via": "CALL.REL.NOINC",
+        "to_via": 5, "routine": 2, "after_via": 3, "per_draw": 10,
+        "alu_per_draw": 1, "fma_per_draw": 0, "either_per_draw": 2},
+        id="division_call"),
+    # head -> LDS (5, past the normalisation), LDS -> the branch (6 more);
+    # LOP3, ISETP, SEL, ISETP only on the ALU pipe, IMAD.WIDE only on the
+    # FMA pipe, IADD3 on either
+    pytest.param(SASS_RECIPROCAL, 15, {
+        "loop": ["0x10", "0xc0"], "span": 12, "via": "LDS.64",
+        "to_via": 5, "routine": 0, "after_via": 6, "per_draw": 11,
+        "alu_per_draw": 4, "fma_per_draw": 1, "either_per_draw": 1},
+        id="reciprocal_no_call"),
+])
+def test_draw_count_follows_the_shortest_path_through_the_division(
+        listing, size, want):
     """kernel_shapes.draw_paths, which counts the SASS instructions a draw
-    executes for the operations bound: head -> CALL (5), the routine (2),
-    return -> the loop's branch (3)."""
-    funcs = parse_sass(SASS)
+    executes for the operations bound, by the pipes that can issue them:
+    through the division's CALL and its routine where the loop has
+    one, else through the ln table load."""
+    funcs = parse_sass(listing)
     code = funcs["_Z12crush_kernel11CrushParams"]
-    assert len(code) == 15
-    assert draw_paths(code) == [{
-        "loop": ["0x10", "0xa0"], "span": 10, "to_call": 5, "routine": 2,
-        "after_call": 3, "per_draw": 10}]
+    assert len(code) == size
+    assert draw_paths(code) == [want]
+
+
+@pytest.mark.parametrize("op,want", [
+    ("LOP3.LUT", "alu"), ("SHF.R.U32.HI", "alu"), ("SHF.L.U64.HI", "alu"),
+    ("ISETP.GE.U32.AND.EX", "alu"), ("SEL", "alu"), ("LEA.HI.X.SX32", "alu"),
+    ("IADD3", "either"), ("IADD3.X", "either"), ("SHF.L.U32", "either"),
+    ("IMAD.SHL.U32", "either"), ("IMAD.MOV.U32", "either"),
+    ("IMAD.IADD", "either"), ("LEA", "either"), ("IMAD.WIDE.U32", "fma"),
+    ("IMAD.HI.U32", "fma"), ("IMAD.X", "fma"), ("LDS.128", "issue"),
+    ("BRA", "issue"), ("ULDC.64", "issue"),
+])
+def test_sass_pipe_of_an_instruction(op, want):
+    """kernel_shapes.pipe: what only the ALU pipe can issue (logic, right
+    and funnel shifts, compares, selects), only the FMA pipe (multiplies),
+    either (adds, one-word left shifts, moves, address sums), or neither."""
+    assert pipe(op) == want
+
+
+@pytest.mark.parametrize("draw_ops,alu,fma,by", [
+    (200, 90, 10, "issue"), (200, 120, 10, "alu"), (200, 30, 110, "fma"),
+])
+def test_crush_bound_takes_the_slowest_of_issue_and_pipes(
+        monkeypatch, draw_ops, alu, fma, by):
+    """The operations bound: issue time at 33.5 T/s, or what only one pipe
+    can issue at half that rate, whichever is longer."""
+    monkeypatch.setattr(kernel_shapes, "DRAW_OPS", draw_ops)
+    monkeypatch.setattr(kernel_shapes, "DRAW_ALU_OPS", alu)
+    monkeypatch.setattr(kernel_shapes, "DRAW_FMA_OPS", fma)
+    draws = 10 ** 9
+    want = {"issue": draws * draw_ops / kernel_shapes.INT_OPS_PER_S,
+            "alu": draws * alu / kernel_shapes.PIPE_OPS_PER_S,
+            "fma": draws * fma / kernel_shapes.PIPE_OPS_PER_S}[by] * 1e3
+    got = kernel_shapes.crush_bound_ms(
+        {"draws": draws, "is_out_hashes": 0}, 1, 1)
+    assert got == pytest.approx(want, rel=1e-12)
