@@ -3,7 +3,9 @@
 The package runs the OSD's erasure-code write and read path (Reed-Solomon
 GF(2^8) encode, decode of erased chunks, and the per-chunk hinfo crc32c
 fused with the encode) on an NVIDIA Hopper card through CUDA kernels
-written by hand under ``csrc/``.  Every module keeps the name of its
+written by hand under ``csrc/``, and above it CRUSH placement, the OSD
+map with its live PG mapping, and the embedded storage cluster
+(``rados/embedded.py``).  Every module keeps the name of its
 ``ceph_tpu`` counterpart.  It imports ``torch`` and numpy only, never
 ``jax`` and nothing of ``ceph_tpu``: the host helpers it needs are its
 own copies.

@@ -1,0 +1,45 @@
+"""Zero-copy shard buffer views (the bufferlist share-don't-copy role;
+the part of ceph_tpu/common/buffer.py that the port's stores use:
+`is_immutable`).
+
+Reference parity: ceph::buffer::list (the reference's src/include/
+buffer.h) lets every layer pass refcounted views of the same pages —
+an EC data shard handed to the ObjectStore is a view of the client's
+message buffer, never a copy.  Python's memoryview covers that here:
+the port's ECUtil hands each shard out as a frozen view of a
+contiguous array.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def is_immutable(data) -> bool:
+    """True when no OTHER owner can mutate the buffer's bytes.
+
+    The store-adoption guard (os/memstore.py): adopted buffers must
+    never change under the recorded crcs.  Walks the base chain:
+
+    - bytes: immutable by construction.
+    - memoryview: must be readonly AND backed by an immutable base —
+      `memoryview(ba).toreadonly()` is readonly while its owner still
+      mutates `ba`, so readonly alone is not proof.
+    - ndarray: every view on the chain must be frozen
+      (non-writeable) down to a root that either owns its memory
+      (frozen owner — producers in this repo freeze via setflags and
+      never thaw; the claim contract covers them) or wraps an
+      immutable buffer.
+    """
+    if isinstance(data, bytes):
+        return True
+    if isinstance(data, memoryview):
+        return data.readonly and is_immutable(data.obj)
+    if isinstance(data, np.ndarray):
+        if data.flags.writeable:
+            return False
+        if data.base is None:
+            return True  # frozen owner
+        return is_immutable(data.base)
+    return False
+

@@ -491,6 +491,18 @@ def rule_program(cmap: CrushMap, ruleno: int,
     return program
 
 
+def place(dm: DenseMap, program: ChooseProgram, xs) -> np.ndarray:
+    """Every input of xs (N,) through one resolved rule on the dense map's
+    device -> np.ndarray (N, result_max) int32, one kernel launch.  One
+    DenseMap serves every rule and size of a map and weight vector."""
+    # the wrapper module imports this one for the plain version
+    from ceph_tpu_torch.ops.crush_kernels import crush_do_rule_batch
+
+    x = np.asarray(xs, dtype=np.int64).astype(np.int32)
+    return crush_do_rule_batch(
+        dm, program, torch.from_numpy(x).to(dm.items.device)).cpu().numpy()
+
+
 def compile_rule(cmap: CrushMap, ruleno: int, result_max: int,
                  weight: List[int] | None = None, device=None):
     """Build a bulk evaluator for one rule: xs (N,) -> np.ndarray
@@ -500,17 +512,12 @@ def compile_rule(cmap: CrushMap, ruleno: int, result_max: int,
     Unplaced firstn slots hold CRUSH_ITEM_NONE at the tail; indep holds
     NONE in place, mirroring crush_do_rule's output contract.
     """
-    # the wrapper module imports this one for the plain version
-    from ceph_tpu_torch.ops.crush_kernels import crush_do_rule_batch
-
     dev = resolve_device(device)
     program = rule_program(cmap, ruleno, result_max)
     dm = DenseMap.from_crush_map(cmap, weight, dev)
 
     def run(xs) -> np.ndarray:
-        x = np.asarray(xs, dtype=np.int64).astype(np.int32)
-        return crush_do_rule_batch(
-            dm, program, torch.from_numpy(x).to(dev)).cpu().numpy()
+        return place(dm, program, xs)
 
     run.dense_map = dm
     run.program = program

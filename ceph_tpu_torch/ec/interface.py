@@ -206,3 +206,13 @@ class ErasureCode:
         for i in range(self.get_data_chunk_count()):
             out += decoded[self.chunk_index(i)]
         return _freeze(out)
+
+    # -- CRUSH integration --------------------------------------------------
+
+    def create_rule(self, name: str, crush) -> int:
+        """Add the pool's erasure rule to a port CrushMap: TAKE the
+        profile's crush-root, CHOOSELEAF INDEP over its failure domain,
+        EMIT; -> the rule number (-17 if the name exists)."""
+        return crush.add_simple_rule(
+            name, self.rule_root, self.rule_failure_domain,
+            self.rule_device_class, "indep", pool_type="erasure")

@@ -2,8 +2,9 @@
 
 The ErasureCodePluginRegistry role: a process-wide table of named codec
 factories with a version stamp, and `create_erasure_code(profile)`, which
-resolves the profile's `plugin` (default `ec_torch`), builds the codec and
-checks that it echoes the profile back, as the reference asserts.
+resolves the profile's `plugin` (default `ec_torch`; `jerasure` and `isa`
+are aliases of it), builds the codec and checks that it echoes the
+profile back, as the reference asserts.
 
 Profile keys are those of `ec_jax` plus `device` (a torch device string;
 absent means CUDA).
@@ -92,7 +93,12 @@ def _torch_factory(profile: ErasureCodeProfile) -> ErasureCode:
 
 
 def _register_builtin(reg: ErasureCodePluginRegistry) -> None:
-    reg.add("ec_torch", ErasureCodePlugin("ec_torch", _torch_factory))
+    # `jerasure` and `isa` are aliases of `ec_torch`, as the JAX package
+    # maps them to `ec_jax`, so that reference profiles (plugin=jerasure
+    # technique=reed_sol_van, the osd_pool_default_erasure_code_profile)
+    # resolve to the port's codec
+    for name in ("ec_torch", "jerasure", "isa"):
+        reg.add(name, ErasureCodePlugin(name, _torch_factory))
 
 
 def create_erasure_code(profile: ErasureCodeProfile) -> ErasureCode:

@@ -24,6 +24,9 @@ import numpy as np
 from ceph_tpu_torch.ec.interface import ErasureCodeError
 from ceph_tpu_torch.ops import checksum as cks
 
+# the object xattr that holds a shard's HashInfo ledger (ECUtil.h hinfo_key)
+HINFO_KEY = "hinfo_key"
+
 
 class StripeInfo:
     """stripe_info_t: stripe_width = stripe_size (k) x chunk_size."""

@@ -51,6 +51,28 @@ Phases; any failure exits nonzero and prints no result line:
    on the map written to a JSON file, its printed counts checked against
    the placements (3 distinct OSDs per input), the kernel's launch
    counter zeroed just before it.
+3c. Live PG placement: the 10,000-OSD map in an OSDMap with a replicated
+   size-3 pool of 2^18 PGs (rule 0) and an EC 8+3 pool of 2^14 PGs (rule
+   1), all OSDs in and again with a seeded 5% out and 2% down.  On each map
+   OSDMapMapping(m) and osdmaptool.run([map file, "--test-map-pgs"]), each
+   with the placement kernel's launch counter zeroed just before it; 1024
+   seeded PGs per pool against the host path m.pg_to_up_acting_osds, the
+   tool's pg count and min/max/avg lines against the mapping's; each
+   pool's launch again, held against the plain version and timed beside
+   its operations bound; the update's seconds split into flattening the
+   map, the pps, the kernel and the per-PG host work.
+3d. The embedded cluster (BASELINE config 5's object): LocalCluster(24
+   OSDs, 12 hosts) on the card with an EC pool plugin=jerasure
+   reed_sol_van k=8 m=3 over hosts; 4 seeded objects of 64 MiB, each
+   written (write_full), read healthy, read with one data shard's OSD down
+   and with three down (then marked up again), every read exact; deep
+   scrub clean, a flipped byte in one shard's MemStore reported, the read
+   still exact, repair rewriting that shard, scrub clean again; one
+   object's shards and hinfo/object-info xattrs equal to the same write on
+   a LocalCluster(device="cpu"); the GF kernels' launch counters (zeroed
+   just before the writes) above zero; object GiB/s per operation (host
+   clock, median of the 4 objects) and where a write and a degraded read
+   spend their time (encode, host crc, shard gather and verify, decode).
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -62,7 +84,11 @@ Phases; any failure exits nonzero and prints no result line:
    operations bound, its share of it, its straw2 lane utilization and
    the plain version's time, compile_rule(...)(xs)
    on 2^20 inputs in placements/s (host clock, median of 3) and the
-   crushtool.run call.
+   crushtool.run call; the GF kernels at the cluster path's shapes
+   ((1, 8, 8 MiB) encode, (2048, 8, 4096) decode of 1 and 3 rows), each
+   against its plain version, and the placement kernel at phase 3c's.
+   Every kernels-line row carries its launches per path (codec, crushtool,
+   osdmap, cluster) and their sum.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The card's name and power limit, as
@@ -86,6 +112,20 @@ STRIPE = K * CHUNK          # 4 MiB
 SEED = 20261016
 RANDOM_CRUSH_MAPS = 24      # seeded random hierarchies of phase 3b
 ODD_COUNTS = (1, 31, 33, (1 << 20) + 17)   # CRUSH inputs of phase 3b
+EC_PROFILE = {"plugin": "jerasure", "technique": "reed_sol_van",
+              "k": str(K), "m": str(M), "crush-failure-domain": "host"}
+# phase 3c: a replicated size-3 pool and an EC 8+3 pool on the 10,000-OSD
+# map, 3 * 2^18 + 11 * 2^14 = 966,656 PG shards, about 97 per OSD (Pacific's
+# mon_target_pg_per_osd is 100); a seeded sample of each pool's PGs is held
+# against the host path
+OSDMAP_REP_PGS = 1 << 18
+OSDMAP_EC_PGS = 1 << 14
+OSDMAP_SAMPLES = 1024
+OUT_SHARE, DOWN_SHARE = 0.05, 0.02
+# phase 3d: BASELINE config 5's object, 64 MiB into EC 8+3 over hosts, on
+# 24 OSDs in 12 hosts
+CLUSTER_OSDS, CLUSTER_OSDS_PER_HOST = 24, 2
+CLUSTER_OBJECTS, CLUSTER_OBJECT = 4, 64 << 20
 
 # H100 SXM published peaks: HBM3 at 3.35 TB/s, and 67 TFLOP/s of FP32
 # outside the tensor cores, i.e. 33.5 T lane-instructions per second (128
@@ -360,6 +400,285 @@ def crush_times(torch, dev, card: str, state: dict) -> dict:
             "max_abs_err": state["max_abs_err"], **times[0]}
 
 
+def osdmap_of(cmap, rng=None):
+    """The 10,000-OSD map in an OSDMap (all OSDs up and in) with the
+    replicated pool on rule 0 and the EC 8+3 pool on rule 1; with `rng`, a
+    seeded OUT_SHARE of the OSDs out and another DOWN_SHARE down."""
+    from ceph_tpu_torch.osd import osdmap as om
+    m = om.OSDMap()
+    m.epoch, m.fsid = 1, "chip-smoke"
+    m.crush = cmap
+    m.set_max_osd(cmap.max_devices)
+    for o in range(m.max_osd):
+        m.osd_state[o] = om.CEPH_OSD_EXISTS | om.CEPH_OSD_UP
+        m.osd_weight[o] = om.CEPH_OSD_IN
+    m.create_pool("rbd", size=3, pg_num=OSDMAP_REP_PGS, crush_rule=0)
+    m.erasure_code_profiles["ec83"] = dict(EC_PROFILE)
+    m.create_pool("ec83", type_=om.TYPE_ERASURE, size=K + M,
+                  pg_num=OSDMAP_EC_PGS, crush_rule=1,
+                  erasure_code_profile="ec83")
+    if rng is not None:
+        order = [int(o) for o in rng.permutation(m.max_osd)]
+        n_out, n_down = int(m.max_osd * OUT_SHARE), int(m.max_osd * DOWN_SHARE)
+        for o in order[:n_out]:
+            m.osd_weight[o] = om.CEPH_OSD_OUT
+        for o in order[n_out:n_out + n_down]:
+            m.osd_state[o] &= ~om.CEPH_OSD_UP
+    return m
+
+
+def osdmap_phase(torch, dev, card: str) -> dict:
+    """Phase 3c: OSDMapMapping and osdmaptool --test-map-pgs on the
+    10,000-OSD map, all in and with OSDs out and down.  Returns the launches
+    and the kernel's rows at these shapes."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from ceph_tpu_torch.crush import kernel as ck
+    from ceph_tpu_torch.ops import crush_kernels
+    from ceph_tpu_torch.osd.osdmap import OSDMapMapping, PgId
+    from ceph_tpu_torch.tools import kernel_shapes as ks
+    from ceph_tpu_torch.tools import osdmaptool
+
+    phase_t0 = time.perf_counter()
+    launch = crush_kernels.crush_do_rule_batch
+    rng = np.random.default_rng(SEED + 2)
+    cmap = ks.crush_map_10k()
+    runs, shapes, launches = [], [], 0
+    for wname, m in (("all in", osdmap_of(cmap)),
+                     ("out and down", osdmap_of(cmap, rng))):
+        launch.launches = 0
+        t0 = time.perf_counter()
+        mapping = OSDMapMapping(m)
+        mapping_s = time.perf_counter() - t0
+        mapping_launches = launch.launches
+
+        # the update's parts, again: the map flattened once, each pool's
+        # pps and its kernel launch (timed alone, and held against the
+        # plain version, which counts the draws for the bound)
+        t0 = time.perf_counter()
+        dm = ck.DenseMap.from_crush_map(m.crush, m.osd_weight, dev)
+        torch.cuda.synchronize()
+        flatten_s = time.perf_counter() - t0
+        pps_s = kernel_ms = 0.0
+        for pool in m.pools.values():
+            t0 = time.perf_counter()
+            pps = pool.all_pps()
+            pps_s += time.perf_counter() - t0
+            prog = ck.rule_program(m.crush, m._find_rule(pool), pool.size)
+            xs = torch.from_numpy(pps.astype(np.int32)).to(dev)
+            out = torch.empty((xs.numel(), pool.size), dtype=torch.int32,
+                              device=dev)
+            got = launch(dm, prog, xs, out=out).clone()
+            stats = {}
+            t0 = time.perf_counter()
+            want = ck.crush_do_rule_batch_plain(dm, prog, xs, stats)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            ms = ks.alone_ms(lambda: launch(dm, prog, xs, out=out))
+            kernel_ms += ms
+            shapes.append({
+                "weights": wname, "pool": pool.name, "inputs": xs.numel(),
+                "result_max": pool.size, "ms": ms,
+                "bound_ms": ks.crush_bound_ms(stats, xs.numel(), pool.size),
+                "plain_ms": plain_ms,
+                "mismatches_vs_plain": int((got != want).any(1).sum()),
+                "max_abs_err": int((got.long() - want.long()).abs().max()),
+                "draws_per_input": stats["draws"] / xs.numel()})
+            del got, want, out
+
+        # a seeded sample of each pool's PGs against the host path
+        host_bad, host_pgs = 0, 0
+        t0 = time.perf_counter()
+        for pool in m.pools.values():
+            for ps in rng.choice(pool.pg_num, OSDMAP_SAMPLES, replace=False):
+                pg = PgId(pool.id, int(ps))
+                host_bad += mapping.get(pg) != m.pg_to_up_acting_osds(pg)
+                host_pgs += 1
+        host_s = time.perf_counter() - t0
+
+        # the tool on the map written to a file; its counts against the
+        # mapping's
+        fd, path = tempfile.mkstemp(suffix=".osdmap")
+        with os.fdopen(fd, "wb") as f:
+            f.write(m.encode())
+        try:
+            text = io.StringIO()
+            launch.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                rc = osdmaptool.run([path, "--test-map-pgs"])
+            tool_s = time.perf_counter() - t0
+            tool_launches = launch.launches
+        finally:
+            os.unlink(path)
+        per_osd = mapping.pgs_by_osd()
+        in_ids = [o for o in range(m.max_osd) if m.is_in(o)]
+        counts = np.array([len(per_osd.get(o, [])) for o in in_ids])
+        lo, hi = int(counts.argmin()), int(counts.argmax())
+        n_pgs = sum(p.pg_num for p in m.pools.values())
+        want_lines = [f"pool all pg_num {n_pgs}",
+                      f"min osd.{in_ids[lo]} {int(counts[lo])}",
+                      f"max osd.{in_ids[hi]} {int(counts[hi])}",
+                      f"avg {float(counts.mean()):.2f}"
+                      f" stddev {float(counts.std()):.2f}"]
+        lines = text.getvalue().splitlines()
+        tool_ok = rc == 0 and all(line in lines for line in want_lines)
+        runs.append({
+            "weights": wname, "pgs": n_pgs, "mapping_s": mapping_s,
+            "mapping_launches": mapping_launches, "flatten_s": flatten_s,
+            "pps_s": pps_s, "kernel_s": kernel_ms / 1e3,
+            "kernel_share": kernel_ms / 1e3 / mapping_s,
+            "per_pg_host_s": mapping_s - flatten_s - pps_s - kernel_ms / 1e3,
+            "host_path_pgs": host_pgs, "host_path_mismatches": host_bad,
+            "host_path_s": host_s, "osdmaptool_s": tool_s,
+            "osdmaptool_launches": tool_launches, "osdmaptool_ok": tool_ok,
+            "osdmaptool_lines": lines})
+        launches += mapping_launches + tool_launches
+        check(host_bad == 0, f"OSDMapMapping differs from the host path on"
+              f" {host_bad} of {host_pgs} sampled PGs ({wname})")
+        check(tool_ok, f"osdmaptool --test-map-pgs printed {lines}")
+        check(mapping_launches > 0 and tool_launches > 0,
+              "OSDMapMapping or osdmaptool never launched the placement"
+              " kernel")
+    print(json.dumps({"phase": "osdmap", "runs": runs, "kernel_shapes": shapes,
+                      "seconds": time.perf_counter() - phase_t0,
+                      "card": card}))
+    check(all(sh["mismatches_vs_plain"] == sh["max_abs_err"] == 0
+              for sh in shapes),
+          "the placement kernel disagrees with its plain version")
+    return {"launches": launches, "shapes": shapes}
+
+
+def cluster_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3d: LocalCluster on the card, EC 8+3 over hosts: 64 MiB
+    objects written, read healthy and degraded, scrubbed, corrupted and
+    repaired; one object's shards and hinfo against the same write on a
+    LocalCluster(device="cpu").  Returns the launches."""
+    from ceph_tpu_torch.os import ObjectId, Transaction
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.rados.embedded import (HINFO_ATTR, OI_ATTR,
+                                               LocalCluster, shard_collection)
+
+    phase_t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 3)
+    objs = {f"obj-{i}": rng.bytes(CLUSTER_OBJECT)
+            for i in range(CLUSTER_OBJECTS)}
+    cluster = LocalCluster(num_osds=CLUSTER_OSDS,
+                           osds_per_host=CLUSTER_OSDS_PER_HOST)
+    check(cluster.device.type == "cuda", "the cluster is not on the card")
+    cluster.create_erasure_pool("ecpool", EC_PROFILE)
+    io = cluster.open_ioctx("ecpool")
+    times = {"write_full": [], "read": [], "read_1_down": [],
+             "read_3_down": []}
+    exact = []
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[key].append(time.perf_counter() - t0)
+        return res
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    for name, data in objs.items():
+        timed("write_full", lambda: io.write_full(name, data))
+        exact.append(timed("read", lambda: io.read(name)) == data)
+        acting, _primary = io.acting(io.object_pg(name))
+        # one data shard lost, then three (the most RS 8+3 decodes)
+        for key, lost in (("read_1_down", (0,)), ("read_3_down", (0, 3, 6))):
+            for shard in lost:
+                cluster.mark_osd_down(acting[shard])
+            exact.append(timed(key, lambda: io.read(name)) == data)
+            for shard in lost:
+                cluster.mark_osd_up(acting[shard])
+
+    # scrub, a flipped byte in one shard's store, read, repair, scrub
+    name = "obj-0"
+    pg = io.object_pg(name)
+    acting, _primary = io.acting(pg)
+    oid = ObjectId(name)
+    clean_before = io.deep_scrub(name)
+    store, cid = cluster.stores[acting[2]], shard_collection(pg, 2)
+    buf = bytearray(store.read(cid, oid))
+    buf[12345] ^= 0x01
+    t = Transaction()
+    t.write(cid, oid, 0, len(buf), bytes(buf))
+    store.queue_transaction(t)
+    found = io.deep_scrub(name)
+    read_corrupt_ok = io.read(name) == objs[name]
+    repaired = io.repair(name)
+    clean_after = io.deep_scrub(name)
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+
+    # where a write and a degraded read spend their time: the steps of
+    # write_full and read, run again on obj-1
+    name, data = "obj-1", objs["obj-1"]
+    codec = cluster._codec(io.pool_id)
+    sinfo = io._sinfo(codec)
+    shards = ec_util.encode(sinfo, codec, data, range(K + M))
+    pg = io.object_pg(name)
+    acting, _primary = io.acting(pg)
+    steps = {
+        "encode_s": host_median_s(torch, lambda: ec_util.encode(
+            sinfo, codec, data, range(K + M))),
+        "hinfo_crc_s": host_median_s(torch, lambda: ec_util.HashInfo(
+            K + M).append(0, shards)),
+        "gather_and_verify_s": host_median_s(torch, lambda: io._gather_shards(
+            name, pg, acting)),
+        "decode_1_lost_s": host_median_s(torch, lambda: ec_util.decode(
+            sinfo, codec, {i: shards[i] for i in range(1, K + M)})),
+    }
+    med = {key: statistics.median(v) for key, v in times.items()}
+    # placement, the padding copy, the xattrs and the 11 store transactions
+    steps["store_and_rest_s"] = (med["write_full"] - steps["encode_s"]
+                                 - steps["hinfo_crc_s"])
+
+    # the same write through the plain versions
+    cpu = LocalCluster(num_osds=CLUSTER_OSDS,
+                       osds_per_host=CLUSTER_OSDS_PER_HOST, device="cpu")
+    cpu.create_erasure_pool("ecpool", EC_PROFILE)
+    cpu_io = cpu.open_ioctx("ecpool")
+    cpu_io.write_full(name, data)
+    same = cpu_io.acting(pg) == io.acting(pg)
+    for shard, osd in enumerate(acting):
+        cid = shard_collection(pg, shard)
+        same = same and all(
+            cluster.stores[osd].read(cid, ObjectId(name))
+            == cpu.stores[osd].read(cid, ObjectId(name))
+            and cluster.stores[osd].getattr(cid, ObjectId(name), attr)
+            == cpu.stores[osd].getattr(cid, ObjectId(name), attr)
+            for attr in (HINFO_ATTR, OI_ATTR))
+
+    gib = CLUSTER_OBJECT / (1 << 30)
+    result = {
+        "phase": "cluster", "osds": CLUSTER_OSDS,
+        "hosts": CLUSTER_OSDS // CLUSTER_OSDS_PER_HOST,
+        "objects": CLUSTER_OBJECTS, "object_bytes": CLUSTER_OBJECT,
+        "reads_exact": sum(exact), "reads": len(exact),
+        "scrub_clean_before": clean_before, "scrub_found": found,
+        "read_with_corrupt_shard_ok": read_corrupt_ok,
+        "repaired": repaired, "scrub_clean_after": clean_after,
+        "same_as_cpu_cluster": same, "launches": launches,
+        "seconds": times, "median_s": med,
+        "gib_per_s": {key: gib / sec for key, sec in med.items()},
+        "steps": steps, "seconds_in_phase": time.perf_counter() - phase_t0,
+        "card": card}
+    print(json.dumps(result))
+    check(all(exact) and read_corrupt_ok, "a cluster read differs from the"
+          " written object")
+    check(clean_before == [] and clean_after == []
+          and [s for s, _why in found] == [2] and repaired == [2],
+          f"scrub/repair: {clean_before} {found} {repaired} {clean_after}")
+    check(same, "the card's shards or hinfo differ from the CPU cluster's")
+    check(launches["gf_matmul_spec"] > 0 and launches["gf_matmul_gen"] > 0,
+          f"the cluster path did not launch both GF kernels: {launches}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -371,7 +690,8 @@ def main() -> None:
         from ceph_tpu_torch.ec import plan
         from ceph_tpu_torch.ec.registry import create_erasure_code
         from ceph_tpu_torch.models import reed_solomon as rs
-        from ceph_tpu_torch.ops import _build, crc_kernels, gf_kernels
+        from ceph_tpu_torch.ops import (_build, crc_kernels, crush_kernels,
+                                        gf_kernels)
         from ceph_tpu_torch.ops import checksum as cks
         from ceph_tpu_torch.ops.gf import gf_matmul_ref
         from ceph_tpu_torch.osd import ec_util
@@ -493,7 +813,8 @@ def main() -> None:
     n = K + M
     wrappers = {"gf_matmul_spec": gf_kernels.gf_matmul_spec,
                 "gf_matmul_gen": gf_kernels.gf_matmul_gen,
-                "crc32c_blocks": crc_kernels.crc32c_blocks}
+                "crc32c_blocks": crc_kernels.crc32c_blocks,
+                "crush_do_rule_batch": crush_kernels.crush_do_rule_batch}
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -544,11 +865,24 @@ def main() -> None:
     check(parity_ok, "parity differs from the numpy oracle")
     check(host_ok and plain_ok, "a hinfo ledger differs from the reference")
     check(hinfo.total_chunk_size == B * CHUNK, "wrong hinfo chunk size")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[name] > 0 for name in ("gf_matmul_spec",
+                                              "gf_matmul_gen",
+                                              "crc32c_blocks")),
           f"a kernel of the main path never launched: {launches}")
 
     # -- 3b. CRUSH placement ------------------------------------------------
     crush_state = crush_phase(torch, dev, card)
+
+    # -- 3c. live PG placement: OSDMapMapping and osdmaptool ----------------
+    osdmap_state = osdmap_phase(torch, dev, card)
+
+    # -- 3d. the embedded cluster -------------------------------------------
+    cluster_launches = cluster_phase(torch, dev, card, wrappers)
+    # each path's launches, its counts zeroed just before it
+    by_path = {"codec": launches,
+               "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
+               "osdmap": {"crush_do_rule_batch": osdmap_state["launches"]},
+               "cluster": cluster_launches}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)
@@ -558,12 +892,17 @@ def main() -> None:
     words = B * CHUNK // 4                       # 32-bit words per input row
     rows = []
 
+    def path_launches(name):
+        counts = {path: c.get(name, 0) for path, c in by_path.items()}
+        return {"launches": sum(counts.values()),
+                "launches_by_path": counts}
+
     def row(name, route, source, replaces, fn, plain, n_bytes, ops):
         ms = alone_ms(fn)
         plain_ms = alone_ms(plain, reps=5, warmup=1)
         b_ms, by = bound(n_bytes, ops)
         return {"name": name, "route": route, "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, **path_launches(name),
                 "max_abs_err": {"gf_matmul_spec": spec_err,
                                 "gf_matmul_gen": gen_err,
                                 "crc32c_blocks": crc_err}[name],
@@ -617,7 +956,42 @@ def main() -> None:
                 blk, length, 0, out=nb_out)),
             "bound_ms": bound(nb * (length + 4),
                               nb * length // 4 * CRC_OPS_PER_WORD)[0]})
-    print(json.dumps({"extra_shapes": extra}))
+    # the cluster path's shapes (phase 3d): ec_util.encode hands a 64 MiB
+    # object's shard streams over as one (1, 8, 8 MiB) batch, and a read or
+    # repair that lost data shards decodes (2048, 8, 4096) stripes
+    stream = CLUSTER_OBJECT // K
+    n_stripes = stream // 4096
+    cluster_shapes = (
+        ("gf_matmul_spec", rs_mat, blocks.view(-1)[:K * stream]
+         .view(1, K, stream)),
+        ("gf_matmul_gen", singles[0], blocks.view(-1)[:K * stream]
+         .view(n_stripes, K, 4096)),
+        ("gf_matmul_gen", triple, blocks.view(-1)[:K * stream]
+         .view(n_stripes, K, 4096)))
+    for name, mat, d in cluster_shapes:
+        fn = getattr(gf_kernels, name)
+        plain = getattr(gf_kernels, name + "_plain")
+        r = mat.shape[0]
+        out_t = torch.empty((d.shape[0], r, d.shape[2]), dtype=torch.uint8,
+                            device=dev)
+        e = err(fn(mat, d, out=out_t), plain(mat, d))
+        n_words = d.shape[0] * d.shape[2] // 4
+        ops = (n_words * spec_ops_per_word(gf_kernels, mat)
+               if name == "gf_matmul_spec" else
+               n_words * K * (7 * XTIME_OPS + 8 * r * GEN_OPS_PER_BIT))
+        b_ms, by = bound(d.numel() + out_t.numel(), ops)
+        extra.append({"name": name, "path": "cluster",
+                      "shape": list(d.shape), "rows": r, "max_abs_err": e,
+                      "ms": alone_ms(lambda: fn(mat, d, out=out_t)),
+                      "plain_ms": alone_ms(lambda: plain(mat, d), reps=5,
+                                           warmup=1),
+                      "bound_ms": b_ms, "bound_by": by})
+        check(e == 0, f"{name} disagrees with its plain version at"
+              f" {list(d.shape)}")
+    for sh in osdmap_state["shapes"]:
+        extra.append({"name": "crush_do_rule_batch", "path": "osdmap",
+                      "bound_by": "operations", **sh})
+    print(json.dumps({"extra_shapes": extra, "card": card}))
 
     survivors = np.ascontiguousarray(full[:, 1:K + 1, :])
     gib = len(obj) / (1 << 30)
@@ -651,7 +1025,9 @@ def main() -> None:
         "name": "crush_do_rule_batch", "route": "cuda",
         "source": "ceph_tpu_torch/csrc/crush.cu",
         "replaces": "ceph_tpu/crush/kernel.py:374",
-        "launches": crush["launches"], "max_abs_err": crush["max_abs_err"],
+        **path_launches("crush_do_rule_batch"),
+        "max_abs_err": max(crush["max_abs_err"], max(
+            sh["max_abs_err"] for sh in osdmap_state["shapes"])),
         "ms": crush["ms"], "plain_ms": crush["plain_ms"],
         "bound_ms": crush["bound_ms"], "bound_by": "operations",
         "library_ms": None})
