@@ -49,8 +49,8 @@ def _stripes(data: np.ndarray) -> np.ndarray:
 def matmul(mat: np.ndarray, data: np.ndarray,
            device: torch.device) -> np.ndarray:
     """(R,K) GF(2^8) matrix x (B,K,S) uint8 stripes -> (B,R,S) on host,
-    computed on `device` (the specialised kernel for registered
-    generators, the generic one otherwise)."""
+    computed on `device` (gf_matmul_spec for registered generators,
+    gf_matmul_gen otherwise)."""
     arr = _stripes(data)
     if arr.size == 0:
         return np.zeros((arr.shape[0], np.shape(mat)[0], arr.shape[2]),

@@ -88,7 +88,7 @@ class ErasureCodeTorch(ErasureCode):
             self.matrix = rs.cauchy_orig_matrix(self.k, self.m)
         else:
             self.matrix = rs.cauchy_good_matrix(self.k, self.m)
-        # the hot generator takes the specialised kernel
+        # the hot generator's schedule is built once: gf_matmul_spec
         gf_kernels.register_matrix(self.matrix)
 
     # -- geometry (layout-parity with ErasureCodeJerasure) ----------------

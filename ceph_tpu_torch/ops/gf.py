@@ -196,8 +196,8 @@ def gf2_matmul_bytes(mbits, data: torch.Tensor) -> torch.Tensor:
 def gf_matmul_device(m: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     """(R,K) GF(2^8) matrix x (..., K, S) uint8 tensor -> (..., R, S).
 
-    Routes to ops/gf_kernels.gf_matmul: the specialised kernel for
-    registered generators, the generic one for every other matrix.  On
+    Routes to ops/gf_kernels.gf_matmul: gf_matmul_spec for registered
+    generators, gf_matmul_gen for every other matrix.  On
     a CUDA tensor that launches a kernel (never the bit decomposition);
     on a CPU tensor it runs the kernels' plain versions.
     """

@@ -1,30 +1,34 @@
 """GF(2^8) matrix x stripe-batch kernels (port of ceph_tpu/ops/gf_pallas.py).
 
-Both CUDA kernels in csrc/gf_matmul.cu work on packed 32-bit words: each
+The CUDA kernel of csrc/gf_matmul.cu works on packed 32-bit words: each
 word carries 4 data bytes, and multiplying a word by x (the GF(2^8)
 doubling step, polynomial 0x11d) is
 
     hi  = (v >> 7) & 0x01010101      # bit 7 of every byte, logical shift
     out = ((v << 1) & 0xfefefefe) ^ (hi * 0x1d)
 
+Both wrappers launch one CUDA kernel, which runs a Horner schedule per
+output: with P[j][s] the XOR of the inputs whose coefficient in row j has
+bit s set, row j is acc = P[j][top], then acc = xtime(acc) ^ P[j][s] for
+s from top - 1 down to 0 (multiplying by x is GF(2)-linear, so this
+equals the sum of the coefficient products bit for bit).  The inputs are
+held in registers in groups of up to 8; the schedule is one input mask
+per (group, output, bit) and each (group, output)'s top bit.  The two
+differ in where the schedule comes from:
+
 * `gf_matmul_spec` serves the generators registered by codecs
-  (`register_matrix`, at most 64).  It runs a Horner schedule per output:
-  with P[j][s] the XOR of the inputs whose coefficient in row j has bit s
-  set, row j is acc = P[j][top], then acc = xtime(acc) ^ P[j][s] for s
-  from top - 1 down to 0 (multiplying by x is GF(2)-linear, so this equals
-  the sum of the coefficient products bit for bit).  The inputs are held
-  in registers in groups of up to 8; `spec_schedule` resolves the matrix
-  on the host into one input mask per (group, output, bit) and each
-  (group, output)'s top bit, which is exactly what the kernel receives.
+  (`register_matrix`, at most 64): `spec_schedule` builds each one's
+  schedule once, here, and the launch passes it.
 * `gf_matmul_gen` serves every other matrix (the decode rows, which vary
-  with the erasure pattern): the kernel walks the ladder of powers of
-  each input and ANDs each power with the mask -(c >> s & 1).  One build
-  covers every matrix.
+  with the erasure pattern): the launch passes the coefficients and the
+  C entry derives the same schedule from them on every launch, so one
+  build covers every matrix and nothing is cached per matrix.
 
 The interface is bytes: (..., K, S) uint8 in, (..., R, S) uint8 out, any
 S % 4 == 0.  On a CUDA tensor each wrapper launches its kernel or raises;
-on a CPU tensor it runs the plain version below, which repeats the
-ladder on int32 words in PyTorch.
+on a CPU tensor it runs the plain version below, a ladder of powers on
+int32 words in PyTorch (an independent algorithm: the oracle the kernel
+is held against).
 """
 
 from __future__ import annotations
@@ -36,14 +40,14 @@ from ceph_tpu_torch.ops import _build
 
 MAX_R = 16  # GF_MAX_R / GF_MAX_K / GF_GROUP of csrc/gf_matmul.cu
 MAX_K = 64
-GROUP = 8   # inputs the spec kernel holds in registers at once
+GROUP = 8   # inputs the kernel holds in registers at once
 
 _MFE = int(0xFEFEFEFE) - (1 << 32)  # as signed int32 literals
 
-# Encode matrices registered by codecs: these (and only these) take the
-# specialised kernel; everything else takes the generic one.  Each keeps
-# its spec_schedule, built once here instead of on every launch (it takes
-# tens of microseconds of host time).
+# Encode matrices registered by codecs: these (and only these) go through
+# gf_matmul_spec; everything else through gf_matmul_gen.  Each keeps its
+# spec_schedule, built once here instead of on every launch (numpy takes
+# tens of microseconds of host time for it).
 _registered: dict = {}
 
 
@@ -53,7 +57,7 @@ def _coeff_key(matrix: np.ndarray) -> tuple:
 
 
 def register_matrix(matrix: np.ndarray) -> None:
-    """Mark a generator matrix as hot: it takes the specialised kernel."""
+    """Mark a generator matrix as hot: it goes through gf_matmul_spec."""
     key = _coeff_key(matrix)
     if key not in _registered and len(_registered) < 64:
         _registered[key] = spec_schedule(matrix)
@@ -88,8 +92,8 @@ def _xtime(v: torch.Tensor) -> torch.Tensor:
 
 def gf_matmul_spec_plain(matrix: np.ndarray,
                          data: torch.Tensor) -> torch.Tensor:
-    """The specialised kernel's arithmetic: coefficients decide, on the
-    host, which ladder powers XOR into which output."""
+    """gf_matmul_spec's plain version: coefficients decide, on the host,
+    which ladder powers XOR into which output."""
     coeffs = np.asarray(matrix, dtype=np.uint8)
     r, k = coeffs.shape
     w = _words(data, k)
@@ -108,7 +112,7 @@ def gf_matmul_spec_plain(matrix: np.ndarray,
 
 
 def spec_schedule(matrix: np.ndarray) -> tuple:
-    """The spec kernel's schedule of a matrix, as the kernel receives it.
+    """The kernel's schedule of a matrix, as the kernel receives it.
 
     Returns (masks, tops): masks (G, R, 8) uint8 with G = ceil(K / 8),
     bit i of masks[g, j, s] set when bit s of M[j, 8g + i] is set (so
@@ -131,8 +135,9 @@ def spec_schedule(matrix: np.ndarray) -> tuple:
 
 def gf_matmul_gen_plain(matrix: np.ndarray,
                         data: torch.Tensor) -> torch.Tensor:
-    """The generic kernel's arithmetic: every power is ANDed with the
-    mask -(c >> s & 1) of its coefficient bit and XORed into the row."""
+    """gf_matmul_gen's plain version, the TPU generic kernel's ladder:
+    every power is ANDed with the mask -(c >> s & 1) of its coefficient
+    bit and XORed into the row."""
     coeffs = np.asarray(matrix, dtype=np.uint8)
     r, k = coeffs.shape
     w = _words(data, k)
@@ -194,7 +199,8 @@ def _check_cuda(matrix: np.ndarray, data: torch.Tensor,
 
 def gf_matmul_spec(matrix: np.ndarray, data: torch.Tensor,
                    out: torch.Tensor | None = None) -> torch.Tensor:
-    """The specialised kernel: (..., K, S) uint8 -> (..., R, S) uint8."""
+    """The kernel on a registered matrix's stored schedule: (..., K, S)
+    uint8 -> (..., R, S) uint8."""
     if data.device.type == "cpu":
         return _into(out, gf_matmul_spec_plain(matrix, data))
     m, r, k, s, b, out = _check_cuda(matrix, data, out)
@@ -214,7 +220,8 @@ def gf_matmul_spec(matrix: np.ndarray, data: torch.Tensor,
 
 def gf_matmul_gen(matrix: np.ndarray, data: torch.Tensor,
                   out: torch.Tensor | None = None) -> torch.Tensor:
-    """The generic kernel: (..., K, S) uint8 -> (..., R, S) uint8."""
+    """The kernel on any matrix, its schedule derived by the C entry on
+    every launch: (..., K, S) uint8 -> (..., R, S) uint8."""
     if data.device.type == "cpu":
         return _into(out, gf_matmul_gen_plain(matrix, data))
     m, r, k, s, b, out = _check_cuda(matrix, data, out)
@@ -236,8 +243,8 @@ gf_matmul_gen.launches = 0
 def gf_matmul(matrix: np.ndarray, data: torch.Tensor,
               out: torch.Tensor | None = None) -> torch.Tensor:
     """(R,K) GF(2^8) matrix x (..., K, S) uint8 -> (..., R, S) uint8:
-    the specialised kernel for registered matrices, the generic one for
-    all others."""
+    gf_matmul_spec for registered matrices, gf_matmul_gen for all
+    others."""
     if is_registered(matrix):
         return gf_matmul_spec(matrix, data, out)
     return gf_matmul_gen(matrix, data, out)

@@ -27,12 +27,22 @@ stripes of 10 x 512 KiB (two input groups) and RS 8+3 over 16384 stripes
 of 2052-byte chunks (a length that is no multiple of 16), each beside
 gf_matmul_gen on the same matrix and data ("gen_ms",
 "gen_back_to_back_ms"); at RS 8+3, also gf_matmul_gen at the main path's
-decode launch, one single-erasure row over the same data ("gen_r1").  It
-also prints what ptxas reported for the spec kernels (registers, spills)
-and, with `--sass`, the instructions of each spec kernel that runs RS 8+3
-(R = 3) by opcode and by a few forms (predicated, XOR, mask test, xtime
-shift), counted over the whole function in `cuobjdump -sass` of the built
-library: every branch's body counts once, taken or not.
+decode launch, one single-erasure row over the same data ("gen_r1");
+then gf_matmul_gen at the cluster's degraded reads (GF_DECODE_SHAPES):
+2048 stripes of 8 x 4096 bytes with one data shard lost (one row) and
+with three lost (three rows); and "gen_host_us", the host microseconds a
+gf_matmul_gen call takes before its kernel runs (the wrapper with its
+checks, and the ctypes call of the C entry alone, which derives the
+schedule and launches), each the mean of HOST_REPS calls on a 16-byte
+chunk enqueued without a wait, so the card keeps up.  It also prints
+what ptxas reported for the GF kernels at R = 1 and R = 3 (registers,
+spills) and, with `--sass`, the instructions of each of those kernels by
+opcode and by a few forms (predicated, XOR, mask test, xtime shift),
+counted over the whole function in `cuobjdump -sass` of the built
+library: every branch's body counts once, taken or not.  The spec
+kernel runs RS 8+3 at R = 3; the generic kernel runs the one-row decode
+at R = 1 and the three-row one at R = 3 (in a tree where both entries
+launch one kernel, that kernel's functions).
 
 crush: crush_do_rule_batch on the 10,000-OSD map of chip_smoke.py
 (build_flat_cluster(10000, 20, 10): 50 racks, 500 hosts, straw2) over
@@ -78,12 +88,20 @@ import numpy as np
 import torch
 
 REPS = 20
+HOST_REPS = 500
 HBM_BYTES_PER_S = 3.35e12
 SEED = 20261016
 CRC_SHAPES = ((704, 512 << 10), (512, 512 << 10), (192, 512 << 10),
               (90112, 4096))
 GF_SHAPES = (("rs8+3", 8, 3, 64, 512 << 10), ("rs10+4", 10, 4, 64, 512 << 10),
              ("rs8+3 S=2052", 8, 3, 16384, 2052))
+# (name, lost data shards, stripes, chunk): the RS 8+3 decode launches of
+# a degraded LocalCluster read of a 64 MiB object (4096-byte stripe unit)
+GF_DECODE_SHAPES = (("cluster, 1 lost", (0,), 2048, 4096),
+                    ("cluster, 3 lost", (0, 4, 9), 2048, 4096))
+# the GF kernels' functions that --sass counts and whose ptxas lines are
+# kept: R = 1 and R = 3 of each template
+_GF_FUNC = re.compile(r"gf_\w+_kernelILi[13]E")
 # H100 SXM: 67 TFLOP/s of FP32 outside the tensor cores, i.e. 33.5 T
 # lane-instructions per second; no integer instruction issues faster
 INT_OPS_PER_S = 67e12 / 2
@@ -250,7 +268,53 @@ def gf_shapes(dev, gen) -> list:
             shape["exact"] = shape["exact"] and shape["gen_r1"]["exact"]
         shapes.append(shape)
         del data, out, got
+    mat = rs.reed_sol_van_matrix(8, 3)
+    for name, lost, b, s in GF_DECODE_SHAPES:
+        rows = rs.decode_matrix(mat, 8, list(lost), [
+            i for i in range(11) if i not in lost][:8])
+        r = rows.shape[0]
+        data = torch.randint(0, 256, (b, 8, s), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        out = torch.empty((b, r, s), dtype=torch.uint8, device=dev)
+        got = gf_kernels.gf_matmul_gen(rows, data, out=out).clone()
+        shapes.append({
+            "shape": name, "kernel": "gf_matmul_gen", "stripes": b, "k": 8,
+            "rows": r, "chunk": s,
+            "exact": torch.equal(got, gf_kernels.gf_matmul_gen_plain(
+                rows, data)),
+            **times(lambda: gf_kernels.gf_matmul_gen(rows, data, out=out),
+                    b * (8 + r) * s),
+            "read_ms": read_ms(data)})
+        del data, out, got
     return shapes
+
+
+def gen_host_us(dev) -> dict:
+    """Host microseconds per gf_matmul_gen call on a one-row decode of one
+    16-byte stripe: the wrapper, and its C entry called alone."""
+    from ceph_tpu_torch.models import reed_solomon as rs
+    from ceph_tpu_torch.ops import _build, gf_kernels
+    row = rs.decode_matrix(rs.reed_sol_van_matrix(8, 3), 8, [0],
+                           list(range(1, 9)))
+    data = torch.zeros((1, 8, 16), dtype=torch.uint8, device=dev)
+    out = torch.empty((1, 1, 16), dtype=torch.uint8, device=dev)
+    lib = _build.load()["gf_matmul"]
+    args = (row.ctypes.data, 1, 8, dev.index or 0, data.data_ptr(),
+            out.data_ptr(), 1, 16, torch.cuda.current_stream(dev).cuda_stream)
+
+    def per_call(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_REPS):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / HOST_REPS * 1e6
+
+    return {"wrapper": per_call(lambda: gf_kernels.gf_matmul_gen(
+        row, data, out=out)), "c_entry": per_call(
+        lambda: lib.gf_matmul_gen(*args))}
 
 
 def crush_map_10k():
@@ -520,12 +584,13 @@ def crush_shapes(dev) -> List[CrushShape]:
 
 
 def ptxas_lines(build) -> list:
-    """ptxas's register and spill lines for the spec kernels."""
+    """ptxas's register and spill lines for the GF kernels at R = 1 and
+    R = 3."""
     log = build.build_logs().get("gf_matmul", "").splitlines()
     keep, on = [], False
     for line in log:
         if "Compiling entry function" in line:
-            on = "gf_spec_kernel" in line
+            on = bool(_GF_FUNC.search(line))
             if on:
                 keep.append(line.split("'")[1])
         elif on and ("registers" in line or "spill" in line):
@@ -545,10 +610,10 @@ FORMS = {
 
 
 def sass_counts(build) -> dict:
-    """{spec kernel (R = 3): {opcode: count}} from cuobjdump -sass."""
+    """{GF kernel at R = 1 or 3: {opcode: count}} from cuobjdump -sass."""
     counts = {}
     for name, code in _sass(build, "gf_matmul").items():
-        if "gf_spec_kernelILi3E" not in name:
+        if not _GF_FUNC.search(name):
             continue
         cur = counts[name] = collections.Counter()
         for _, pred, op, args in code:
@@ -709,7 +774,7 @@ def main() -> None:
     ap.add_argument("--root", default=str(Path(__file__).resolve()
                                           .parents[2]))
     ap.add_argument("--sass", action="store_true",
-                    help="gf: count the spec kernels' SASS instructions;"
+                    help="gf: count the GF kernels' SASS instructions;"
                     " crush: count the straw2 draw loop's")
     args = ap.parse_args()
     root = Path(args.root).resolve()
@@ -737,6 +802,7 @@ def main() -> None:
             res["sass"] = crush_sass(_build)
     else:
         res["shapes"] = gf_shapes(dev, gen)
+        res["gen_host_us"] = gen_host_us(dev)
         res["build_seconds"] = _build.build_seconds
         res["ptxas"] = ptxas_lines(_build)
         if args.sass:

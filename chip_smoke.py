@@ -11,14 +11,21 @@ Phases; any failure exits nonzero and prints no result line:
    placement kernel, one nvcc per source, started together) and print the
    seconds it took and what ptxas reports (registers per source, spills).
 2. Hold every kernel against its plain PyTorch version on the card at the
-   main path's shapes, bit-exact: the specialised GF kernel on RS 8+3
+   main path's shapes, bit-exact: the GF kernel through gf_matmul_spec
+   (the registered generator's stored schedule) on RS 8+3
    (reed_sol_van) over 64 stripes of 8 x 512 KiB, and also on RS 10+4 over
    64 stripes of 10 x 512 KiB (two input groups), RS 8+3 over 16384
    stripes of 2052 bytes (single words), a random 16 x 64 matrix (the
    kernel's limits), RS 8+3 at 4096 and 12304 bytes (the column tail of
-   the 16-byte path) and RS 8+3 with a zero row and a zero column; the
-   generic GF kernel on every single-erasure decode matrix of that code and one 3-erasure
-   matrix; the crc kernel on 704 blocks of 512 KiB (seeds 0 and
+   the 16-byte path) and RS 8+3 with a zero row and a zero column; the GF
+   kernel through gf_matmul_gen, whose entry derives the schedule from
+   the matrix on every launch, on the same random 16 x 64 matrix, on a
+   3-erasure decode matrix at 2052, 4096, 4112 and 12304 bytes (single
+   words; 128-thread blocks; 256-thread blocks, with a column tail), on
+   that matrix with a zero row and a zero column, and on every decode
+   matrix of that code for one and two erasures and the 3-erasure one
+   over the 64 stripes of 8 x 512 KiB;
+   the crc kernel on 704 blocks of 512 KiB (seeds 0 and
    0xFFFFFFFF), 90112 of 4 KiB and 4096 of 2052 bytes (a length that is
    no multiple of 128 or 16).
 3. Drive the main path through the entry points a user calls: a codec
@@ -76,9 +83,9 @@ Phases; any failure exits nonzero and prints no result line:
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
-   512 KiB) and at 90112 blocks of 4 KiB, the generic GF kernel also on
-   the RS 8+3 generator (the specialised kernel's yardstick), and the
-   end-to-end encode, decode and fused encode+crc in GiB/s of object data
+   512 KiB) and at 90112 blocks of 4 KiB, gf_matmul_gen also on the RS
+   8+3 generator (spec's work, with the schedule derived per launch), and
+   the end-to-end encode, decode and fused encode+crc in GiB/s of object data
    (host clock, median of 3); for CRUSH, the kernel per rule and weight
    vector (timed alone and back to back in phase 3b) beside its
    operations bound, its share of it, its straw2 lane utilization and
@@ -136,14 +143,14 @@ INT_OPS_PER_S = 67e12 / 2
 # Instructions per 32-bit word that the kernels' arithmetic needs at
 # least, counting a 3-input LOP3 once:
 XTIME_OPS = 5               # shr, and, shl, imad (hi * 0x1d), lop3 (and ^)
-GEN_OPS_PER_BIT = 1         # lop3: acc ^= power & mask
 CRC_OPS_PER_WORD = 7        # xor, 4 byte extracts, 2 lop3 for 3 xors
 
 
 def spec_ops_per_word(gf_kernels, matrix) -> int:
-    """The spec kernel's Horner schedule per column word: xtime steps
-    below each (group, row)'s top bit, one XOR per set coefficient bit,
-    and one XOR of each (group, row) result into its accumulator."""
+    """The GF kernel's Horner schedule per column word, for either entry
+    (the work the matrix needs, not a ladder's): xtime steps below each
+    (group, row)'s top bit, one XOR per set coefficient bit, and one XOR
+    of each (group, row) result into its accumulator."""
     masks, tops = gf_kernels.spec_schedule(matrix)
     set_bits = int(np.unpackbits(masks).sum())
     return (XTIME_OPS * int(np.maximum(tops, 0).sum()) + set_bits
@@ -773,14 +780,35 @@ def main() -> None:
                            gf_kernels.gf_matmul_spec_plain(mat, d))
                  for name, (mat, d) in spec_cases.items()}
     spec_err = max(spec_errs.values())
-    singles = [rs.decode_matrix(rs_mat, K, [e],
-                                [i for i in range(K + M) if i != e][:K])
-               for e in range(K + M)]
-    triple = rs.decode_matrix(rs_mat, K, [0, 4, 9],
-                              [1, 2, 3, 5, 6, 7, 8, 10])
-    gen_err = max(err(gf_kernels.gf_matmul_gen(mat, data),
-                      gf_kernels.gf_matmul_gen_plain(mat, data))
-                  for mat in singles + [triple])
+    def decode_rows(lost):
+        return rs.decode_matrix(rs_mat, K, list(lost), [
+            i for i in range(K + M) if i not in lost][:K])
+
+    singles = [decode_rows((e,)) for e in range(K + M)]
+    triple = decode_rows((0, 4, 9))
+    zero_dec = triple.copy()
+    zero_dec[1] = 0
+    zero_dec[:, 5] = 0
+    # the generic kernel derives its schedule from the matrix on every
+    # launch: the kernel's limits, the column tails and the single-word
+    # path (as for spec), a zero row and column, and every decode matrix
+    # of one and two erasures and a triple on the main path's stripes
+    gen_cases = {
+        "16x64": spec_cases["16x64"],
+        **{name: (triple, spec_cases["rs8+3 " + name][1])
+           for name in ("S=2052", "S=4096", "S=12304")},
+        # the shortest row a 256-thread block takes (257 uint4)
+        "S=4112": (triple, blocks.view(-1)[:2048 * K * 4112]
+                   .view(2048, K, 4112)),
+        "zero row and column": (zero_dec, data),
+        **{f"lost {e}": (mat, data) for e, mat in enumerate(singles)},
+        **{f"lost {a} {b}": (decode_rows((a, b)), data)
+           for a in range(K + M) for b in range(a + 1, K + M)},
+        "lost 0 4 9": (triple, data)}
+    gen_errs = {name: err(gf_kernels.gf_matmul_gen(mat, d),
+                          gf_kernels.gf_matmul_gen_plain(mat, d))
+                for name, (mat, d) in gen_cases.items()}
+    gen_err = max(gen_errs.values())
     crc_err = 0
     for blk, length, init in ((blocks, CHUNK, 0), (blocks, CHUNK, 0xFFFFFFFF),
                               (blocks_4k, 4096, 0),
@@ -794,7 +822,12 @@ def main() -> None:
                       "spec_shapes": {name: [list(d.shape), e] for (name, (
                           _, d)), e in zip(spec_cases.items(),
                                            spec_errs.values())},
-                      "gen_matrices": len(singles) + 1,
+                      "gen_shapes": {name: [list(d.shape), mat.shape[0],
+                                            gen_errs[name]]
+                                     for name, (mat, d) in gen_cases.items()
+                                     if not name.startswith("lost")},
+                      "gen_decode_matrices": sum(
+                          name.startswith("lost") for name in gen_cases),
                       "crc_shapes": [[B * (K + M), CHUNK],
                                      [blocks_4k.shape[0], 4096],
                                      [blocks_odd.shape[0], odd_len]]}))
@@ -920,8 +953,7 @@ def main() -> None:
         "ceph_tpu/ops/gf_pallas.py:158",
         lambda: gf_kernels.gf_matmul_gen(one, data, out=one_out),
         lambda: gf_kernels.gf_matmul_gen_plain(one, data),
-        B * (K + 1) * CHUNK,
-        words * K * (7 * XTIME_OPS + 8 * 1 * GEN_OPS_PER_BIT)))
+        B * (K + 1) * CHUNK, words * spec_ops_per_word(gf_kernels, one)))
     n_blk = blocks.shape[0]
     rows.append(row(
         "crc32c_blocks", "cuda", "ceph_tpu_torch/csrc/crc32c.cu",
@@ -934,16 +966,16 @@ def main() -> None:
     triple_ms = alone_ms(
         lambda: gf_kernels.gf_matmul_gen(triple, data))
     extra = [{"name": "gf_matmul_gen", "erasures": 3, "ms": triple_ms,
-              "bound_ms": bound(B * (K + 3) * CHUNK, words * K * (
-                  7 * XTIME_OPS + 8 * 3 * GEN_OPS_PER_BIT))[0]}]
-    # the generic kernel on the encode matrix: the yardstick of the
-    # specialised one on the same work
+              "bound_ms": bound(B * (K + 3) * CHUNK, words
+                                * spec_ops_per_word(gf_kernels, triple))[0]}]
+    # gf_matmul_gen on the encode matrix: spec's work, with the schedule
+    # derived by the C entry on the launch
     extra.append({
         "name": "gf_matmul_gen", "matrix": "rs8+3 generator",
         "ms": alone_ms(lambda: gf_kernels.gf_matmul_gen(
             rs_mat, data, out=parity_out)),
-        "bound_ms": bound(B * (K + M) * CHUNK, words * K * (
-            7 * XTIME_OPS + 8 * M * GEN_OPS_PER_BIT))[0]})
+        "bound_ms": bound(B * (K + M) * CHUNK, words
+                          * spec_ops_per_word(gf_kernels, rs_mat))[0]})
     # the crc launches of plan.encode_with_crc (data chunks, then parity
     # chunks) and BlueStore-style 4 KiB block checksums
     for blk, length in ((blocks[:B * K], CHUNK), (blocks[B * K:], CHUNK),
@@ -976,10 +1008,8 @@ def main() -> None:
                             device=dev)
         e = err(fn(mat, d, out=out_t), plain(mat, d))
         n_words = d.shape[0] * d.shape[2] // 4
-        ops = (n_words * spec_ops_per_word(gf_kernels, mat)
-               if name == "gf_matmul_spec" else
-               n_words * K * (7 * XTIME_OPS + 8 * r * GEN_OPS_PER_BIT))
-        b_ms, by = bound(d.numel() + out_t.numel(), ops)
+        b_ms, by = bound(d.numel() + out_t.numel(),
+                         n_words * spec_ops_per_word(gf_kernels, mat))
         extra.append({"name": name, "path": "cluster",
                       "shape": list(d.shape), "rows": r, "max_abs_err": e,
                       "ms": alone_ms(lambda: fn(mat, d, out=out_t)),
