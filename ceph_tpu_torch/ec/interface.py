@@ -18,6 +18,8 @@ from typing import Dict, Iterable, List, Mapping, Optional, Set
 
 ErasureCodeProfile = Dict[str, str]
 
+SIMD_ALIGN = 32  # the reference's memory alignment, kept for layout math
+
 
 def _freeze(buf) -> memoryview:
     """Read-only zero-copy view of a locally owned buffer the caller
@@ -116,6 +118,12 @@ class ErasureCode:
 
     def get_chunk_mapping(self) -> List[int]:
         return self.chunk_mapping
+
+    def supports_fractional_repair(self) -> bool:
+        """True when the codec can rebuild one lost chunk from sub-chunk
+        fractions of d >= k helpers (minimum_to_repair / repair_project /
+        repair) instead of k full chunks."""
+        return False
 
     # -- decode planning --------------------------------------------------
 

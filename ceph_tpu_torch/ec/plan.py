@@ -6,6 +6,12 @@ there, and brings the results back with one device-to-host copy.  The
 JAX module's shape bucketing, mesh plans, quarantine and retrace
 tracking answer XLA's compile-per-shape cost, which PyTorch's eager
 kernels do not have; they are not part of this module.
+
+The GF kernels take at most MAX_R rows and MAX_K inputs per launch, so a
+larger product is tiled here: rows in blocks of MAX_R, each one launch
+into its slice of the output, and inputs in blocks of MAX_K whose partial
+products are XORed together.  The tiling runs on every device, so the
+CPU (the kernels' plain versions) exercises it too.
 """
 
 from __future__ import annotations
@@ -46,17 +52,38 @@ def _stripes(data: np.ndarray) -> np.ndarray:
     return arr
 
 
+def tiled_matmul(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
+    """(R,K) GF(2^8) matrix x (B,K,S) uint8 tensor -> (B,R,S) on the
+    tensor's device, in kernel launches of at most MAX_R x MAX_K."""
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    r, k = mat.shape
+    if r <= gf_kernels.MAX_R and k <= gf_kernels.MAX_K:
+        return gf.gf_matmul_device(mat, data)
+    out = torch.empty((data.shape[0], r, data.shape[2]), dtype=torch.uint8,
+                      device=data.device)
+    for k0 in range(0, k, gf_kernels.MAX_K):
+        k1 = min(k, k0 + gf_kernels.MAX_K)
+        block = data if (k0, k1) == (0, k) else data[:, k0:k1].contiguous()
+        for r0 in range(0, r, gf_kernels.MAX_R):
+            r1 = min(r, r0 + gf_kernels.MAX_R)
+            part = gf.gf_matmul_device(mat[r0:r1, k0:k1], block)
+            if k0 == 0:
+                out[:, r0:r1].copy_(part)
+            else:
+                out[:, r0:r1].bitwise_xor_(part)
+    return out
+
+
 def matmul(mat: np.ndarray, data: np.ndarray,
            device: torch.device) -> np.ndarray:
     """(R,K) GF(2^8) matrix x (B,K,S) uint8 stripes -> (B,R,S) on host,
     computed on `device` (gf_matmul_spec for registered generators,
-    gf_matmul_gen otherwise)."""
+    gf_matmul_gen otherwise; tiled when R > MAX_R or K > MAX_K)."""
     arr = _stripes(data)
     if arr.size == 0:
         return np.zeros((arr.shape[0], np.shape(mat)[0], arr.shape[2]),
                         dtype=np.uint8)
-    out = gf.gf_matmul_device(mat, to_device(arr, device))
-    return out.cpu().numpy()
+    return tiled_matmul(mat, to_device(arr, device)).cpu().numpy()
 
 
 def encode_with_crc(matrix: np.ndarray, data: np.ndarray,

@@ -3,11 +3,13 @@
 The ErasureCodePluginRegistry role: a process-wide table of named codec
 factories with a version stamp, and `create_erasure_code(profile)`, which
 resolves the profile's `plugin` (default `ec_torch`; `jerasure` and `isa`
-are aliases of it), builds the codec and checks that it echoes the
-profile back, as the reference asserts.
+are aliases of it; `lrc`, `shec`, `clay` and `ec_msr` are the layered,
+shingled, coupled-layer and product-matrix codecs), builds the codec and
+checks that it echoes the profile back, as the reference asserts.
 
-Profile keys are those of `ec_jax` plus `device` (a torch device string;
-absent means CUDA).
+Profile keys are those of the JAX plugins plus `device` (a torch device
+string; absent means CUDA), which every codec keeps in its profile and
+hands on to the codecs it is built from.
 """
 
 from __future__ import annotations
@@ -92,6 +94,39 @@ def _torch_factory(profile: ErasureCodeProfile) -> ErasureCode:
     return codec
 
 
+def _lrc_factory(profile: ErasureCodeProfile) -> ErasureCode:
+    from ceph_tpu_torch.ec.lrc import ErasureCodeLrc
+
+    codec = ErasureCodeLrc()
+    codec.init(profile)
+    return codec
+
+
+def _shec_factory(profile: ErasureCodeProfile) -> ErasureCode:
+    from ceph_tpu_torch.ec.shec import ErasureCodeShec
+
+    codec = ErasureCodeShec(
+        technique=profile.setdefault("technique", "multiple"))
+    codec.init(profile)
+    return codec
+
+
+def _clay_factory(profile: ErasureCodeProfile) -> ErasureCode:
+    from ceph_tpu_torch.ec.clay import ErasureCodeClay
+
+    codec = ErasureCodeClay()
+    codec.init(profile)
+    return codec
+
+
+def _msr_factory(profile: ErasureCodeProfile) -> ErasureCode:
+    from ceph_tpu_torch.ec.msr import ErasureCodeMsr
+
+    codec = ErasureCodeMsr()
+    codec.init(profile)
+    return codec
+
+
 def _register_builtin(reg: ErasureCodePluginRegistry) -> None:
     # `jerasure` and `isa` are aliases of `ec_torch`, as the JAX package
     # maps them to `ec_jax`, so that reference profiles (plugin=jerasure
@@ -99,6 +134,9 @@ def _register_builtin(reg: ErasureCodePluginRegistry) -> None:
     # resolve to the port's codec
     for name in ("ec_torch", "jerasure", "isa"):
         reg.add(name, ErasureCodePlugin(name, _torch_factory))
+    for name, factory in (("lrc", _lrc_factory), ("shec", _shec_factory),
+                          ("clay", _clay_factory), ("ec_msr", _msr_factory)):
+        reg.add(name, ErasureCodePlugin(name, factory))
 
 
 def create_erasure_code(profile: ErasureCodeProfile) -> ErasureCode:

@@ -15,7 +15,11 @@ shards (RecoveryOp).
 
 Every codec of a cluster runs on the cluster's device: CUDA unless the
 caller names another (no CUDA and no device raises); `device="cpu"` runs
-the kernels' plain versions.  The device is not part of the map: the
+the kernels' plain versions.  A pool takes any profile the port's
+registry builds: RS (jerasure/isa/ec_torch), lrc, shec, clay and ec_msr.
+An LRC pool writes its locality rule (one choose step per level), which
+the host mapper places; a codec with a chunk mapping (every LRC) encodes
+and decodes stripe by stripe through the codec interface.  The device is not part of the map: the
 erasure-code profiles stored in the OSDMap, and its encoded bytes, are
 those of the JAX package's cluster.  This module is the harness for
 BASELINE config #5's object write shape.

@@ -80,6 +80,27 @@ Phases; any failure exits nonzero and prints no result line:
    just before the writes) above zero; object GiB/s per operation (host
    clock, median of the 4 objects) and where a write and a degraded read
    spend their time (encode, host crc, shard gather and verify, decode).
+3e. The erasure-code plugin family, through the registry, the codec
+   interface, the three codec tools and the cluster, each checked bit for
+   bit: BASELINE config 3's layered LRC (mapping DDDDDDDD____, layers
+   DDDDDDDDcc__ / DDDD______c_ / ____DDDD___c) on a 16 MiB blob, its 12
+   chunks against its device="cpu" twin and the composite (4 x 8)
+   matrix's host product, crc32c_blocks over the 6144 4 KiB blocks of the
+   12 chunks against its plain version, every single lost chunk and every
+   recoverable pair decoded; config 1 through erasure_code_benchmark
+   (jerasure reed_sol_van k=4 m=2, 1 MiB, encode and decode -e 1 and -e 2,
+   enough iterations for 1 s or more); LRC k=4 m=2 l=3, SHEC k=4 m=3 c=2,
+   CLAY k=4 m=2 d=5 and k=8 m=4 d=11, ec_msr k=4 m=3 d=6 and k=5 m=5 d=9
+   (tiled: a 25 x 25 parity matrix) on 16 MiB objects, chunks against the
+   CPU twin, every single erasure and 3 seeded larger sets decoded, CLAY's
+   sub-chunk repair and MSR's repair(lost, fragments) of three chunks;
+   non_regression --create and --check for nine profiles, archived chunks
+   against the CPU twin's; a config-3 pool and an LRC k=4 m=2 l=3 pool on
+   the 24-OSD cluster, 2 x 16 MiB objects each written, read healthy,
+   with one and with two OSDs down, stores against a
+   LocalCluster(device="cpu").  Times are host-clock medians of 3, with
+   the launches per call; the launch counters are zeroed just before the
+   phase.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -95,7 +116,7 @@ Phases; any failure exits nonzero and prints no result line:
    ((1, 8, 8 MiB) encode, (2048, 8, 4096) decode of 1 and 3 rows), each
    against its plain version, and the placement kernel at phase 3c's.
    Every kernels-line row carries its launches per path (codec, crushtool,
-   osdmap, cluster) and their sum.
+   osdmap, cluster, codecs) and their sum.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The card's name and power limit, as
@@ -686,6 +707,470 @@ def cluster_phase(torch, dev, card: str, wrappers: dict) -> dict:
     return launches
 
 
+# phase 3e: the erasure-code plugin family.  BASELINE config 3's layered
+# LRC (k=8 m=4 l=4, which the kml shorthand cannot express) on a 16 MiB
+# blob with crc32c on every 4 KiB block; config 1's benchmark; the other
+# plugins on 16 MiB objects (SHEC, CLAY k=4 m=2 and LRC k=4 m=2 l=3 are
+# the examples of Pacific's doc/rados/operations/erasure-code-*.rst);
+# non-regression archives; LRC pools in the cluster
+CONFIG3 = {"plugin": "lrc", "mapping": "DDDDDDDD____",
+           "layers": json.dumps([["DDDDDDDDcc__", ""], ["DDDD______c_", ""],
+                                 ["____DDDD___c", ""]])}
+LRC_423 = {"plugin": "lrc", "k": "4", "m": "2", "l": "3"}
+CODEC_OBJECT = 16 << 20
+CSUM_BLOCK = 4096           # BlueStore's csum block
+CODEC_PROFILES = {
+    "lrc k=4 m=2 l=3": LRC_423,
+    "shec k=4 m=3 c=2": {"plugin": "shec", "k": "4", "m": "3", "c": "2"},
+    "clay k=4 m=2 d=5": {"plugin": "clay", "k": "4", "m": "2", "d": "5"},
+    "clay k=8 m=4 d=11": {"plugin": "clay", "k": "8", "m": "4", "d": "11"},
+    "ec_msr k=4 m=3 d=6": {"plugin": "ec_msr", "k": "4", "m": "3", "d": "6"},
+    "ec_msr k=5 m=5 d=9": {"plugin": "ec_msr", "k": "5", "m": "5", "d": "9"},
+}
+CODEC_SAMPLED_SETS = 3      # seeded multi-erasure sets per profile
+NR_PROFILES = (
+    ("jerasure", ["k=4", "m=2", "technique=reed_sol_van"]),
+    ("isa", ["k=8", "m=3"]),
+    ("lrc", ["k=4", "m=2", "l=3"]),
+    ("lrc", ["mapping=" + CONFIG3["mapping"], "layers=" + CONFIG3["layers"]]),
+    ("shec", ["k=4", "m=3", "c=2"]),
+    ("clay", ["k=4", "m=2", "d=5"]),
+    ("clay", ["k=8", "m=4", "d=11"]),
+    ("ec_msr", ["k=4", "m=3", "d=6"]),
+    ("ec_msr", ["k=5", "m=5", "d=9"]),
+)
+CODEC_CLUSTER_POOLS = {"config3": CONFIG3, "lrc": LRC_423}
+TILED_SHAPE = (25, 70)      # past one launch's MAX_R rows and MAX_K inputs
+TILED_BYTES = 1 << 14
+CODEC_CLUSTER_OBJECTS = 2   # per pool: four 16 MiB objects in all
+
+
+def codecs_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3e: the erasure-code plugin family on the card through the
+    entry points a user calls (the registry, the codec interface, the
+    three codec tools and the cluster), each checked bit for bit against
+    its `device="cpu"` twin or the original bytes.  Returns the
+    launches."""
+    import contextlib
+    import io
+    import itertools
+    import math
+    import random
+    import tempfile
+
+    from ceph_tpu_torch.device import to_device
+    from ceph_tpu_torch.ec import plan
+    from ceph_tpu_torch.ec.interface import ErasureCodeError
+    from ceph_tpu_torch.ec.registry import create_erasure_code
+    from ceph_tpu_torch.models import reed_solomon as rs
+    from ceph_tpu_torch.ops import checksum as cks
+    from ceph_tpu_torch.ops import crc_kernels, gf_kernels
+    from ceph_tpu_torch.ops.gf import gf_matmul_ref
+    from ceph_tpu_torch.tools import erasure_code_benchmark as ecb
+    from ceph_tpu_torch.tools import non_regression
+
+    phase_t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 7)
+    gib = CODEC_OBJECT / (1 << 30)
+
+    def launches_now() -> dict:
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def timed3(fn):
+        """(host-clock median of 3 calls, first result, launches of one
+        call)."""
+        before = launches_now()
+        times, first = [], None
+        for i in range(3):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                first = res
+                after = launches_now()
+        return (statistics.median(times), first,
+                {n: after[n] - before[n] for n in after})
+
+    def as_bytes(chunks) -> dict:
+        return {i: bytes(v) for i, v in chunks.items()}
+
+    def pair(profile):
+        codec = create_erasure_code(dict(profile))
+        twin = create_erasure_code({**profile, "device": "cpu"})
+        subs = [codec] + [layer.erasure_code
+                          for layer in getattr(codec, "layers", [])]
+        if getattr(codec, "mds", None) is not None:
+            subs.append(codec.mds)
+        check(all(c.device.type == "cuda" for c in subs),
+              f"{profile}: a codec is not on the card")
+        return codec, twin
+
+    def recoverable(codec, twin, lost, n) -> bool:
+        avail = set(range(n)) - set(lost)
+        outcome = []
+        for c in (codec, twin):
+            try:
+                c.minimum_to_decode(set(lost), avail)
+                outcome.append(True)
+            except ErasureCodeError:
+                outcome.append(False)
+        check(outcome[0] == outcome[1], f"card and CPU twin disagree on"
+              f" whether {lost} is recoverable")
+        return outcome[0]
+
+    def decodes(codec, chunks, sets) -> int:
+        bad = 0
+        for lost in sets:
+            out = codec.decode(set(lost), {i: c for i, c in chunks.items()
+                                           if i not in lost})
+            bad += any(bytes(out[i]) != chunks[i] for i in lost)
+        return bad
+
+    for fn in wrappers.values():
+        fn.launches = 0
+
+    # -- BASELINE config 3: layered LRC k=8 m=4 l=4, 16 MiB, 4 KiB crc --
+    codec, twin = pair(CONFIG3)
+    n = codec.get_chunk_count()
+    want = set(range(n))
+    blob = rng.bytes(CODEC_OBJECT)
+    enc_s, chunks, enc_launches = timed3(
+        lambda: as_bytes(codec.encode(want, blob)))
+    twin_same = chunks == as_bytes(twin.encode(want, blob))
+    # the composite (4 x 8) matrix of the three layers: 2 global parity
+    # rows, then one local parity row per group of 4
+    comp = np.zeros((4, 8), dtype=np.uint8)
+    comp[:2] = rs.reed_sol_van_matrix(8, 2)
+    comp[2, :4] = rs.reed_sol_van_matrix(4, 1)[0]
+    comp[3, 4:] = rs.reed_sol_van_matrix(4, 1)[0]
+    data = np.stack([np.frombuffer(chunks[i], np.uint8) for i in range(8)])
+    composite_same = (np.array_equal(gf_matmul_ref(comp, data), np.stack(
+        [np.frombuffer(chunks[i], np.uint8) for i in range(8, 12)]))
+        and data.tobytes() == blob)
+
+    def chunk_crcs(chunks):
+        blocks = to_device(np.stack([np.frombuffer(chunks[i], np.uint8)
+                                     for i in range(n)]), dev)
+        blocks = blocks.view(-1, CSUM_BLOCK)
+        return blocks, crc_kernels.crc32c_blocks(blocks, CSUM_BLOCK,
+                                                 0xFFFFFFFF)
+
+    blocks, crcs = chunk_crcs(chunks)
+    crc_plain = cks.crc32c_batch(blocks, 0xFFFFFFFF)
+    crc_err = int((crcs.to(torch.int64) - crc_plain.to(torch.int64))
+                  .abs().max())
+    host_crc = [cks.crc32c(0xFFFFFFFF, chunks[i][:CSUM_BLOCK])
+                for i in range(n)]
+    per_chunk = blocks.shape[0] // n
+    crc_host_same = (crcs[::per_chunk].to(torch.int64) & 0xFFFFFFFF).cpu()\
+        .tolist() == host_crc
+    del blocks
+    sets = [(i,) for i in range(n)] + list(itertools.combinations(range(n),
+                                                                   2))
+    fine = [s for s in sets if recoverable(codec, twin, s, n)]
+    bad = decodes(codec, chunks, fine)
+    local = set(codec.minimum_to_decode({0}, set(range(1, n))))
+    enc_crc_s, _res, enc_crc_launches = timed3(
+        lambda: chunk_crcs(as_bytes(codec.encode(want, blob)))[1].cpu())
+    rep_s, rep, rep_launches = timed3(lambda: codec.decode(
+        {0}, {i: chunks[i] for i in local}))
+    two_s, two, two_launches = timed3(lambda: codec.decode(
+        {0, 1}, {i: chunks[i] for i in range(2, n)}))
+    config3 = {
+        "case": "config 3", "profile": CONFIG3, "object_bytes": len(blob),
+        "chunk_bytes": len(chunks[0]), "chunks_same_as_cpu": twin_same,
+        "chunks_same_as_composite": composite_same,
+        "crc_blocks": crcs.numel(), "crc_max_abs_err": crc_err,
+        "crc_same_as_host": crc_host_same,
+        "decodes": len(fine), "decodes_bad": bad,
+        "unrecoverable_sets": len(sets) - len(fine),
+        "local_repair_reads": sorted(local),
+        "repair_ok": bytes(rep[0]) == chunks[0],
+        "two_chunk_ok": all(bytes(two[i]) == chunks[i] for i in (0, 1)),
+        "seconds": {"encode": enc_s, "encode_crc": enc_crc_s,
+                    "local_repair": rep_s, "decode_2": two_s},
+        "gib_per_s": {"encode": gib / enc_s, "encode_crc": gib / enc_crc_s,
+                      "local_repair": gib / rep_s, "decode_2": gib / two_s},
+        "launches_per_call": {"encode": enc_launches,
+                              "encode_crc": enc_crc_launches,
+                              "local_repair": rep_launches,
+                              "decode_2": two_launches}}
+    print(json.dumps(config3))
+    check(twin_same and composite_same, "config 3: chunks differ from the"
+          " CPU twin or the composite matrix's host product")
+    check(crc_err == 0 and crc_host_same, "config 3: per-block crc32c"
+          " differs from its plain version or the host crc")
+    check(bad == 0 and config3["repair_ok"] and config3["two_chunk_ok"],
+          "config 3: a decode differs from the original chunks")
+    check(len(local) == 4, f"config 3: a local repair reads {sorted(local)}")
+
+    # -- BASELINE config 1: ceph_erasure_code_benchmark, RS 4+2, 1 MiB --
+    def bench(argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = ecb.run(argv)
+        check(rc == 0, f"erasure_code_benchmark {argv} returned {rc}")
+        line = out.getvalue().strip().splitlines()[-1]
+        seconds, kib = line.split("\t")
+        return line, float(seconds), int(kib), \
+            err.getvalue().strip().splitlines()[-1]
+
+    random.seed(SEED)
+    base = ["-p", "jerasure", "-P", "technique=reed_sol_van", "-P", "k=4",
+            "-P", "m=2", "-s", "1048576"]
+    config1 = []
+    for label, extra in (("encode", ["-w", "encode"]),
+                         ("decode -e 1", ["-w", "decode", "-e", "1"]),
+                         ("decode -e 2", ["-w", "decode", "-e", "2"])):
+        iters = 16
+        line, seconds, kib, launches = bench(base + extra + ["-i", "16"])
+        while seconds < 1.0:
+            # 1.5 s worth of iterations at the last run's rate
+            iters = math.ceil(iters * 1.5 / max(seconds, 1e-6))
+            line, seconds, kib, launches = bench(base + extra
+                                                 + ["-i", str(iters)])
+        config1.append({"workload": label, "iterations": iters,
+                        "line": line, "gib_per_s": kib / seconds / (1 << 20),
+                        "stderr": launches})
+    print(json.dumps({"case": "config 1", "runs": config1}))
+    check(all(float(r["line"].split()[0]) >= 1.0 for r in config1),
+          "config 1: a benchmark run took under 1 s")
+
+    # -- the other plugins on 16 MiB objects ----------------------------------
+    others = []
+    for name, profile in CODEC_PROFILES.items():
+        codec, twin = pair(profile)
+        n = codec.get_chunk_count()
+        m = codec.get_coding_chunk_count()
+        want = set(range(n))
+        blob = rng.bytes(CODEC_OBJECT)
+        enc_s, chunks, enc_launches = timed3(
+            lambda: as_bytes(codec.encode(want, blob)))
+        twin_same = chunks == as_bytes(twin.encode(want, blob))
+        multi = [c for r in range(2, m + 1)
+                 for c in itertools.combinations(range(n), r)]
+        picks = rng.choice(len(multi), min(CODEC_SAMPLED_SETS, len(multi)),
+                           replace=False)
+        sets = [(i,) for i in range(n)] + [multi[i] for i in sorted(picks)]
+        fine = [s for s in sets if recoverable(codec, twin, s, n)]
+        bad = decodes(codec, chunks, fine[1:])
+        dec_s, dec, dec_launches = timed3(lambda: codec.decode(
+            set(fine[0]), {i: c for i, c in chunks.items()
+                           if i not in fine[0]}))
+        bad += any(bytes(dec[i]) != chunks[i] for i in fine[0])
+        row = {"case": name, "profile": profile, "chunks": n,
+               "chunk_bytes": len(chunks[0]),
+               "sub_chunks": codec.get_sub_chunk_count(),
+               "chunks_same_as_cpu": twin_same, "decodes": len(fine),
+               "decodes_bad": bad, "sampled_sets": [list(s) for s in sets
+                                                    if len(s) > 1],
+               "seconds": {"encode": enc_s, "decode_1": dec_s},
+               "launches_per_call": {"encode": enc_launches,
+                                     "decode_1": dec_launches}}
+        repairs_ok = True
+        if profile["plugin"] == "clay":
+            sc = len(chunks[0]) // codec.get_sub_chunk_count()
+
+            def clay_repair(lost):
+                minimum = codec.minimum_to_decode({lost}, want - {lost})
+                partial = {node: b"".join(chunks[node][off * sc:
+                                                       (off + cnt) * sc]
+                                          for off, cnt in ranges)
+                           for node, ranges in minimum.items()}
+                out = codec.decode({lost}, partial,
+                                   chunk_size=len(chunks[0]))
+                return bytes(out[lost]), sum(map(len, partial.values()))
+
+            for lost in (1, n - 1):
+                got, _read = clay_repair(lost)
+                repairs_ok = repairs_ok and got == chunks[lost]
+            rep_s, (got, read), rep_launches = timed3(lambda: clay_repair(0))
+            repairs_ok = repairs_ok and got == chunks[0]
+            row["repair_bytes_read"] = read
+        if profile["plugin"] == "ec_msr":
+            def msr_repair(lost):
+                helpers = codec.minimum_to_repair(lost, want - {lost})
+                frags = {h: codec.repair_project(lost, chunks[h])
+                         for h in helpers}
+                return codec.repair(lost, frags), sum(map(len,
+                                                          frags.values()))
+
+            for lost in (1, n - 1):
+                got, _read = msr_repair(lost)
+                repairs_ok = repairs_ok and got == chunks[lost]
+            rep_s, (got, read), rep_launches = timed3(lambda: msr_repair(0))
+            repairs_ok = repairs_ok and got == chunks[0]
+            row["repair_bytes_read"] = read
+        if profile["plugin"] in ("clay", "ec_msr"):
+            row["repairs_ok"] = repairs_ok
+            row["seconds"]["repair"] = rep_s
+            row["launches_per_call"]["repair"] = rep_launches
+        row["gib_per_s"] = {key: gib / sec
+                            for key, sec in row["seconds"].items()}
+        print(json.dumps(row))
+        others.append(row)
+        check(twin_same, f"{name}: chunks differ from the CPU twin")
+        check(bad == 0 and repairs_ok, f"{name}: a decode or repair differs"
+              " from the original chunk")
+
+    # -- a product past one launch in rows and inputs: plan's tiling ---------
+    tr, tk = TILED_SHAPE
+    tmat = rng.integers(0, 256, (tr, tk), dtype=np.uint8)
+    tdata = rng.integers(0, 256, (2, tk, TILED_BYTES), dtype=np.uint8)
+    before = launches_now()
+    tiled = plan.matmul(tmat, tdata, dev)
+    after = launches_now()
+    tiled_launches = {n: after[n] - before[n] for n in after}
+    tiled_ok = np.array_equal(tiled, np.stack([gf_matmul_ref(tmat, d)
+                                               for d in tdata]))
+    blocks_expected = (math.ceil(tr / gf_kernels.MAX_R)
+                       * math.ceil(tk / gf_kernels.MAX_K))
+    print(json.dumps({"case": "tiled_matmul", "rows": tr, "inputs": tk,
+                      "bytes_per_input": TILED_BYTES, "exact": tiled_ok,
+                      "launches": tiled_launches,
+                      "blocks_expected": blocks_expected}))
+    check(tiled_ok, "the tiled product differs from gf_matmul_ref")
+    check(tiled_launches["gf_matmul_spec"] + tiled_launches["gf_matmul_gen"]
+          == blocks_expected, f"the tiled product took {tiled_launches}"
+          f" launches, not {blocks_expected}")
+
+    # -- non-regression archives ----------------------------------------------
+    archives = []
+    with tempfile.TemporaryDirectory() as base_dir:
+        for plugin, params in NR_PROFILES:
+            args = ["--plugin", plugin, "--base", base_dir]
+            for param in params:
+                args += ["-P", param]
+            with contextlib.redirect_stderr(io.StringIO()):
+                created = non_regression.run(args + ["--create"])
+                checked = non_regression.run(args + ["--check"])
+            nr = non_regression.NonRegression(non_regression.parse_args(args),
+                                              device="cpu")
+            with open(nr.content_path(), "rb") as f:
+                content = f.read()
+            twin = nr.codec()
+            expect = as_bytes(twin.encode(set(range(twin.get_chunk_count())),
+                                          content))
+            files_same = True
+            for i, buf in expect.items():
+                with open(nr.chunk_path(i), "rb") as f:
+                    files_same = files_same and f.read() == buf
+            archives.append({"plugin": plugin, "params": params,
+                             "create": created, "check": checked,
+                             "files_same_as_cpu": files_same})
+    print(json.dumps({"case": "non_regression", "archives": archives}))
+    check(all(a["create"] == a["check"] == 0 and a["files_same_as_cpu"]
+              for a in archives), f"non_regression: {archives}")
+
+    # -- LRC pools in the embedded cluster ------------------------------------
+    from ceph_tpu_torch.os import ObjectId
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.rados.embedded import LocalCluster, shard_collection
+
+    clusters = {}
+    for where in ("cuda", "cpu"):
+        c = LocalCluster(num_osds=CLUSTER_OSDS,
+                         osds_per_host=CLUSTER_OSDS_PER_HOST,
+                         device=None if where == "cuda" else "cpu")
+        for pool, profile in CODEC_CLUSTER_POOLS.items():
+            c.create_erasure_pool(pool, {**profile,
+                                         "crush-failure-domain": "host"})
+        clusters[where] = c
+    cluster = clusters["cuda"]
+    check(cluster.device.type == "cuda", "the cluster is not on the card")
+    pools = []
+    for pool in CODEC_CLUSTER_POOLS:
+        io_ = cluster.open_ioctx(pool)
+        cpu_io = clusters["cpu"].open_ioctx(pool)
+        times = {"write_full": [], "read": [], "read_1_down": [],
+                 "read_2_down": []}
+        exact, write_launches, read_launches = [], None, {}
+        for i in range(CODEC_CLUSTER_OBJECTS):
+            name, data = f"{pool}-{i}", rng.bytes(CODEC_OBJECT)
+            before = launches_now()
+            t0 = time.perf_counter()
+            io_.write_full(name, data)
+            torch.cuda.synchronize()
+            times["write_full"].append(time.perf_counter() - t0)
+            if write_launches is None:
+                after = launches_now()
+                write_launches = {k: after[k] - before[k] for k in after}
+            cpu_io.write_full(name, data)
+            acting, _primary = io_.acting(io_.object_pg(name))
+            for key, lost in (("read", ()), ("read_1_down", (0,)),
+                              ("read_2_down", (0, 9 if pool == "config3"
+                                               else 2))):
+                for shard in lost:
+                    cluster.mark_osd_down(acting[shard])
+                before = launches_now()
+                t0 = time.perf_counter()
+                exact.append(io_.read(name) == data)
+                times[key].append(time.perf_counter() - t0)
+                after = launches_now()
+                read_launches.setdefault(key, {k: after[k] - before[k]
+                                               for k in after})
+                for shard in lost:
+                    cluster.mark_osd_up(acting[shard])
+        codec = cluster._codec(io_.pool_id)
+        sinfo = io_._sinfo(codec)
+        n = codec.get_chunk_count()
+        name = f"{pool}-0"
+        pg = io_.object_pg(name)
+        acting, _primary = io_.acting(pg)
+        shards = {s: cluster.stores[osd].read(shard_collection(pg, s),
+                                              ObjectId(name))
+                  for s, osd in enumerate(acting)}
+        full = ec_util.decode(sinfo, codec, shards)
+        steps = {
+            "encode_s": host_median_s(torch, lambda: ec_util.encode(
+                sinfo, codec, full, range(n))),
+            "hinfo_crc_s": host_median_s(torch, lambda: ec_util.HashInfo(
+                n).append(0, shards)),
+            "gather_and_verify_s": host_median_s(
+                torch, lambda: io_._gather_shards(name, pg, acting)),
+            "decode_1_lost_s": host_median_s(torch, lambda: ec_util.decode(
+                sinfo, codec, {s: b for s, b in shards.items() if s})),
+        }
+        med = {key: statistics.median(v) for key, v in times.items()}
+        steps["store_and_rest_s"] = (med["write_full"] - steps["encode_s"]
+                                     - steps["hinfo_crc_s"])
+        scrub = io_.deep_scrub(f"{pool}-1")
+        pools.append({"pool": pool, "chunks": n,
+                      "stripe_chunk": sinfo.get_chunk_size(),
+                      "stripes_per_object": CODEC_OBJECT
+                      // sinfo.get_stripe_width(),
+                      "reads_exact": sum(exact), "reads": len(exact),
+                      "scrub": scrub, "median_s": med,
+                      "gib_per_s": {k: gib / v for k, v in med.items()},
+                      "steps": steps, "launches_per_write": write_launches,
+                      "launches_per_read": read_launches})
+        check(all(exact), f"cluster pool {pool}: a read differs")
+        check(scrub == [], f"cluster pool {pool}: scrub found {scrub}")
+    stores_same = all(
+        sorted(cluster.stores[o].list_collections())
+        == sorted(clusters["cpu"].stores[o].list_collections())
+        and all(cluster.stores[o].read(cid, oid)
+                == clusters["cpu"].stores[o].read(cid, oid)
+                and cluster.stores[o].getattrs(cid, oid)
+                == clusters["cpu"].stores[o].getattrs(cid, oid)
+                for cid in cluster.stores[o].list_collections()
+                for oid in cluster.stores[o].list_objects(cid))
+        for o in cluster.stores)
+    launches = launches_now()
+    seconds = time.perf_counter() - phase_t0
+    print(json.dumps({"case": "cluster", "osds": CLUSTER_OSDS,
+                      "hosts": CLUSTER_OSDS // CLUSTER_OSDS_PER_HOST,
+                      "pools": pools, "stores_same_as_cpu": stores_same}))
+    print(json.dumps({"phase": "codecs", "launches": launches,
+                      "seconds_in_phase": seconds, "card": card}))
+    check(stores_same, "the card's LRC shards differ from the CPU cluster's")
+    check(all(launches[k] > 0 for k in ("gf_matmul_spec", "gf_matmul_gen",
+                                        "crc32c_blocks")),
+          f"a kernel never launched on the codecs path: {launches}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -911,11 +1396,14 @@ def main() -> None:
 
     # -- 3d. the embedded cluster -------------------------------------------
     cluster_launches = cluster_phase(torch, dev, card, wrappers)
+
+    # -- 3e. the erasure-code plugin family ---------------------------------
+    codecs_launches = codecs_phase(torch, dev, card, wrappers)
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
                "osdmap": {"crush_do_rule_batch": osdmap_state["launches"]},
-               "cluster": cluster_launches}
+               "cluster": cluster_launches, "codecs": codecs_launches}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)

@@ -5,6 +5,7 @@ ceph_tpu.osd.ec_util.  Inputs come from numpy with fixed seeds; every
 output is bytes or a crc, so the tolerance is exact equality.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -174,7 +175,10 @@ def test_wide_words_are_not_ported_yet():
     assert err.value.errno == 22
 
 
-def test_decode_rows_are_keyed_by_codec_signature():
+def test_decode_rows_are_keyed_by_codec_signature(monkeypatch):
+    # an empty process-wide cache: other test files in this worker may
+    # already have cached these rows (an LRC layer is reed_sol_van 4+2)
+    monkeypatch.setattr(tdispatch, "_decode_rows", tdispatch.LruCache(512))
     a = ErasureCodeTorch("reed_sol_van", device="cpu")
     a.init({"k": "4", "m": "2"})
     b = ErasureCodeTorch("cauchy_orig", device="cpu")
@@ -216,3 +220,25 @@ def test_port_imports_neither_jax_nor_ceph_tpu():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 15
+
+
+def _import_roots(path: Path):
+    """(line, root module) of every Import/ImportFrom in a file, at any
+    depth: inside functions and branches too, where importing every
+    module does not reach."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_ceph_tpu_at_any_depth():
+    files = sorted((ROOT / "ceph_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = [f"{path.relative_to(ROOT)}:{line} imports {root}"
+           for path in files for line, root in _import_roots(path)
+           if root in ("jax", "jaxlib", "ceph_tpu")]
+    assert not bad, bad
+    assert len(files) > 40

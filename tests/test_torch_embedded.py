@@ -215,14 +215,15 @@ def test_remove_and_list_match_jax(written):
 
 def test_refusals():
     """What the port does not run yet raises: a TPUStore-backed cluster
-    and an LRC pool (the registry has no lrc plugin)."""
+    and a pool of a bitmatrix technique (liberation)."""
     with pytest.raises(NotImplementedError, match="tpustore"):
         temb.LocalCluster(num_osds=6, store_path="unused", device="cpu")
     c = temb.LocalCluster(num_osds=8, osds_per_host=2, device="cpu")
-    with pytest.raises(ErasureCodeError, match="lrc"):
-        c.create_erasure_pool("lrcpool", {"plugin": "lrc", "k": "4",
-                                          "m": "2", "l": "3"}, pg_num=8)
-    assert c.osdmap.lookup_pool("lrcpool") == -1
+    with pytest.raises(ErasureCodeError, match="liberation"):
+        c.create_erasure_pool("libpool", {"plugin": "jerasure",
+                                          "technique": "liberation",
+                                          "k": "4", "m": "2"}, pg_num=8)
+    assert c.osdmap.lookup_pool("libpool") == -1
 
 
 def test_profiles_in_the_map_carry_no_device():
@@ -245,12 +246,11 @@ def test_no_silent_cpu(monkeypatch):
 PORT_NAMES = {"ObjectId": ObjectId, "Transaction": Transaction,
               "HINFO_ATTR": temb.HINFO_ATTR, "LocalCluster": temb.LocalCluster,
               "shard_collection": temb.shard_collection}
-# the LRC pool and the TPUStore-backed cluster are refusals on the port
-# (test_refusals above)
+# the TPUStore-backed cluster is a refusal on the port (test_refusals
+# above)
 REPLAYED = sorted(name for name, fn in vars(jax_cases).items()
                   if name.startswith("test_") and callable(fn)
-                  and name not in ("test_lrc_pool_end_to_end",
-                                   "test_persistent_cluster_round_trip"))
+                  and name != "test_persistent_cluster_round_trip")
 
 
 @pytest.mark.parametrize("name", REPLAYED)
