@@ -42,6 +42,10 @@ _SIGNATURES = {
         "crc32c_blocks": (_P, _I, _P, _LL, _LL, _LL, _I, _P, _P),
         "crc32c_smem_bytes": (),
     },
+    "compress_score": {
+        "score_blocks": (_P, _I, _LL, _LL, _P, _P, _P, _P, _P),
+        "score_scratch_ints": (),
+    },
     "crush": {
         "crush_do_rule_batch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _PI, _I, _P, _LL, _P, _P, _P),

@@ -13,6 +13,11 @@ row crcs fold in a log-depth tree with the zero-advance matrices
 (crc(A||B) = Z_|B|(crc(A)) ^ crc(B)).  The seed enters last, as
 crc32c_zeros(seed, len) XORed in.
 
+Per-block host checksums for stored blobs (`crc32c_blocks`, and `xxh32` /
+`xxh64` on the native library of ceph_tpu_torch/native, with pure-Python
+twins `_py_xxh32` / `_py_xxh64` as their plain versions) serve
+common/checksummer.py.
+
 Batched PyTorch path (`crc32c_batch` and its helpers): the GF(2)
 bit-matrix formulation of the JAX module, the plain version of the CUDA
 kernel in ops/crc_kernels.py.  Each block splits into 64-byte cells whose
@@ -25,10 +30,13 @@ support is thin); `.numpy().view(np.uint32)` recovers them.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
+
+from ceph_tpu_torch import native
 
 CASTAGNOLI_POLY_REFLECTED = 0x82F63B78
 
@@ -160,6 +168,165 @@ def crc32c(crc: int, data, length: int | None = None) -> int:
         return crc32c_zeros(crc, length or 0)
     arr = _np_u8(data)
     return crc32c_zeros(crc, arr.size) ^ _crc0(arr)
+
+
+@functools.lru_cache(maxsize=64)
+def _advance_tables(length: int) -> np.ndarray:
+    """(4, 256) uint32 byte tables of the zero-advance through `length`
+    bytes: advance(v) = T0[v & 255] ^ T1[v >> 8 & 255] ^ T2[..] ^ T3[..]."""
+    cols = advance_columns(length)
+    byte = np.arange(256, dtype=np.uint32)
+    return np.stack([advance(cols, byte << np.uint32(8 * k))
+                     for k in range(4)])
+
+
+def _advance_fast(length: int, v: np.ndarray) -> np.ndarray:
+    tab = _advance_tables(length)
+    return (tab[0][v & 0xFF] ^ tab[1][(v >> 8) & 0xFF]
+            ^ tab[2][(v >> 16) & 0xFF] ^ tab[3][v >> 24])
+
+
+_BLOCK_ROW = 64  # bytes per row of crc32c_blocks
+
+
+def crc32c_blocks(data, block_size: int, init: int = 0xFFFFFFFF
+                  ) -> np.ndarray:
+    """(N,) uint32: crc32c(init, block) of every `block_size`-byte block of
+    `data` (host numpy; the JAX package's host crc32c_blocks).
+
+    Each block is front-padded with zeros to whole rows of _BLOCK_ROW
+    bytes (leading zeros leave a zero-seeded crc unchanged); the rows of
+    all blocks go through crc32c_rows together and fold per block in a
+    log-depth tree, and the seed's advance through the block is XORed in.
+    Short rows keep the Python loop over word columns short: a 4 KiB
+    block is 16 column steps, not the 256 of 1 KiB rows."""
+    arr = _np_u8(data)
+    if block_size < 1 or arr.size % block_size:
+        raise ValueError(f"{arr.size} bytes do not split into blocks of"
+                         f" {block_size}")
+    n = arr.size // block_size
+    row = min(_BLOCK_ROW, -(-block_size // 4) * 4)
+    per = -(-block_size // row)
+    padded = np.zeros((n, per * row), dtype=np.uint8)
+    padded[:, per * row - block_size:] = arr.reshape(n, block_size)
+    crcs = crc32c_rows(padded.reshape(n * per, row)).reshape(n, per)
+    span = row
+    while crcs.shape[1] > 1:
+        if crcs.shape[1] % 2:     # one more leading zero row
+            crcs = np.concatenate([np.zeros((n, 1), np.uint32), crcs], 1)
+        crcs = _advance_fast(span, crcs[:, 0::2]) ^ crcs[:, 1::2]
+        span *= 2
+    return crcs[:, 0] ^ np.uint32(crc32c_zeros(init, block_size))
+
+
+def xxh32(data, seed: int = 0) -> int:
+    """xxHash32 of `data` (native/src/xxhash.cc)."""
+    arr = _np_u8(data)
+    return int(native.get_lib().ceph_tpu_xxh32(
+        _u8_ptr(arr), arr.size, seed & _M32))
+
+
+def xxh64(data, seed: int = 0) -> int:
+    """xxHash64 of `data` (native/src/xxhash.cc)."""
+    arr = _np_u8(data)
+    return int(native.get_lib().ceph_tpu_xxh64(
+        _u8_ptr(arr), arr.size, seed & _M64))
+
+
+def _u8_ptr(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+# Pure-Python xxhash: the plain versions of xxh32 / xxh64 (independent of
+# the C++ in native/src/xxhash.cc, for cross-checking).
+
+_M32 = 0xFFFFFFFF
+_M64 = 0xFFFFFFFFFFFFFFFF
+_P32 = (2654435761, 2246822519, 3266489917, 668265263, 374761393)
+_P64 = (11400714785074694791, 14029467366897019727, 1609587929392839161,
+        9650029242287828579, 2870177450012600261)
+
+
+def _rotl32(x, r):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def _rotl64(x, r):
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _py_xxh32(data: bytes, seed: int) -> int:
+    p1, p2, p3, p4, p5 = _P32
+    n = len(data)
+    i = 0
+    if n >= 16:
+        v = [(seed + p1 + p2) & _M32, (seed + p2) & _M32, seed,
+             (seed - p1) & _M32]
+        while i + 16 <= n:
+            for lane in range(4):
+                w = int.from_bytes(data[i:i + 4], "little")
+                v[lane] = (_rotl32((v[lane] + w * p2) & _M32, 13) * p1) & _M32
+                i += 4
+        h = (_rotl32(v[0], 1) + _rotl32(v[1], 7) + _rotl32(v[2], 12)
+             + _rotl32(v[3], 18)) & _M32
+    else:
+        h = (seed + p5) & _M32
+    h = (h + n) & _M32
+    while i + 4 <= n:
+        w = int.from_bytes(data[i:i + 4], "little")
+        h = (_rotl32((h + w * p3) & _M32, 17) * p4) & _M32
+        i += 4
+    while i < n:
+        h = (_rotl32((h + data[i] * p5) & _M32, 11) * p1) & _M32
+        i += 1
+    h ^= h >> 15
+    h = (h * p2) & _M32
+    h ^= h >> 13
+    h = (h * p3) & _M32
+    h ^= h >> 16
+    return h
+
+
+def _py_xxh64_round(acc, inp):
+    return (_rotl64((acc + inp * _P64[1]) & _M64, 31) * _P64[0]) & _M64
+
+
+def _py_xxh64(data: bytes, seed: int) -> int:
+    p1, p2, p3, p4, p5 = _P64
+    n = len(data)
+    i = 0
+    if n >= 32:
+        v = [(seed + p1 + p2) & _M64, (seed + p2) & _M64, seed,
+             (seed - p1) & _M64]
+        while i + 32 <= n:
+            for lane in range(4):
+                w = int.from_bytes(data[i:i + 8], "little")
+                v[lane] = _py_xxh64_round(v[lane], w)
+                i += 8
+        h = (_rotl64(v[0], 1) + _rotl64(v[1], 7) + _rotl64(v[2], 12)
+             + _rotl64(v[3], 18)) & _M64
+        for lane in range(4):
+            h = ((h ^ _py_xxh64_round(0, v[lane])) * p1 + p4) & _M64
+    else:
+        h = (seed + p5) & _M64
+    h = (h + n) & _M64
+    while i + 8 <= n:
+        w = int.from_bytes(data[i:i + 8], "little")
+        h = (_rotl64(h ^ _py_xxh64_round(0, w), 27) * p1 + p4) & _M64
+        i += 8
+    if i + 4 <= n:
+        w = int.from_bytes(data[i:i + 4], "little")
+        h = (_rotl64(h ^ ((w * p1) & _M64), 23) * p2 + p3) & _M64
+        i += 4
+    while i < n:
+        h = (_rotl64(h ^ ((data[i] * p5) & _M64), 11) * p1) & _M64
+        i += 1
+    h ^= h >> 33
+    h = (h * p2) & _M64
+    h ^= h >> 29
+    h = (h * p3) & _M64
+    h ^= h >> 32
+    return h
 
 
 # ---------------------------------------------------------------------------

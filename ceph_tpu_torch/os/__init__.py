@@ -5,8 +5,9 @@ Reference parity: ObjectStore + Transaction (the reference's
 src/os/ObjectStore.h, src/os/Transaction.h): compound
 transactions of object mutations (touch/write/zero/truncate/remove/clone,
 xattrs, omap, alloc hints) applied atomically to collections of objects.
-Backends: MemStore (RAM — src/os/memstore/).  The JAX package's TPUStore
-(the BlueStore-role engine) is not ported yet.
+Backends: MemStore (RAM, tests — src/os/memstore/) and TPUStore (the
+BlueStore-role engine: raw block file + allocator + KV metadata + inline
+compression/checksums — src/os/bluestore/).
 """
 
 from __future__ import annotations
@@ -152,12 +153,14 @@ class ObjectStore:
     def submit_batch(self, txns: List[Transaction]
                      ) -> List[Optional[Exception]]:
         """Group commit: apply a FIFO batch of transactions, sharing
-        durability barriers where the engine can.  Per-txn outcome
-        list: None = committed (its on_commit callbacks have fired), an
-        Exception = that txn failed and nothing of it was applied.  The
-        base implementation is the semantic reference: each txn commits
-        individually, in order — engines may amortize barriers but must
-        not change which states are durable-visible at each ack."""
+        durability barriers where the engine can (TPUStore merges the
+        KV batches into ONE sync commit and the direct writes into ONE
+        block fsync).  Per-txn outcome list: None = committed (its
+        on_commit callbacks have fired), an Exception = that txn failed
+        and nothing of it was applied.  The base implementation is the
+        semantic reference: each txn commits individually, in order —
+        engines may amortize barriers but must not change which states
+        are durable-visible at each ack."""
         results: List[Optional[Exception]] = []
         for txn in txns:
             try:

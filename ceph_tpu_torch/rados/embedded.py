@@ -7,7 +7,8 @@ hobject_t hash), CRUSH places the PG's acting set, the object stripes
 through ECUtil, the card encodes all stripes in one batched GF matmul
 (`gf_matmul_spec`), and each shard lands in its OSD's ObjectStore with
 the cumulative-crc HashInfo ledger in an xattr (the hinfo_key of
-ECBackend).  `get` reads any k shards — reconstructing through
+ECBackend); the OSDs hold MemStores, or TPUStores under `store_path`
+(one directory per OSD, their options from `config`).  `get` reads any k shards — reconstructing through
 minimum_to_decode + the decode kernel (`gf_matmul_gen`) when shards are
 lost or fail their checksums.  Deep scrub re-hashes every shard against
 its ledger (ECBackend::be_deep_scrub); repair re-encodes and rewrites bad
@@ -37,6 +38,7 @@ from ceph_tpu_torch.ops import checksum as cks
 from ceph_tpu_torch.ops.rjenkins import ceph_str_hash_rjenkins
 from ceph_tpu_torch.os import ObjectId, ObjectStore, Transaction
 from ceph_tpu_torch.os.memstore import MemStore
+from ceph_tpu_torch.os.tpustore import TPUStore
 from ceph_tpu_torch.osd import ec_util
 from ceph_tpu_torch.osd.osdmap import (
     CEPH_OSD_UP,
@@ -63,12 +65,7 @@ class LocalCluster:
     """N ObjectStores + an OSDMap, no networking."""
 
     def __init__(self, num_osds: int = 6, osds_per_host: int = 2,
-                 store_path: Optional[str] = None, device=None):
-        if store_path is not None:
-            raise NotImplementedError(
-                "store_path: the TPUStore-backed cluster (os/tpustore.py) is"
-                " not ported yet (ROADMAP.md A4); the port's OSDs hold"
-                " MemStores")
+                 store_path: Optional[str] = None, config=None, device=None):
         self.device = resolve_device(device)
         self.osdmap = OSDMap.build_simple(num_osds,
                                           osds_per_host=osds_per_host)
@@ -80,8 +77,19 @@ class LocalCluster:
         self.osdmap.enable_placement_cache()
         self.stores: Dict[int, ObjectStore] = {}
         self._codecs: Dict[int, object] = {}
+        self._stripe_unit = STRIPE_UNIT
+        if config is not None:
+            self._stripe_unit = int(
+                config.get("osd_pool_erasure_code_stripe_unit"))
         for osd in range(num_osds):
-            store: ObjectStore = MemStore()
+            if store_path is None:
+                store: ObjectStore = MemStore()
+            else:
+                # the stores' bluestore_* options come from `config`; their
+                # csums and compression pre-scores run on the cluster's
+                # device
+                store = TPUStore(f"{store_path}/osd.{osd}", config=config,
+                                 device=self.device)
             store.mkfs()
             store.mount()
             self.stores[osd] = store
@@ -173,7 +181,7 @@ class IoCtx:
 
     def _sinfo(self, codec) -> ec_util.StripeInfo:
         k = codec.get_data_chunk_count()
-        unit = codec.get_chunk_size(k * STRIPE_UNIT)
+        unit = codec.get_chunk_size(k * self.cluster._stripe_unit)
         return ec_util.StripeInfo(k, k * unit)
 
     # -- write -------------------------------------------------------------

@@ -7,8 +7,8 @@ Run from the repository root:
 
 Phases; any failure exits nonzero and prints no result line:
 
-1. Build the CUDA kernels from ceph_tpu_torch/csrc (GF, crc and the CRUSH
-   placement kernel, one nvcc per source, started together) and print the
+1. Build the CUDA kernels from ceph_tpu_torch/csrc (GF, crc, scoring and the
+   CRUSH placement kernel, one nvcc per source, started together) and print the
    seconds it took and what ptxas reports (registers per source, spills).
 2. Hold every kernel against its plain PyTorch version on the card at the
    main path's shapes, bit-exact: the GF kernel through gf_matmul_spec
@@ -101,6 +101,28 @@ Phases; any failure exits nonzero and prints no result line:
    LocalCluster(device="cpu").  Times are host-clock medians of 3, with
    the launches per call; the launch counters are zeroed just before the
    phase.
+3f. The persistent store (BASELINE config 3's 16 MiB blobs): score_blocks
+   against its plain version on (B, S) in (1, 1), (256, 3), (256, 511),
+   (64, 512), (33, 513), (16, 4097), (1, 65536), (256, 65536) and (2, 64 x
+   4096 + 17) (more tiles than a row's thread blocks), on zeros,
+   text, random bytes and a repeated 256-byte pattern (histograms and match
+   fractions bit for bit, entropy within score_kernels.ENTROPY_TOL); a
+   TPUStore on the card and its device="cpu" twin, compressing (aggressive:
+   snappy, lz4, zlib) and not, each given the same transactions (a 16 MiB
+   object of each kind, small overwrites, xattrs, omap, a clone): block
+   files, onodes and perf counters equal, every read exact, then on the
+   card's store a crash() and WAL replay, a remount and a flipped byte
+   (IOError, csum_read_failures 1); write and read GiB/s of a 16 MiB object
+   (random, text; compression off and snappy; host clock, median of 3); a
+   LocalCluster(24 OSDs, 12 hosts, store_path) with EC 8+3 over hosts, two
+   64 MiB objects written, read healthy and with 1 and 3 data shards' OSDs
+   down, deep-scrubbed, every store mounted again and read, all stores
+   against a LocalCluster(store_path, device="cpu"); score_blocks timed at
+   (1, 65536) and (256, 65536) alone and back to back beside its plain
+   version (and its CUDA kernel count) and torch.bincount of the offset
+   batch.  The launch counters are zeroed before the store path and again
+   before the cluster; score_blocks and crc32c_blocks must launch on the
+   store path, the GF kernels and crc32c_blocks on the cluster.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -116,7 +138,7 @@ Phases; any failure exits nonzero and prints no result line:
    ((1, 8, 8 MiB) encode, (2048, 8, 4096) decode of 1 and 3 rows), each
    against its plain version, and the placement kernel at phase 3c's.
    Every kernels-line row carries its launches per path (codec, crushtool,
-   osdmap, cluster, codecs) and their sum.
+   osdmap, cluster, codecs, store, store_cluster) and their sum.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The card's name and power limit, as
@@ -1171,6 +1193,379 @@ def codecs_phase(torch, dev, card: str, wrappers: dict) -> dict:
     return launches
 
 
+# phase 3f: the persistent store.  BASELINE config 3's 16 MiB blob in
+# TPUStores that compress (aggressive, each of snappy, lz4 and zlib) and in
+# one that does not; the store-backed cluster in config 5's shape.
+STORE_OBJECT = 16 << 20
+STORE_ALGS = ("snappy", "lz4", "zlib", "none")
+STORE_KINDS = ("zeros", "text", "random", "pattern")
+SCORE_SHAPES = ((1, 1), (256, 3), (256, 511), (64, 512), (33, 513),
+                (16, 4097), (1, 65536), (256, 65536), (2, 64 * 4096 + 17))
+STORE_CLUSTER_OBJECTS = 2
+SCORE_OPS_PER_TERM = 4      # multiply, log2, multiply-add into the sum
+
+
+def store_kind(kind: str, size: int, rng) -> bytes:
+    """`size` bytes of one data kind: zeros, English-like text, random
+    bytes, or a 256-byte random pattern repeated."""
+    if kind == "zeros":
+        return bytes(size)
+    if kind == "random":
+        return rng.bytes(size)
+    if kind == "text":
+        words = np.array([b"object ", b"placement ", b"group ", b"the ",
+                          b"erasure ", b"coded ", b"shard ", b"of ",
+                          b"store ", b"a "])
+        return b"".join(rng.choice(words, size // 5 + 1))[:size].ljust(size)
+    return (rng.bytes(256) * (size // 256 + 1))[:size]
+
+
+def score_ops(b: int, s: int) -> int:
+    """Lane-operations score_blocks needs for a (b, s) batch: one histogram
+    increment per byte, one compare-and-count per (position, lag) pair with
+    position >= lag, and the entropy's terms over 256 bins."""
+    from ceph_tpu_torch.ops import score_kernels
+
+    pairs = sum(s - lag for lag in score_kernels.PROBE_LAGS if lag < s)
+    return b * (s + pairs + 256 * SCORE_OPS_PER_TERM)
+
+
+def store_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3f: score_blocks against its plain version on the card; the
+    TPUStore on the card against its device="cpu" twin (block files and
+    onodes byte-equal, crash and WAL replay, bitrot); the store-backed
+    LocalCluster against a CPU twin, degraded reads, scrub and a remount;
+    host-clock times.  Returns the launches per path and the kernel's
+    check and times for the kernels line."""
+    import shutil
+    import tempfile
+
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.os import ObjectId, Transaction
+    from ceph_tpu_torch.os.tpustore import TPUStore
+    from ceph_tpu_torch.ops import score_kernels
+    from ceph_tpu_torch.rados.embedded import (HINFO_ATTR, OI_ATTR,
+                                               LocalCluster)
+    from ceph_tpu_torch.tools.kernel_shapes import alone_ms, back_to_back_ms
+
+    phase_t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        # -- 1. the kernel against its plain version ------------------------
+        worst, cases = 0.0, 0
+        for b, s in SCORE_SHAPES:
+            for kind in STORE_KINDS:
+                blocks = torch.from_numpy(np.frombuffer(
+                    store_kind(kind, b * s, rng), np.uint8).reshape(b, s)
+                    .copy()).to(dev)
+                hist, ent, match = score_kernels.score_blocks(blocks)
+                p_hist, p_ent, p_match = score_kernels.score_blocks_plain(
+                    blocks)
+                check(torch.equal(hist, p_hist) and torch.equal(
+                    match.view(torch.int32), p_match.view(torch.int32)),
+                    f"score_blocks disagrees with its plain version at"
+                    f" {(b, s)} on {kind} data")
+                worst = max(worst, float((ent - p_ent).abs().max()))
+                cases += 1
+        check(worst <= score_kernels.ENTROPY_TOL,
+              f"score_blocks' entropy is off by {worst}")
+        print(json.dumps({"phase": "store_kernel_vs_plain", "cases": cases,
+                          "shapes": SCORE_SHAPES, "kinds": STORE_KINDS,
+                          "entropy_max_abs_err": worst,
+                          "entropy_tol": score_kernels.ENTROPY_TOL}))
+
+        # -- 2. the store on the card against its CPU twin -------------------
+        objs = {kind: store_kind(kind, STORE_OBJECT, rng)
+                for kind in STORE_KINDS}
+        small = rng.bytes(4096)
+
+        def config(alg):
+            cfg = Config()
+            if alg != "none":
+                cfg.set_val("bluestore_compression_mode", "aggressive")
+                cfg.set_val("bluestore_compression_algorithm", alg)
+            return cfg
+
+        def drive(store):
+            """The same transactions on any store; returns the reads."""
+            t = Transaction()
+            t.create_collection("1.0_head")
+            store.queue_transaction(t)
+            for kind, data in objs.items():
+                t = Transaction()
+                t.write("1.0_head", ObjectId(kind), 0, len(data), data)
+                store.queue_transaction(t)
+            for kind in objs:          # small overwrites: deferred if raw
+                t = Transaction()
+                t.write("1.0_head", ObjectId(kind), 12345, len(small), small)
+                t.setattr("1.0_head", ObjectId(kind), "_", kind.encode())
+                t.omap_setkeys("1.0_head", ObjectId(kind), {"k": small[:8]})
+                store.queue_transaction(t)
+            t = Transaction()
+            t.clone("1.0_head", ObjectId("text"), ObjectId("text-clone"))
+            store.queue_transaction(t)
+            return {str(o): store.read("1.0_head", o)
+                    for o in store.list_objects("1.0_head")}
+
+        def state(store):
+            store._block.flush()
+            with open(store._block_path, "rb") as f:
+                block = f.read()
+            onodes = list(store._kv.get_iterator("O"))
+            return block, onodes, {k: v for k, v in
+                                   store.perf_counters().items()}
+
+        want = {k: bytearray(v) for k, v in objs.items()}
+        for v in want.values():
+            v[12345:12345 + len(small)] = small
+        want = {k: bytes(v) for k, v in want.items()}
+        want["text-clone"] = want["text"]
+        store_runs = {}
+        for fn in wrappers.values():
+            fn.launches = 0
+        for alg in STORE_ALGS:
+            run = {}
+            for devname in ("cuda", "cpu"):
+                path = f"{tmp}/{alg}-{devname}"
+                st = TPUStore(path, config=config(alg), device=devname)
+                st.mkfs()
+                st.mount()
+                t0 = time.perf_counter()
+                reads = drive(st)
+                torch.cuda.synchronize()
+                run[devname] = (time.perf_counter() - t0, reads == want,
+                                state(st))
+                if devname == "cpu":
+                    st.umount()
+                    continue
+                # crash before the lazy deferred flush, replay, remount
+                st.crash()
+                st = TPUStore(path, config=config(alg), device=devname)
+                st.mount()
+                replayed = st.perf_counters()
+                after_crash = {str(o): st.read("1.0_head", o)
+                               for o in st.list_objects("1.0_head")} == want
+                st.umount()
+                st = TPUStore(path, config=config(alg), device=devname)
+                st.mount()
+                after_remount = {str(o): st.read("1.0_head", o)
+                                 for o in st.list_objects("1.0_head")} == want
+                # one flipped byte inside the random object's first blob
+                blob = st._get_onode("1.0_head", ObjectId("random")).blobs[0]
+                st.umount()
+                with open(f"{path}/block", "r+b") as f:
+                    f.seek(blob.offset + 100)
+                    byte = f.read(1)
+                    f.seek(blob.offset + 100)
+                    f.write(bytes([byte[0] ^ 0x20]))
+                st = TPUStore(path, config=config(alg), device=devname)
+                st.mount()
+                try:
+                    st.read("1.0_head", ObjectId("random"))
+                    caught = False
+                except IOError:
+                    caught = True
+                run["replay"] = {
+                    "journal_replayed_entries":
+                        replayed["journal_replayed_entries"],
+                    "reads_after_crash_exact": after_crash,
+                    "reads_after_remount_exact": after_remount,
+                    "bitrot_raises": caught,
+                    "csum_read_failures":
+                        st.perf_counters()["csum_read_failures"]}
+                st.umount()
+            cuda_state, cpu_state = run["cuda"][2], run["cpu"][2]
+            store_runs[alg] = {
+                "reads_exact": run["cuda"][1] and run["cpu"][1],
+                "block_file_equal": cuda_state[0] == cpu_state[0],
+                "onodes_equal": cuda_state[1] == cpu_state[1],
+                "perf_equal": cuda_state[2] == cpu_state[2],
+                "stored_bytes": len(cuda_state[0]),
+                "deferred_writes": cuda_state[2]["deferred_writes"],
+                "drive_s": {"cuda": run["cuda"][0], "cpu": run["cpu"][0]},
+                **run["replay"]}
+        store_launches = {n: fn.launches for n, fn in wrappers.items()}
+        print(json.dumps({"phase": "store", "object_bytes": STORE_OBJECT,
+                          "kinds": STORE_KINDS, "runs": store_runs,
+                          "launches": store_launches}))
+        for alg, r in store_runs.items():
+            check(r["reads_exact"] and r["block_file_equal"]
+                  and r["onodes_equal"] and r["perf_equal"],
+                  f"the card's {alg} store differs from its CPU twin: {r}")
+            check(r["reads_after_crash_exact"]
+                  and r["reads_after_remount_exact"],
+                  f"the {alg} store lost data across crash/remount: {r}")
+            check(r["bitrot_raises"] and r["csum_read_failures"] == 1,
+                  f"the {alg} store missed a flipped byte: {r}")
+        check(store_runs["none"]["deferred_writes"] > 0
+              and store_runs["none"]["journal_replayed_entries"] > 0,
+              "the uncompressed store took no deferred write or replay")
+        check(store_launches["score_blocks"] > 0
+              and store_launches["crc32c_blocks"] > 0,
+              f"a kernel never launched on the store path: {store_launches}")
+
+        # -- 3. store times: a 16 MiB object, compression off and on ---------
+        times = {}
+        for alg in ("none", "snappy"):
+            path = f"{tmp}/times-{alg}"
+            st = TPUStore(path, config=config(alg), device="cuda")
+            st.mkfs()
+            st.mount()
+            t = Transaction()
+            t.create_collection("c")
+            st.queue_transaction(t)
+            for kind in ("random", "text"):
+                data = objs[kind]
+
+                def write(kind=kind, data=data, st=st):
+                    t = Transaction()
+                    t.write("c", ObjectId(kind), 0, len(data), data)
+                    st.queue_transaction(t)
+
+                w = host_median_s(torch, write)
+                r = host_median_s(torch, lambda st=st, kind=kind: st.read(
+                    "c", ObjectId(kind)))
+                times[f"{alg}_{kind}"] = {
+                    "write_s": w, "read_s": r,
+                    "write_gib_per_s": STORE_OBJECT / (1 << 30) / w,
+                    "read_gib_per_s": STORE_OBJECT / (1 << 30) / r}
+            st.umount()
+        print(json.dumps({"phase": "store_times", "object_bytes":
+                          STORE_OBJECT, "times": times, "card": card}))
+
+        # -- 4. the store-backed cluster --------------------------------------
+        cobjs = {f"obj-{i}": rng.bytes(CLUSTER_OBJECT)
+                 for i in range(STORE_CLUSTER_OBJECTS)}
+        for fn in wrappers.values():
+            fn.launches = 0
+        cl = LocalCluster(num_osds=CLUSTER_OSDS,
+                          osds_per_host=CLUSTER_OSDS_PER_HOST,
+                          store_path=f"{tmp}/cluster")
+        check(cl.device.type == "cuda" and all(
+            s.device.type == "cuda" for s in cl.stores.values()),
+            "the store-backed cluster is not on the card")
+        cl.create_erasure_pool("ecpool", EC_PROFILE)
+        io = cl.open_ioctx("ecpool")
+        ctimes = {"write_full": [], "read": [], "read_1_down": [],
+                  "read_3_down": []}
+        exact = []
+
+        def ctimed(key, fn):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            ctimes[key].append(time.perf_counter() - t0)
+            return res
+
+        for name, data in cobjs.items():
+            ctimed("write_full", lambda: io.write_full(name, data))
+            exact.append(ctimed("read", lambda: io.read(name)) == data)
+            acting, _primary = io.acting(io.object_pg(name))
+            for key, lost in (("read_1_down", (0,)),
+                              ("read_3_down", (0, 3, 6))):
+                for shard in lost:
+                    cl.mark_osd_down(acting[shard])
+                exact.append(ctimed(key, lambda: io.read(name)) == data)
+                for shard in lost:
+                    cl.mark_osd_up(acting[shard])
+        scrub = [io.deep_scrub(name) for name in cobjs]
+        cl.shutdown()
+        for osd in cl.stores:      # every store mounted again on its disk
+            st = TPUStore(f"{tmp}/cluster/osd.{osd}", device="cuda")
+            st.mount()
+            cl.stores[osd] = st
+        remount_exact = all(io.read(name) == data
+                            for name, data in cobjs.items())
+        cluster_launches = {n: fn.launches for n, fn in wrappers.items()}
+
+        cpu = LocalCluster(num_osds=CLUSTER_OSDS,
+                           osds_per_host=CLUSTER_OSDS_PER_HOST,
+                           store_path=f"{tmp}/cluster-cpu", device="cpu")
+        cpu.create_erasure_pool("ecpool", EC_PROFILE)
+        cpu_io = cpu.open_ioctx("ecpool")
+        for name, data in cobjs.items():
+            cpu_io.write_full(name, data)
+        same = True
+        for osd, st in cl.stores.items():
+            twin = cpu.stores[osd]
+            same = same and st.list_collections() == \
+                twin.list_collections()
+            for cid in st.list_collections():
+                same = same and st.list_objects(cid) == \
+                    twin.list_objects(cid)
+                for oid in st.list_objects(cid):
+                    same = same and st.read(cid, oid) == \
+                        twin.read(cid, oid) and all(
+                            st.getattr(cid, oid, a) == twin.getattr(
+                                cid, oid, a) for a in (HINFO_ATTR, OI_ATTR))
+        cl.shutdown()
+        cpu.shutdown()
+        med = {k: statistics.median(v) for k, v in ctimes.items()}
+        gib = CLUSTER_OBJECT / (1 << 30)
+        print(json.dumps({
+            "phase": "store_cluster", "osds": CLUSTER_OSDS,
+            "objects": STORE_CLUSTER_OBJECTS, "object_bytes": CLUSTER_OBJECT,
+            "reads_exact": sum(exact), "reads": len(exact),
+            "scrub": scrub, "remount_reads_exact": remount_exact,
+            "same_as_cpu_cluster": same, "launches": cluster_launches,
+            "seconds": ctimes, "median_s": med,
+            "gib_per_s": {k: gib / v for k, v in med.items()},
+            "card": card}))
+        check(all(exact) and remount_exact,
+              "a store-backed cluster read differs from the written object")
+        check(scrub == [[]] * STORE_CLUSTER_OBJECTS,
+              f"deep scrub on the store-backed cluster: {scrub}")
+        check(same, "the card's stores differ from the CPU cluster's")
+        check(cluster_launches["gf_matmul_spec"] > 0
+              and cluster_launches["gf_matmul_gen"] > 0
+              and cluster_launches["crc32c_blocks"] > 0,
+              f"a kernel never launched on the store-backed cluster:"
+              f" {cluster_launches}")
+
+        # -- 5. kernel times -------------------------------------------------
+        ktimes = {}
+        for b, s in ((1, 65536), (256, 65536)):
+            blocks = torch.from_numpy(np.frombuffer(
+                store_kind("text", b * s, rng), np.uint8).reshape(b, s)
+                .copy()).to(dev)
+            offset = (blocks.to(torch.int64) + 256 * torch.arange(
+                b, device=dev)[:, None]).reshape(-1)
+            plain_launches = None
+            try:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    score_kernels.score_blocks_plain(blocks)
+                    torch.cuda.synchronize()
+                plain_launches = sum(
+                    1 for e in prof.events()
+                    if getattr(e, "device_type", None) is not None
+                    and str(e.device_type).endswith("CUDA"))
+            except (RuntimeError, AssertionError) as e:
+                print(json.dumps({"profiler_failed": repr(e)}))
+            b_ms, by = bound(b * s + b * (256 * 4 + 8), score_ops(b, s))
+            ktimes[f"{b}x{s}"] = {
+                "ms": alone_ms(lambda: score_kernels.score_blocks(blocks)),
+                "back_to_back_ms": back_to_back_ms(
+                    lambda: score_kernels.score_blocks(blocks)),
+                "plain_ms": alone_ms(
+                    lambda: score_kernels.score_blocks_plain(blocks),
+                    reps=5, warmup=1),
+                "plain_kernel_launches": plain_launches,
+                "bincount_ms": alone_ms(lambda: torch.bincount(
+                    offset, minlength=256 * b)),
+                "bound_ms": b_ms, "bound_by": by}
+        print(json.dumps({"phase": "store_kernel_times", "times": ktimes,
+                          "card": card}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"phase": "store_done",
+                      "seconds_in_phase": time.perf_counter() - phase_t0}))
+    return {"store": store_launches, "store_cluster": cluster_launches,
+            "score_err": worst, "score_times": ktimes}
+
+
 def main() -> None:
     import torch
 
@@ -1183,7 +1578,7 @@ def main() -> None:
         from ceph_tpu_torch.ec.registry import create_erasure_code
         from ceph_tpu_torch.models import reed_solomon as rs
         from ceph_tpu_torch.ops import (_build, crc_kernels, crush_kernels,
-                                        gf_kernels)
+                                        gf_kernels, score_kernels)
         from ceph_tpu_torch.ops import checksum as cks
         from ceph_tpu_torch.ops.gf import gf_matmul_ref
         from ceph_tpu_torch.osd import ec_util
@@ -1332,7 +1727,8 @@ def main() -> None:
     wrappers = {"gf_matmul_spec": gf_kernels.gf_matmul_spec,
                 "gf_matmul_gen": gf_kernels.gf_matmul_gen,
                 "crc32c_blocks": crc_kernels.crc32c_blocks,
-                "crush_do_rule_batch": crush_kernels.crush_do_rule_batch}
+                "crush_do_rule_batch": crush_kernels.crush_do_rule_batch,
+                "score_blocks": score_kernels.score_blocks}
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1399,11 +1795,16 @@ def main() -> None:
 
     # -- 3e. the erasure-code plugin family ---------------------------------
     codecs_launches = codecs_phase(torch, dev, card, wrappers)
+
+    # -- 3f. the persistent store -------------------------------------------
+    store_state = store_phase(torch, dev, card, wrappers)
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
                "osdmap": {"crush_do_rule_batch": osdmap_state["launches"]},
-               "cluster": cluster_launches, "codecs": codecs_launches}
+               "cluster": cluster_launches, "codecs": codecs_launches,
+               "store": store_state["store"],
+               "store_cluster": store_state["store_cluster"]}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)
@@ -1549,6 +1950,18 @@ def main() -> None:
         "ms": crush["ms"], "plain_ms": crush["plain_ms"],
         "bound_ms": crush["bound_ms"], "bound_by": "operations",
         "library_ms": None})
+    # score_blocks at the store's shape: one 64 KiB span per call; the
+    # library call is torch.bincount of the offset batch (the histogram
+    # part only: the kernel also computes entropy and match)
+    span = store_state["score_times"]["1x65536"]
+    rows.append({
+        "name": "score_blocks", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/compress_score.cu",
+        "replaces": "ceph_tpu/compressor/scoring.py:86",
+        **path_launches("score_blocks"),
+        "max_abs_err": store_state["score_err"], "ms": span["ms"],
+        "plain_ms": span["plain_ms"], "bound_ms": span["bound_ms"],
+        "bound_by": span["bound_by"], "library_ms": span["bincount_ms"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

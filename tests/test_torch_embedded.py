@@ -11,6 +11,7 @@ JAX tests of tests/test_embedded_rados.py are also replayed against the
 port's names.
 """
 
+import functools
 import inspect
 import types
 
@@ -213,11 +214,14 @@ def test_remove_and_list_match_jax(written):
     assert _stores(clusters["port"]) == _stores(clusters["jax"])
 
 
-def test_refusals():
-    """What the port does not run yet raises: a TPUStore-backed cluster
-    and a pool of a bitmatrix technique (liberation)."""
-    with pytest.raises(NotImplementedError, match="tpustore"):
-        temb.LocalCluster(num_osds=6, store_path="unused", device="cpu")
+def test_refusals(tmp_path):
+    """What the port does not run yet raises: a pool of a bitmatrix
+    technique (liberation).  A TPUStore-backed cluster is no refusal any
+    more: its OSDs hold TPUStores on the cluster's device."""
+    c = temb.LocalCluster(num_osds=6, store_path=str(tmp_path), device="cpu")
+    assert all(type(s).__name__ == "TPUStore" and s.device.type == "cpu"
+               for s in c.stores.values())
+    c.shutdown()
     c = temb.LocalCluster(num_osds=8, osds_per_host=2, device="cpu")
     with pytest.raises(ErasureCodeError, match="liberation"):
         c.create_erasure_pool("libpool", {"plugin": "jerasure",
@@ -244,17 +248,16 @@ def test_no_silent_cpu(monkeypatch):
 # -- the JAX tests of tests/test_embedded_rados.py, replayed on the port ----
 
 PORT_NAMES = {"ObjectId": ObjectId, "Transaction": Transaction,
-              "HINFO_ATTR": temb.HINFO_ATTR, "LocalCluster": temb.LocalCluster,
+              "HINFO_ATTR": temb.HINFO_ATTR,
+              "LocalCluster": functools.partial(temb.LocalCluster,
+                                                device="cpu"),
               "shard_collection": temb.shard_collection}
-# the TPUStore-backed cluster is a refusal on the port (test_refusals
-# above)
 REPLAYED = sorted(name for name, fn in vars(jax_cases).items()
-                  if name.startswith("test_") and callable(fn)
-                  and name != "test_persistent_cluster_round_trip")
+                  if name.startswith("test_") and callable(fn))
 
 
 @pytest.mark.parametrize("name", REPLAYED)
-def test_jax_embedded_case_on_the_port(name):
+def test_jax_embedded_case_on_the_port(name, tmp_path):
     fn = getattr(jax_cases, name)
     missing = {n for n in fn.__code__.co_names if n in vars(jemb) and not
                isinstance(vars(jemb)[n], types.ModuleType)} - set(PORT_NAMES)
@@ -262,6 +265,8 @@ def test_jax_embedded_case_on_the_port(name):
     fn = types.FunctionType(fn.__code__, {**fn.__globals__, **PORT_NAMES},
                             fn.__name__, fn.__defaults__, fn.__closure__)
     kwargs = {}
+    if "tmp_path" in inspect.signature(fn).parameters:
+        kwargs["tmp_path"] = tmp_path
     if "cluster" in inspect.signature(fn).parameters:
         # the `cluster` fixture of tests/test_embedded_rados.py, on the port
         c = temb.LocalCluster(num_osds=8, osds_per_host=2, device="cpu")
