@@ -14,9 +14,10 @@ names another; no CUDA and no device raises).  A batch of fewer than
 MIN_DEVICE_BYTES takes the numpy host functions, as the reference's does.
 From that size on, on CUDA one launch of the `score_blocks` kernel
 (ops/score_kernels.py, csrc/compress_score.cu) computes histograms,
-entropy and match fractions together; on the CPU its plain PyTorch version
-does.  The route depends only on the device passed and the size.  Results
-come back as numpy arrays.
+entropy and match fractions together into one packed buffer, copied back
+in one piece; on the CPU its plain PyTorch version does.  The route
+depends only on the device passed and the size.  Results come back as
+numpy arrays.
 """
 
 from __future__ import annotations
@@ -87,8 +88,10 @@ def _device_scores(blocks, device):
         if arr.nbytes < MIN_DEVICE_BYTES:
             return None
         t = to_device(arr, dev)
-    hist, entropy, match = score_kernels.score_blocks(t)
-    return hist.cpu().numpy(), entropy.cpu().numpy(), match.cpu().numpy()
+    # one copy back: the packed rows, split on the host
+    packed = score_kernels.score_blocks_packed(t).cpu().numpy()
+    return (packed[:, :256], packed[:, 256].view(np.float32),
+            packed[:, 257].view(np.float32))
 
 
 def _host(blocks) -> np.ndarray:

@@ -4,9 +4,11 @@ and `_match_fraction_dev`).
 
 `score_blocks` returns, for each row of a (B, S) uint8 tensor, its 256-bin
 byte histogram (int32), its order-0 entropy in bits per byte (float32) and
-its best self-match fraction over the probe lags (float32).  On a CUDA
-tensor it launches the kernel of csrc/compress_score.cu, one launch per
-call; on a CPU tensor it runs the plain version, `score_blocks_plain`.
+its best self-match fraction over the probe lags (float32), as views of the
+one (B, 258) int32 buffer that `score_blocks_packed` returns (the floats as
+their bits in the last two columns; `unpack` splits it).  On a CUDA tensor
+it launches the kernel of csrc/compress_score.cu, one launch per call; on a
+CPU tensor it runs the plain version, `score_blocks_plain`.
 
 Histograms and match fractions equal the reference's bit for bit.  A
 lag's fraction is its count times r(S - lag), r(n) being 1/n rounded to
@@ -30,6 +32,8 @@ PROBE_LAGS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96,
 # bits per byte: float32 terms of at most 0.53 each, 256 of them summed in
 # two orders differ by a few ulps of a sum of at most 8
 ENTROPY_TOL = 2e-6
+# a packed output row: 256 histogram counts, entropy and match as bits
+OUT_COLS = 258
 
 
 def _check(blocks: torch.Tensor) -> None:
@@ -67,35 +71,72 @@ def score_blocks_plain(blocks: torch.Tensor):
     return hist, entropy, best
 
 
-def score_blocks(blocks: torch.Tensor):
-    """(B, S) uint8 -> (hist (B, 256) int32, entropy (B,) float32,
-    match (B,) float32): the CUDA kernel on a CUDA tensor (contiguous,
-    S >= 1), the plain version on a CPU tensor."""
+def pack(hist: torch.Tensor, entropy: torch.Tensor,
+         match: torch.Tensor) -> torch.Tensor:
+    """(hist, entropy, match) -> the (B, OUT_COLS) int32 buffer."""
+    return torch.cat([hist, entropy.view(torch.int32)[:, None],
+                      match.view(torch.int32)[:, None]], dim=1)
+
+
+def unpack(packed: torch.Tensor):
+    """(B, OUT_COLS) int32 -> (hist, entropy, match), views of it."""
+    return (packed[:, :256], packed[:, 256].view(torch.float32),
+            packed[:, 257].view(torch.float32))
+
+
+# per CUDA device index: (the kernel's workspace, its address).  Zeroed once
+# when allocated and left zero by every launch; it serves the current
+# stream, one call at a time (the port runs no threads).  Its size is fixed
+# (score_scratch_ints()), so it never grows.
+_workspaces: dict = {}
+_launch = None      # the C entry, looked up once
+
+
+def _workspace(dev: torch.device) -> int:
+    global _launch
+    got = _workspaces.get(dev.index)
+    if got is None:
+        lib = _build.load()["compress_score"]
+        _launch = lib.score_blocks
+        ws = torch.zeros(lib.score_scratch_ints(), dtype=torch.int32,
+                         device=dev)
+        got = _workspaces[dev.index] = (ws, ws.data_ptr())
+    return got[1]
+
+
+def score_blocks_packed(blocks: torch.Tensor) -> torch.Tensor:
+    """(B, S) uint8 -> (B, OUT_COLS) int32: per row the 256 histogram
+    counts, then the entropy's and the match fraction's float32 bits.  The
+    CUDA kernel on a CUDA tensor (contiguous, S >= 1), one allocation and one
+    launch a call; the plain version, packed, on a CPU tensor."""
     _check(blocks)
-    if blocks.device.type == "cpu":
-        return score_blocks_plain(blocks)
+    dev = blocks.device
+    if dev.type == "cpu":
+        return pack(*score_blocks_plain(blocks))
     if not blocks.is_contiguous():
         raise ValueError("blocks must be contiguous")
     b, s = blocks.shape
     if s < 1:
         raise ValueError("blocks must have at least one byte per row")
-    hist = torch.empty((b, 256), dtype=torch.int32, device=blocks.device)
-    entropy = torch.empty(b, dtype=torch.float32, device=blocks.device)
-    match = torch.empty(b, dtype=torch.float32, device=blocks.device)
+    out = torch.empty((b, OUT_COLS), dtype=torch.int32, device=dev)
     if b == 0:
-        return hist, entropy, match
-    lib = _build.load()["compress_score"]
-    # per row: the lag counts and the ticket of the thread blocks that
-    # share it (zeroed by the launcher, like the histograms)
-    scratch = torch.empty(b * lib.score_scratch_ints(), dtype=torch.int32,
-                          device=blocks.device)
-    score_blocks.launches += 1
-    _build.check(lib.score_blocks(
-        blocks.data_ptr(), blocks.device.index or 0, b, s, hist.data_ptr(),
-        entropy.data_ptr(), match.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(blocks.device).cuda_stream),
-        "score_blocks")
-    return hist, entropy, match
+        return out
+    ws = _workspace(dev)
+    at = out.data_ptr()
+    score_blocks_packed.launches += 1
+    # the current stream's handle without building a torch.cuda.Stream
+    # (a few microseconds a call)
+    _build.check(_launch(blocks.data_ptr(), dev.index, b, s, at, at + 4 * 256,
+                         at + 4 * 257, ws,
+                         torch._C._cuda_getCurrentRawStream(dev.index)),
+                 "score_blocks")
+    return out
 
 
-score_blocks.launches = 0
+score_blocks_packed.launches = 0
+
+
+def score_blocks(blocks: torch.Tensor):
+    """(B, S) uint8 -> (hist (B, 256) int32, entropy (B,) float32,
+    match (B,) float32), views of `score_blocks_packed(blocks)`."""
+    return unpack(score_blocks_packed(blocks))

@@ -2,8 +2,9 @@
 """Time the port's kernels at the shapes the main path gives them, on one
 CUDA card.
 
-    python3 ceph_tpu_torch/tools/kernel_shapes.py {crc,gf,crush} [--root DIR]
-                                                  [--sass]
+    python3 ceph_tpu_torch/tools/kernel_shapes.py {crc,gf,crush,score}
+                                                  [--root DIR] [--sass]
+                                                  [--cuts]
 
 `--root` names the checkout whose ceph_tpu_torch is built and timed
 (default: the one holding this script), so that two versions of a kernel
@@ -67,6 +68,23 @@ launch (the wrapper's own library never counts).  With `--sass` it also
 counts the instructions of the straw2 draw loop in `cuobjdump -sass` of
 the built library (crush_sass), from which DRAW_OPS, DRAW_ALU_OPS and
 DRAW_FMA_OPS below are taken.
+
+score: score_blocks at the store's shapes, (1, 65536) (one 64 KiB span a
+call) and (256, 65536) (a 16 MiB batch), on English-like text, checked
+against the plain version (histograms and match bit for bit, entropy within
+ENTROPY_TOL): the wrapper's "ms" and "back_to_back_ms"; "kernel_ms", the
+median device duration of the kernel itself over REPS wrapper calls, from
+torch.profiler; "host_us", the host microseconds a wrapper call takes
+(HOST_REPS calls enqueued without a wait); "decision_host_us",
+compress_decision on one span held in host memory, as the store calls it
+(staging, the launch and the copy back, ending in a synchronise); and the
+bound (score_ops lane operations at 33.5 T/s, bytes at 3.35 TB/s, the
+larger) with "share", the bound over kernel_ms.  It also prints ptxas's
+lines for csrc/compress_score.cu.  With `--cuts`, it also builds copies of
+the checkout's csrc/compress_score.cu with parts cut out (SCORE_CUTS: the
+histogram's atomics, the lag counts, both), beside the library, and prints
+each copy's kernel_ms at both shapes through the wrapper: what each part
+costs.  Their results are wrong by design and are not checked.
 """
 
 from __future__ import annotations
@@ -289,6 +307,36 @@ def gf_shapes(dev, gen) -> list:
     return shapes
 
 
+def host_us(fn, reps: int = HOST_REPS) -> float:
+    """Host microseconds per call of fn over `reps` calls enqueued without
+    a wait (the card keeps up or the queue absorbs them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def kernel_ms(fn, name: str, reps: int = REPS) -> float | None:
+    """Median device duration in ms of the kernels whose name holds `name`
+    over `reps` calls of fn, from torch.profiler (None if it saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durations = [e.time_range.elapsed_us() for e in prof.events()
+                 if name in e.name and str(getattr(
+                     e, "device_type", "")).endswith("CUDA")]
+    return statistics.median(durations) / 1e3 if durations else None
+
+
 def gen_host_us(dev) -> dict:
     """Host microseconds per gf_matmul_gen call on a one-row decode of one
     16-byte stripe: the wrapper, and its C entry called alone."""
@@ -302,19 +350,125 @@ def gen_host_us(dev) -> dict:
     args = (row.ctypes.data, 1, 8, dev.index or 0, data.data_ptr(),
             out.data_ptr(), 1, 16, torch.cuda.current_stream(dev).cuda_stream)
 
-    def per_call(fn) -> float:
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(HOST_REPS):
-            fn()
-        t = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return t / HOST_REPS * 1e6
-
-    return {"wrapper": per_call(lambda: gf_kernels.gf_matmul_gen(
-        row, data, out=out)), "c_entry": per_call(
+    return {"wrapper": host_us(lambda: gf_kernels.gf_matmul_gen(
+        row, data, out=out)), "c_entry": host_us(
         lambda: lib.gf_matmul_gen(*args))}
+
+
+SCORE_SHAPES = ((1, 65536), (256, 65536))
+SCORE_OPS_PER_TERM = 4      # multiply, log2, multiply-add into the sum
+SCORE_WORDS = (b"object ", b"placement ", b"group ", b"the ", b"erasure ",
+               b"coded ", b"shard ", b"of ", b"store ", b"a ")
+
+
+def score_ops(b: int, s: int) -> int:
+    """Lane-operations score_blocks needs for a (b, s) batch: one histogram
+    increment per byte, one compare-and-count per (position, lag) pair with
+    position >= lag, and the entropy's terms over 256 bins."""
+    from ceph_tpu_torch.ops import score_kernels
+
+    pairs = sum(s - lag for lag in score_kernels.PROBE_LAGS if lag < s)
+    return b * (s + pairs + 256 * SCORE_OPS_PER_TERM)
+
+
+def score_text(size: int, rng) -> np.ndarray:
+    """`size` bytes of English-like text (ten words at random)."""
+    words = np.array(SCORE_WORDS)
+    return np.frombuffer(b"".join(rng.choice(words, size // 5 + 1))[:size]
+                         .ljust(size), np.uint8)
+
+
+# csrc/compress_score.cu's text with parts cut out: (text, replacement)
+_NO_HISTOGRAM = ("if (!kEdge || i < len)\n      atomicAdd",
+                 "if (false)\n      atomicAdd")
+_NO_LAGS = ("acc = (uint32_t)__dp4a(", "(void)f;\n  if (false) acc = "
+            "(uint32_t)__dp4a(")
+SCORE_CUTS = {"no histogram": (_NO_HISTOGRAM,), "no lags": (_NO_LAGS,),
+              "neither": (_NO_HISTOGRAM, _NO_LAGS)}
+
+
+def cut_source(src: str, cuts) -> str:
+    """csrc/compress_score.cu with each (text, replacement) applied; the
+    text must occur exactly once."""
+    for text, new in cuts:
+        if src.count(text) != 1:
+            raise RuntimeError(f"{text!r} is not found once in"
+                               " csrc/compress_score.cu")
+        src = src.replace(text, new)
+    return src
+
+
+def score_cuts(dev) -> dict:
+    """{cut: {shape: kernel ms}} for the SCORE_CUTS copies, each built
+    beside the library and swapped into the wrapper for its timings."""
+    from ceph_tpu_torch.ops import _build, score_kernels
+
+    rng = np.random.default_rng(SEED)
+    data = {(b, s): torch.from_numpy(score_text(b * s, rng).reshape(b, s)
+                                     .copy()).to(dev)
+            for b, s in SCORE_SHAPES}
+    score_kernels.score_blocks_packed(data[SCORE_SHAPES[0]])
+    real = score_kernels._launch
+    res = {}
+    try:
+        for name, cuts in SCORE_CUTS.items():
+            stem = "cut-" + name.replace(" ", "-")
+            src = _build.BUILD_DIR / f"{stem}.cu"
+            lib = _build.BUILD_DIR / f"{stem}.so"
+            src.write_text(cut_source((_build.SRC_DIR / "compress_score.cu")
+                                      .read_text(), cuts))
+            subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                            str(lib), str(src)], check=True,
+                           capture_output=True, timeout=600)
+            cdll = ctypes.CDLL(str(lib))
+            for fn, argtypes in _build._SIGNATURES["compress_score"].items():
+                getattr(cdll, fn).argtypes = argtypes
+                getattr(cdll, fn).restype = ctypes.c_int
+            score_kernels._launch = cdll.score_blocks
+            res[name] = {f"{b}x{s}": kernel_ms(
+                lambda t=t: score_kernels.score_blocks_packed(t),
+                "score_kernel") for (b, s), t in data.items()}
+    finally:
+        score_kernels._launch = real
+    return res
+
+
+def score_shapes(dev) -> list:
+    from ceph_tpu_torch.compressor import scoring
+    from ceph_tpu_torch.ops import score_kernels
+
+    rng = np.random.default_rng(SEED)
+    shapes = []
+    for b, s in SCORE_SHAPES:
+        host = score_text(b * s, rng).reshape(b, s)
+        blocks = torch.from_numpy(host.copy()).to(dev)
+        hist, entropy, match = score_kernels.score_blocks(blocks)
+        p_hist, p_entropy, p_match = score_kernels.score_blocks_plain(blocks)
+        exact = (torch.equal(hist, p_hist) and torch.equal(
+            match.view(torch.int32), p_match.view(torch.int32))
+            and float((entropy - p_entropy).abs().max())
+            <= score_kernels.ENTROPY_TOL)
+        t_bytes = (b * s + b * (256 * 4 + 8)) / HBM_BYTES_PER_S * 1e3
+        t_ops = score_ops(b, s) / INT_OPS_PER_S * 1e3
+        row = {"shape": [b, s], "exact": exact,
+               "ms": alone_ms(lambda: score_kernels.score_blocks(blocks)),
+               "back_to_back_ms": back_to_back_ms(
+                   lambda: score_kernels.score_blocks(blocks)),
+               "kernel_ms": kernel_ms(
+                   lambda: score_kernels.score_blocks(blocks),
+                   "score_kernel"),
+               "host_us": host_us(
+                   lambda: score_kernels.score_blocks(blocks)),
+               "bound_ms": max(t_bytes, t_ops), "bytes_bound_ms": t_bytes,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row["share"] = row["bound_ms"] / row["kernel_ms"]
+        if b == 1:
+            row["decision_host_us"] = host_us(
+                lambda: scoring.compress_decision(host, device=dev),
+                reps=REPS * 10)
+        shapes.append(row)
+        del blocks
+    return shapes
 
 
 def crush_map_10k():
@@ -770,9 +924,12 @@ def crush_sass(build) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("kernel", choices=("crc", "gf", "crush"))
+    ap.add_argument("kernel", choices=("crc", "gf", "crush", "score"))
     ap.add_argument("--root", default=str(Path(__file__).resolve()
                                           .parents[2]))
+    ap.add_argument("--cuts", action="store_true",
+                    help="score: also time copies of the kernel with the"
+                    " histogram, the lag counts or both cut out")
     ap.add_argument("--sass", action="store_true",
                     help="gf: count the GF kernels' SASS instructions;"
                     " crush: count the straw2 draw loop's")
@@ -800,6 +957,13 @@ def main() -> None:
             or "spill" in line]
         if args.sass:
             res["sass"] = crush_sass(_build)
+    elif args.kernel == "score":
+        res["shapes"] = score_shapes(dev)
+        if args.cuts:
+            res["cuts"] = score_cuts(dev)
+        res["ptxas"] = [line.strip() for line in _build.build_logs().get(
+            "compress_score", "").splitlines() if "registers" in line
+            or "spill" in line or "smem" in line]
     else:
         res["shapes"] = gf_shapes(dev, gen)
         res["gen_host_us"] = gen_host_us(dev)

@@ -4,19 +4,24 @@
 // score_device.inc is csrc/compress_score.cu up to its extern "C" launcher.
 // The CUDA builtins it uses are defined below: a thread block is 256
 // fibers (ucontext) on one OS thread, switched round robin whenever one
-// waits; __syncthreads is a barrier of all of them, a warp shuffle meets at
-// a barrier of its 32 lanes, and shared memory is the kernel's
+// waits; __syncthreads is a barrier of all of them, __syncwarp and a warp
+// shuffle meet at a barrier of the warp's 32 lanes, and shared memory is the kernel's
 // function-static arrays.  The grid the launcher would use (rows x
-// score_chunks(s)) runs one block at a time, the chunks of a row in reverse
-// order (so the row is finished by whichever block takes the last ticket,
-// not by chunk C - 1).  Fibers keep the emulation cheap on a loaded machine:
-// no OS thread sleeps or wakes at a barrier.
+// score_grid(b, s, target)) runs one block at a time, the blocks of a row in
+// reverse order (so the row is finished by whichever block takes the last
+// ticket, not by block C - 1).  Every job runs on one workspace, zeroed once
+// before the first, as the wrapper keeps it on the card.  Fibers keep the
+// emulation cheap on a loaded machine: no OS thread sleeps or wakes at a
+// barrier.
 //
 //   score_emulate INPUT OUTPUT
 //
-// INPUT holds an int64 job count, then per job two int64 (b, s) and the
-// (b, s) uint8 rows.  OUTPUT gets per job the (b, 256) int32 histograms, the
-// (b,) float32 entropies and the (b,) float32 match fractions, in that order.
+// INPUT holds an int64 job count, then per job three int64 (b, s, target:
+// the blocks the emulated card holds at once) and the (b, s) uint8 rows.
+// OUTPUT gets per job the (b, 258) int32 output rows (histogram, entropy
+// and match fraction, the floats as their bits), then three int64: the
+// blocks per row, the tiles per block and the number of workspace ints
+// that are not zero after the job.
 
 #include <setjmp.h>
 #include <ucontext.h>
@@ -32,7 +37,7 @@
 #define __device__
 #define __forceinline__ inline
 #define __global__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __constant__ static const
 #define __align__(n) __attribute__((aligned(n)))
@@ -94,10 +99,25 @@ static inline int atomicAdd(int* p, int v) {
 }
 static inline void __threadfence() {}
 static inline int __ldcg(const int* p) { return *p; }
+static inline uint32_t __dp4a(uint32_t a, uint32_t b, uint32_t c) {
+  for (int k = 0; k < 32; k += 8) c += ((a >> k) & 0xffu) * ((b >> k) & 0xffu);
+  return c;
+}
+static inline int __dp4a(int a, int b, int c) {
+  uint32_t sum = (uint32_t)c;  // wraps as the card's 32-bit sum does
+  for (int k = 0; k < 32; k += 8)
+    sum += (uint32_t)((int)(int8_t)(a >> k) * (int)(int8_t)(b >> k));
+  return (int)sum;
+}
+static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi,
+                                       unsigned shift) {
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (shift & 31));
+}
 
 static unsigned long long g_slots[kThreads];
 
 static void __syncthreads() { barrier_wait(g_block); }
+static void __syncwarp() { barrier_wait(g_warp[threadIdx.x >> 5]); }
 
 template <class T>
 static T __shfl_xor_sync(unsigned mask, T v, int off) {
@@ -121,15 +141,15 @@ static T __shfl_xor_sync(unsigned mask, T v, int off) {
 // the launch a fiber runs, and whether it has returned
 static struct {
   const uint8_t* data;
-  long long s;
-  int *hist, *scratch;
-  float *entropy, *match;
+  long long s, per;
+  int *out, *ws;
 } g_args;
 static bool g_done[kThreads];
 
 static void fiber_main() {
-  score_kernel(g_args.data, g_args.s, g_args.hist, g_args.entropy,
-               g_args.match, g_args.scratch);
+  score_kernel(g_args.data, g_args.s, g_args.per, g_args.out,
+               reinterpret_cast<float*>(g_args.out + 256),
+               reinterpret_cast<float*>(g_args.out + 257), g_args.ws);
   g_done[g_cur] = true;
   _longjmp(g_sched_jb, 1);  // never returns through uc_link
 }
@@ -196,12 +216,14 @@ int main(int argc, char** argv) {
   if (!f || !o) return 2;
   for (auto& w : g_warp) w = Barrier{32, 0, 0};
   std::vector<char> stacks((size_t)kThreads * (64 << 10));
+  std::vector<int> ws(SCORE_WORKSPACE, 0);  // zeroed once, for every job
   const long long jobs = take<long long>(f, 1)[0];
   for (long long n = 0; n < jobs; ++n) {
-    const std::vector<long long> h = take<long long>(f, 2);
-    const long long b = h[0], s = h[1];
-    if (b < 1 || s < 1) {
-      fprintf(stderr, "job %lld: shape (%lld, %lld) out of range\n", n, b, s);
+    const std::vector<long long> h = take<long long>(f, 3);
+    const long long b = h[0], s = h[1], target = h[2];
+    if (b < 1 || s < 1 || target < 1 || target > SCORE_MAX_TARGET) {
+      fprintf(stderr, "job %lld: (%lld, %lld) on %lld blocks out of range\n",
+              n, b, s, target);
       return 2;
     }
     // 16-byte aligned, as a tensor on the card is
@@ -210,19 +232,18 @@ int main(int argc, char** argv) {
         static_cast<uint8_t*>(aligned_alloc(16, bytes)), &free);
     const std::vector<uint8_t> rows = take<uint8_t>(f, b * s);
     memcpy(data.get(), rows.data(), (size_t)(b * s));
-    std::vector<int> hist((size_t)b * 256, 0);
-    std::vector<int> scratch((size_t)b * SCORE_SCRATCH, 0);
-    std::vector<float> entropy(b), match(b);
-    const int chunks = score_chunks(s);
+    std::vector<int> out((size_t)b * SCORE_OUT_COLS, 0);
+    long long per = 0;
+    const int chunks = score_grid(b, s, (int)target, &per);
     gridDim = Dim{(unsigned)b, (unsigned)chunks};
-    g_args = {data.get(), s, hist.data(), scratch.data(), entropy.data(),
-              match.data()};
+    g_args = {data.get(), s, per, out.data(), ws.data()};
     for (long long row = 0; row < b; ++row)
       for (int chunk = chunks - 1; chunk >= 0; --chunk)
         run_block(Dim{(unsigned)row, (unsigned)chunk}, stacks);
-    put(o, hist.data(), b * 256);
-    put(o, entropy.data(), b);
-    put(o, match.data(), b);
+    put(o, out.data(), b * SCORE_OUT_COLS);
+    long long tail[3] = {chunks, per, 0};
+    for (int v : ws) tail[2] += v != 0;
+    put(o, tail, 3);
   }
   fclose(f);
   fclose(o);

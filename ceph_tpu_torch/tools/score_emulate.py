@@ -4,9 +4,12 @@ A CUDA kernel has no interpret mode, and a CPU test run has no card.
 `emulate_many` compiles csrc/compress_score.cu's device code with the host's
 g++ against score_emulate.cpp, which defines the CUDA builtins the kernel
 uses: a thread block is 256 fibers on one OS thread, `__syncthreads` a
-barrier of all of them and a warp shuffle a barrier of its 32 lanes.  It runs score_kernel
-itself, row by row, so the CPU tests hold the kernel's tiling, halo, vector
-loads, histograms, lag counts and reductions against the plain version
+barrier of all of them and a warp shuffle a barrier of its 32 lanes.  It runs
+score_kernel itself, on the grid the launcher would choose for a card that
+holds a given number of blocks at once, with every job on one workspace
+zeroed once, so the CPU tests hold the kernel's packed-word lag counts,
+lane-column histograms, tiles, halos, partial sums across blocks and the
+workspace's self-reset against the plain version
 (tests/test_torch_score_emulated.py).
 """
 
@@ -58,13 +61,22 @@ def build() -> Path:
     return exe
 
 
-def emulate_many(batches) -> list:
+# the blocks an H100 holds at once: 132 SMs, 3 blocks of score_kernel each
+H100_TARGET = 132 * 3
+
+
+def emulate_many(batches, targets=None) -> list:
     """[(B, S) uint8, ...] -> [(hist (B, 256) int32, entropy (B,) float32,
-    match (B,) float32), ...]: what the card computes for score_blocks."""
+    match (B,) float32, grid), ...]: what the card computes for score_blocks,
+    each batch on the grid the launcher picks for a card holding
+    `targets[i]` blocks at once (default H100_TARGET).  grid: {"blocks":
+    blocks per row, "tiles": tiles per block, "left": the workspace's
+    nonzero ints after the batch (the kernel leaves none)}."""
     batches = [np.ascontiguousarray(d, dtype=np.uint8) for d in batches]
+    targets = [H100_TARGET] * len(batches) if targets is None else targets
     parts = [np.array([len(batches)], dtype=np.int64)]
-    for d in batches:
-        parts += [np.array(d.shape, dtype=np.int64), d]
+    for d, target in zip(batches, targets, strict=True):
+        parts += [np.array((*d.shape, target), dtype=np.int64), d]
     with tempfile.TemporaryDirectory() as tmp:
         inp, outp = Path(tmp) / "in.bin", Path(tmp) / "out.bin"
         inp.write_bytes(b"".join(a.tobytes() for a in parts))
@@ -74,13 +86,13 @@ def emulate_many(batches) -> list:
     res, at = [], 0
     for d in batches:
         b = d.shape[0]
-        hist = np.frombuffer(raw, np.int32, b * 256, at).reshape(b, 256)
-        at += hist.nbytes
-        entropy = np.frombuffer(raw, np.float32, b, at)
-        at += entropy.nbytes
-        match = np.frombuffer(raw, np.float32, b, at)
-        at += match.nbytes
-        res.append((hist, entropy, match))
+        out = np.frombuffer(raw, np.int32, b * 258, at).reshape(b, 258)
+        at += out.nbytes
+        blocks, tiles, left = np.frombuffer(raw, np.int64, 3, at).tolist()
+        at += 24
+        res.append((out[:, :256], out[:, 256].view(np.float32),
+                    out[:, 257].view(np.float32),
+                    {"blocks": blocks, "tiles": tiles, "left": left}))
     if at != len(raw):
         raise RuntimeError(f"emulator wrote {len(raw)} bytes, expected {at}")
     return res

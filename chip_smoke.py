@@ -117,8 +117,13 @@ Phases; any failure exits nonzero and prints no result line:
    LocalCluster(24 OSDs, 12 hosts, store_path) with EC 8+3 over hosts, two
    64 MiB objects written, read healthy and with 1 and 3 data shards' OSDs
    down, deep-scrubbed, every store mounted again and read, all stores
-   against a LocalCluster(store_path, device="cpu"); score_blocks timed at
-   (1, 65536) and (256, 65536) alone and back to back beside its plain
+   against a LocalCluster(store_path, device="cpu"); score_blocks called
+   in turns at (1, 65536), (256, 65536) and (33, 513), three rounds, each
+   result equal to the first at its shape (the workspace reused); the host
+   time of the 256 compress_decision calls of one 16 MiB random write
+   beside that write's time; score_blocks timed at (1, 65536) and
+   (256, 65536) alone and back to back, its kernel's own device time
+   (torch.profiler), the wrapper's host time per call, beside its plain
    version (and its CUDA kernel count) and torch.bincount of the offset
    batch.  The launch counters are zeroed before the store path and again
    before the cluster; score_blocks and crc32c_blocks must launch on the
@@ -1202,7 +1207,9 @@ STORE_KINDS = ("zeros", "text", "random", "pattern")
 SCORE_SHAPES = ((1, 1), (256, 3), (256, 511), (64, 512), (33, 513),
                 (16, 4097), (1, 65536), (256, 65536), (2, 64 * 4096 + 17))
 STORE_CLUSTER_OBJECTS = 2
-SCORE_OPS_PER_TERM = 4      # multiply, log2, multiply-add into the sum
+# score_blocks called in turns at these shapes (its workspace reused)
+SCORE_REPEAT_SHAPES = ((1, 65536), (256, 65536), (33, 513))
+SCORE_REPEAT_ROUNDS = 3
 
 
 def store_kind(kind: str, size: int, rng) -> bytes:
@@ -1213,21 +1220,10 @@ def store_kind(kind: str, size: int, rng) -> bytes:
     if kind == "random":
         return rng.bytes(size)
     if kind == "text":
-        words = np.array([b"object ", b"placement ", b"group ", b"the ",
-                          b"erasure ", b"coded ", b"shard ", b"of ",
-                          b"store ", b"a "])
-        return b"".join(rng.choice(words, size // 5 + 1))[:size].ljust(size)
+        from ceph_tpu_torch.tools.kernel_shapes import score_text
+
+        return score_text(size, rng).tobytes()
     return (rng.bytes(256) * (size // 256 + 1))[:size]
-
-
-def score_ops(b: int, s: int) -> int:
-    """Lane-operations score_blocks needs for a (b, s) batch: one histogram
-    increment per byte, one compare-and-count per (position, lag) pair with
-    position >= lag, and the entropy's terms over 256 bins."""
-    from ceph_tpu_torch.ops import score_kernels
-
-    pairs = sum(s - lag for lag in score_kernels.PROBE_LAGS if lag < s)
-    return b * (s + pairs + 256 * SCORE_OPS_PER_TERM)
 
 
 def store_phase(torch, dev, card: str, wrappers: dict) -> dict:
@@ -1241,12 +1237,15 @@ def store_phase(torch, dev, card: str, wrappers: dict) -> dict:
     import tempfile
 
     from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.compressor import scoring
     from ceph_tpu_torch.os import ObjectId, Transaction
     from ceph_tpu_torch.os.tpustore import TPUStore
     from ceph_tpu_torch.ops import score_kernels
     from ceph_tpu_torch.rados.embedded import (HINFO_ATTR, OI_ATTR,
                                                LocalCluster)
-    from ceph_tpu_torch.tools.kernel_shapes import alone_ms, back_to_back_ms
+    from ceph_tpu_torch.tools.kernel_shapes import (alone_ms, back_to_back_ms,
+                                                    host_us, kernel_ms,
+                                                    score_ops)
 
     phase_t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 11)
@@ -1274,6 +1273,27 @@ def store_phase(torch, dev, card: str, wrappers: dict) -> dict:
                           "shapes": SCORE_SHAPES, "kinds": STORE_KINDS,
                           "entropy_max_abs_err": worst,
                           "entropy_tol": score_kernels.ENTROPY_TOL}))
+
+        # calls in turns at three shapes on the one workspace: each result
+        # equals the first call's at its shape
+        repeat = {(b, s): torch.from_numpy(np.frombuffer(
+            store_kind("random", b * s, rng), np.uint8).reshape(b, s)
+            .copy()).to(dev) for b, s in SCORE_REPEAT_SHAPES}
+        first, same = {}, dict.fromkeys(repeat, 0)
+        for _ in range(SCORE_REPEAT_ROUNDS):
+            for shape, blocks in repeat.items():
+                got = score_kernels.score_blocks_packed(blocks)
+                if shape in first:
+                    same[shape] += torch.equal(got, first[shape])
+                else:
+                    first[shape] = got
+        print(json.dumps({"phase": "store_kernel_repeat",
+                          "rounds": SCORE_REPEAT_ROUNDS,
+                          "equal_to_first": {f"{b}x{s}": n for (b, s), n
+                                             in same.items()}}))
+        check(all(n == SCORE_REPEAT_ROUNDS - 1 for n in same.values()),
+              "score_blocks gave another result on a repeated call")
+        del repeat, first
 
         # -- 2. the store on the card against its CPU twin -------------------
         objs = {kind: store_kind(kind, STORE_OBJECT, rng)
@@ -1431,6 +1451,23 @@ def store_phase(torch, dev, card: str, wrappers: dict) -> dict:
                     "write_gib_per_s": STORE_OBJECT / (1 << 30) / w,
                     "read_gib_per_s": STORE_OBJECT / (1 << 30) / r}
             st.umount()
+        # the scoring a compressing write of the random object makes: one
+        # compress_decision per 64 KiB span, on the same arrays
+        spans = np.frombuffer(objs["random"], np.uint8).reshape(-1, 1, 65536)
+
+        def score_spans() -> float:
+            total = 0.0
+            for span in spans:
+                t0 = time.perf_counter()
+                scoring.compress_decision(span, 0.875, device=dev)
+                total += time.perf_counter() - t0
+            return total
+
+        score_spans()
+        scoring_s = statistics.median(score_spans() for _ in range(3))
+        times["snappy_random"]["scoring_s"] = scoring_s
+        times["snappy_random"]["scoring_share"] = (
+            scoring_s / times["snappy_random"]["write_s"])
         print(json.dumps({"phase": "store_times", "object_bytes":
                           STORE_OBJECT, "times": times, "card": card}))
 
@@ -1544,18 +1581,33 @@ def store_phase(torch, dev, card: str, wrappers: dict) -> dict:
                     and str(e.device_type).endswith("CUDA"))
             except (RuntimeError, AssertionError) as e:
                 print(json.dumps({"profiler_failed": repr(e)}))
-            b_ms, by = bound(b * s + b * (256 * 4 + 8), score_ops(b, s))
+            n_bytes = b * s + b * (256 * 4 + 8)
+            b_ms, by = bound(n_bytes, score_ops(b, s))
             ktimes[f"{b}x{s}"] = {
                 "ms": alone_ms(lambda: score_kernels.score_blocks(blocks)),
                 "back_to_back_ms": back_to_back_ms(
                     lambda: score_kernels.score_blocks(blocks)),
+                # the kernel's own device time, and the wrapper's host time
+                "kernel_ms": kernel_ms(
+                    lambda: score_kernels.score_blocks(blocks),
+                    "score_kernel"),
+                "host_us": host_us(
+                    lambda: score_kernels.score_blocks(blocks)),
+                # the store's call: the packed rows, no views
+                "packed_host_us": host_us(
+                    lambda: score_kernels.score_blocks_packed(blocks)),
                 "plain_ms": alone_ms(
                     lambda: score_kernels.score_blocks_plain(blocks),
                     reps=5, warmup=1),
                 "plain_kernel_launches": plain_launches,
                 "bincount_ms": alone_ms(lambda: torch.bincount(
                     offset, minlength=256 * b)),
-                "bound_ms": b_ms, "bound_by": by}
+                "bound_ms": b_ms, "bound_by": by,
+                "bytes_bound_ms": bound(n_bytes, 0)[0]}
+            row = ktimes[f"{b}x{s}"]
+            row["share_back_to_back"] = b_ms / row["back_to_back_ms"]
+            row["share_kernel"] = (b_ms / row["kernel_ms"]
+                                   if row["kernel_ms"] else None)
         print(json.dumps({"phase": "store_kernel_times", "times": ktimes,
                           "card": card}))
     finally:
@@ -1614,6 +1666,11 @@ def main() -> None:
                       "max_registers": max(regs) if regs else None,
                       "spill_store_bytes": spills,
                       "crc32c_dynamic_smem_bytes": crc_kernels.smem_bytes()}))
+    print(json.dumps({"phase": "build_ptxas", "source": "compress_score",
+                      "lines": [line.strip() for line in _build.build_logs()
+                                .get("compress_score", "").splitlines()
+                                if "registers" in line or "spill" in line
+                                or "smem" in line]}))
 
     # -- 2. kernels against their plain versions ----------------------------
     rs_mat = rs.reed_sol_van_matrix(K, M)
@@ -1728,7 +1785,7 @@ def main() -> None:
                 "gf_matmul_gen": gf_kernels.gf_matmul_gen,
                 "crc32c_blocks": crc_kernels.crc32c_blocks,
                 "crush_do_rule_batch": crush_kernels.crush_do_rule_batch,
-                "score_blocks": score_kernels.score_blocks}
+                "score_blocks": score_kernels.score_blocks_packed}
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()

@@ -198,8 +198,8 @@ def test_public_functions_route_by_size(fn, monkeypatch):
     """Under MIN_DEVICE_BYTES the host function, at or above it the plain
     PyTorch version on the CPU device; both equal the JAX function."""
     calls = []
-    real = score_kernels.score_blocks
-    monkeypatch.setattr(score_kernels, "score_blocks",
+    real = score_kernels.score_blocks_packed
+    monkeypatch.setattr(score_kernels, "score_blocks_packed",
                         lambda t: calls.append(t.shape) or real(t))
     rng = np.random.default_rng(SEED)
     for b, s in ((4, 1000), (1, 65536), (2, 40000)):
@@ -239,6 +239,27 @@ def test_scoring_needs_a_device(monkeypatch):
                scoring.match_fraction, scoring.compress_decision):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(blocks)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_packed_rows_hold_the_three_scores(kind):
+    """score_blocks_packed's (B, 258) int32 rows: the histogram, then the
+    entropy's and the match fraction's float32 bits; score_blocks and the
+    host-side split of _device_scores read them back unchanged."""
+    rng = np.random.default_rng(SEED)
+    blocks = make_blocks(kind, 3, 70_000, rng)
+    packed = score_kernels.score_blocks_packed(torch.from_numpy(blocks))
+    assert packed.dtype == torch.int32 and tuple(packed.shape) == (
+        3, score_kernels.OUT_COLS)
+    hist, entropy, match = score_kernels.score_blocks_plain(
+        torch.from_numpy(blocks))
+    views = score_kernels.unpack(packed)
+    for got, want in zip(views, (hist, entropy, match)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    host = scoring._device_scores(blocks, "cpu")
+    for got, want in zip(host, (hist, entropy, match)):
+        assert isinstance(got, np.ndarray)
+        assert got.tobytes() == np.ascontiguousarray(want.numpy()).tobytes()
 
 
 def test_score_blocks_checks_its_input():
