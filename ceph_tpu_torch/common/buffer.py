@@ -1,6 +1,6 @@
 """Zero-copy shard buffer views (the bufferlist share-don't-copy role;
-the part of ceph_tpu/common/buffer.py that the port's stores use:
-`is_immutable`).
+the part of ceph_tpu/common/buffer.py that the port's stores and
+compute kernels use: `is_immutable`, `as_buffer`).
 
 Reference parity: ceph::buffer::list (the reference's src/include/
 buffer.h) lets every layer pass refcounted views of the same pages —
@@ -43,3 +43,16 @@ def is_immutable(data) -> bool:
         return is_immutable(data.base)
     return False
 
+
+
+def as_buffer(data):
+    """Adapt `data` to something frombuffer and memoryview slicing accept,
+    copying only when the layout requires it: bytes, bytearray and
+    memoryview pass through; a C-contiguous uint8 ndarray hands out its
+    buffer view; anything else materializes through bytes()."""
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return data
+    if isinstance(data, np.ndarray) and data.dtype == np.uint8 \
+            and data.flags.c_contiguous:
+        return data.reshape(-1).data
+    return bytes(data)

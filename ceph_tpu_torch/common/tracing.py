@@ -1,11 +1,12 @@
-"""Trace spans: what `child_span_sync` reaches (port of the part of
-ceph_tpu/common/tracing.py that the store uses).
+"""Trace spans: what `child_span_sync` and `event` reach (port of the part
+of ceph_tpu/common/tracing.py that the store and the tier agent use).
 
 TPUStore wraps its two durability barriers, the block-file fsync and the
-KV commit, in `child_span_sync("fsync")` and `child_span_sync("kv_commit")`.
-A span is recorded only under a current span (the `current_span`
-contextvar, set by whoever traces an op); untraced, the helper yields
-`NULL_SPAN` and costs one contextvar read.  The Tracer, the wire
+KV commit, in `child_span_sync("fsync")` and `child_span_sync("kv_commit")`;
+the tier agent annotates the current span with `event("tier hit")` and
+`event("tier miss")`.  A span is recorded only under a current span (the
+`current_span` contextvar, set by whoever traces an op); untraced, the
+helpers yield `NULL_SPAN` or do nothing and cost one contextvar read.  The Tracer, the wire
 propagation, the critical-path reducer and the async helpers wait for the
 daemon slice.
 """
@@ -19,7 +20,8 @@ import secrets
 import time
 from typing import Any, Dict, Optional
 
-__all__ = ["NULL_SPAN", "Span", "child_span_sync", "current_span"]
+__all__ = ["NULL_SPAN", "Span", "child_span_sync", "current_span",
+           "event"]
 
 # the span the running task is working under — context propagates per
 # asyncio task
@@ -43,8 +45,8 @@ def _id64() -> int:
 
 class Span:
     __slots__ = ("trace_id", "span_id", "parent_id", "name",
-                 "service", "start", "end", "attrs", "sampled", "_t0",
-                 "_end", "_tree", "_dropped")
+                 "service", "start", "end", "attrs", "events", "sampled",
+                 "_t0", "_end", "_tree", "_dropped")
 
     def __init__(self, trace_id: int, span_id: int, parent_id: int,
                  name: str, service: str, sampled: bool = True,
@@ -61,6 +63,8 @@ class Span:
         self._end: Optional[float] = None
         self.end: Optional[float] = None  # wall end (display only)
         self.attrs: Dict[str, Any] = {}
+        # (seconds since the span's start, what), allocated on first use
+        self.events: Optional[list] = None
         self.sampled = sampled
         # the local trace buffer, owned by the local root and shared
         # by every descendant created through child()
@@ -69,6 +73,11 @@ class Span:
 
     def __bool__(self) -> bool:
         return True
+
+    def event(self, what: str) -> None:
+        if self.events is None:
+            self.events = []
+        self.events.append((time.monotonic() - self._t0, what))
 
     def child(self, name: str, **attrs: Any) -> "Span":
         """A child span in the same local tree (bounded): the in-daemon
@@ -113,10 +122,14 @@ class _NullSpan:
     start = 0.0
     end = None
     attrs: dict = {}
+    events = None
     duration_s = 0.0
 
     def __bool__(self) -> bool:
         return False
+
+    def event(self, what: str) -> None:
+        pass
 
     def child(self, name: str, **attrs: Any) -> "_NullSpan":
         return self
@@ -126,6 +139,14 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+
+def event(what: str) -> None:
+    """Annotate the current span (nothing when untraced): the cheap seam
+    for leaf layers, such as tier hits and misses."""
+    span = current_span.get()
+    if span is not None:
+        span.event(what)
 
 
 @contextlib.contextmanager

@@ -48,9 +48,15 @@ def byte_histograms_host(blocks: np.ndarray) -> np.ndarray:
 
 
 def entropy_bits_per_byte_host(blocks: np.ndarray) -> np.ndarray:
-    hist = byte_histograms_host(blocks).astype(np.float64)
-    s = blocks.shape[1]
-    p = hist / s
+    return entropy_from_histograms(byte_histograms_host(blocks),
+                                   blocks.shape[1])
+
+
+def entropy_from_histograms(hist: np.ndarray, s: int) -> np.ndarray:
+    """(B, 256) byte counts of rows of `s` bytes -> (B,) float32 order-0
+    entropy in bits/byte, in float64 on the host (the reference's host
+    arithmetic, whichever device counted the bytes)."""
+    p = np.asarray(hist).astype(np.float64) / s
     with np.errstate(divide="ignore", invalid="ignore"):
         terms = np.where(p > 0, -p * np.log2(p), 0.0)
     return terms.sum(axis=1).astype(np.float32)

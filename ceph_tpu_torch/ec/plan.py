@@ -12,10 +12,18 @@ larger product is tiled here: rows in blocks of MAX_R, each one launch
 into its slice of the output, and inputs in blocks of MAX_K whose partial
 products are XORed together.  The tiling runs on every device, so the
 CPU (the kernels' plain versions) exercises it too.
+
+Two more entries serve the coded-compute and inference libraries:
+`compute_eval` folds a wave of shard streams with one `gf_fold` launch
+(the reference's `compute` plan kind), and `inference_eval` runs the
+linear and 2-layer MLP forwards of a wave of serving streams as float32
+einsums (the `inference` kind, which the reference also leaves to the
+compiler's matrix products).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 from typing import Tuple
 
@@ -23,7 +31,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.device import to_device
-from ceph_tpu_torch.ops import crc_kernels, gf, gf_kernels
+from ceph_tpu_torch.ops import crc_kernels, fold_kernels, gf, gf_kernels
 
 
 def matrix_signature(matrix: np.ndarray, extra: str = "") -> str:
@@ -120,3 +128,74 @@ def encode_with_crc(matrix: np.ndarray, data: np.ndarray,
     crc = np.concatenate([c[:b * k].reshape(b, k), c[b * k:].reshape(b, r)],
                          axis=1)
     return host[:par_bytes].reshape(b, r, s), crc
+
+
+# the fold's weight rows on the device, one upload per (kernel, row count,
+# device): a kernel's weight row is a function of its name and row count
+# (the reference's weights_sig rests on the same), and all-ones rows are
+# kept as None, the kernel's plain XOR fold
+_fold_weights: dict = {}
+
+
+def compute_eval(name: str, weights: np.ndarray, data,
+                 device: torch.device) -> np.ndarray:
+    """(B, rows, lanes) uint8 shard batch (numpy or a host tensor) ->
+    (B, 1, lanes) kernel results on the host, from one gf_fold launch on
+    `device`."""
+    if isinstance(data, torch.Tensor):
+        t = data.to(device, non_blocking=True)
+    else:
+        t = to_device(np.asarray(data, dtype=np.uint8), device)
+    if t.dim() != 3:
+        raise ValueError(f"expected (B, rows, lanes), got {tuple(t.shape)}")
+    b, rows, lanes = t.shape
+    key = (name, rows, device)
+    if key not in _fold_weights:
+        w = np.asarray(weights, dtype=np.uint8).reshape(-1)
+        if w.shape != (rows,):
+            raise ValueError(f"{name}: {w.size} weights for {rows} rows")
+        if len(_fold_weights) >= 64:
+            _fold_weights.clear()
+        _fold_weights[key] = None if (w == 1).all() else \
+            torch.from_numpy(w.copy()).to(device)
+    return fold_kernels.gf_fold(_fold_weights[key], t).cpu().numpy()
+
+
+@contextlib.contextmanager
+def _highest_matmul_precision():
+    """float32 products in full float32 (no TF32) for the block."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def inference_eval(arch: str, ops: tuple, queries: np.ndarray,
+                   device: torch.device) -> np.ndarray:
+    """Stacked per-stream parameters + (nq, dim) query batch ->
+    (B, nq, cols) float32 contributions, computed on `device`.
+
+    linear: ops = (tables (B, rows, dim),); mlp: ops = (w1 (B, h, dim),
+    b1 (B, h), w2 (B, out, h)).  The reference computes these outside
+    any Pallas kernel, so they are library calls here (torch.einsum),
+    in float32 at the highest matmul precision."""
+    def f32(a) -> torch.Tensor:
+        a = np.ascontiguousarray(a, dtype=np.float32)
+        # a read-only view (queries off the wire) is copied, not aliased
+        return torch.from_numpy(a if a.flags.writeable else a.copy()).to(
+            device)
+
+    q = f32(queries)
+    t = [f32(o) for o in ops]
+    with _highest_matmul_precision():
+        if arch == "linear":
+            # (B, rows, dim) x (nq, dim) -> (B, nq, rows)
+            out = torch.einsum("qd,brd->bqr", q, t[0])
+        else:
+            w1, b1, w2 = t
+            hid = torch.relu(torch.einsum("qd,bhd->bqh", q, w1)
+                             + b1[:, None, :])
+            out = torch.einsum("bqh,boh->bqo", hid, w2)
+    return out.cpu().numpy()

@@ -123,6 +123,19 @@ class ErasureCodeTorch(ErasureCode):
             alignment += LARGEST_VECTOR_WORDSIZE - modulo
         return alignment
 
+    def supports_result_decode(self) -> bool:
+        """True when GF-linear compute kernels commute with this codec
+        (the coded-compute pushdown gate, compute/): every plain GF(2^8)
+        matrix technique acts position-wise on bytes, so a kernel's
+        result vectors satisfy the code relation of the shards and
+        decode through the normal decode path at lane width.  Cauchy
+        techniques carry a per-chunk packet layout the lane-width
+        stripe cannot honor, and remapped layouts (chunk_mapping) are
+        excluded with them: those take the full-decode path."""
+        return (self.matrix is not None and self.w == 8
+                and not self.technique.startswith("cauchy")
+                and not self.get_chunk_mapping())
+
     # -- kernels ----------------------------------------------------------
 
     def plan_signature(self) -> str:

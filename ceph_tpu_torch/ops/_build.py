@@ -46,6 +46,9 @@ _SIGNATURES = {
         "score_blocks": (_P, _I, _LL, _LL, _P, _P, _P, _P, _P),
         "score_scratch_ints": (),
     },
+    "gf_fold": {
+        "gf_fold": (_P, _I, _P, _P, _LL, _LL, _I, _P),
+    },
     "crush": {
         "crush_do_rule_batch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _PI, _I, _P, _LL, _P, _P, _P),

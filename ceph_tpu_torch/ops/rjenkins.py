@@ -166,22 +166,39 @@ def hash32_4_torch(a, b, c, d):
     return h
 
 
+def _mix_int(a: int, b: int, c: int):
+    """One Jenkins mix round on Python ints holding uint32 words."""
+    M = 0xFFFFFFFF
+    a = (a - b - c) & M; a ^= c >> 13
+    b = (b - c - a) & M; b ^= (a << 8) & M
+    c = (c - a - b) & M; c ^= b >> 13
+    a = (a - b - c) & M; a ^= c >> 12
+    b = (b - c - a) & M; b ^= (a << 16) & M
+    c = (c - a - b) & M; c ^= b >> 5
+    a = (a - b - c) & M; a ^= c >> 3
+    b = (b - c - a) & M; b ^= (a << 10) & M
+    c = (c - a - b) & M; c ^= b >> 15
+    return a, b, c
+
+
+def hash32_2_int(a: int, b: int) -> int:
+    """hash32_2 of two uint32 Python ints: for one value, a few
+    microseconds where numpy's array machinery takes a hundred or more."""
+    a &= 0xFFFFFFFF
+    b &= 0xFFFFFFFF
+    h = int(CRUSH_HASH_SEED) ^ a ^ b
+    x, y = 231232, 1232
+    a, b, h = _mix_int(a, b, h)
+    x, a, h = _mix_int(x, a, h)
+    b, y, h = _mix_int(b, y, h)
+    return h
+
+
 def ceph_str_hash_rjenkins(data: bytes) -> int:
     """Jenkins lookup2 string hash (reference src/common/ceph_hash.cc:21-78)
     — hashes object names onto PG seeds (hobject_t::get_hash)."""
     M = 0xFFFFFFFF
-
-    def mix(a, b, c):
-        a = (a - b - c) & M; a ^= c >> 13
-        b = (b - c - a) & M; b ^= (a << 8) & M
-        c = (c - a - b) & M; c ^= b >> 13
-        a = (a - b - c) & M; a ^= c >> 12
-        b = (b - c - a) & M; b ^= (a << 16) & M
-        c = (c - a - b) & M; c ^= b >> 5
-        a = (a - b - c) & M; a ^= c >> 3
-        b = (b - c - a) & M; b ^= (a << 10) & M
-        c = (c - a - b) & M; c ^= b >> 15
-        return a, b, c
+    mix = _mix_int
 
     length = len(data)
     a = b = 0x9E3779B9

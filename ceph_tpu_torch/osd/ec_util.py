@@ -10,7 +10,9 @@ ECUtil parity:
 - encode_with_hinfo: encode plus the per-shard cumulative crc32c ledger
   (HashInfo), fused on the device: on a CUDA codec the parity and every
   chunk's crc come from one call (ec/plan.encode_with_crc) and fold into
-  the ledger on the host.  On the CPU it is encode plus the host crc.
+  the ledger on the host.  On the CPU it is encode plus the host crc;
+- decode_many: requests that share a survivor set decode together, one
+  codec call per group (the coded-compute scan's result-domain decode).
 
 Shards leave as read-only memoryviews of buffers nothing writes again.
 """
@@ -210,6 +212,30 @@ def _encode_with_hinfo_device(sinfo: StripeInfo, ec_impl, data,
             src = arr[:, i, :] if i < k else parity[:, i - k, :]
             shards[i] = _frozen_view(np.ascontiguousarray(src).reshape(-1))
     return shards, hinfo, _data_crc(data, logical_len)
+
+
+def decode_many(sinfo: StripeInfo, ec_impl, maps) -> List[memoryview]:
+    """N decode requests (one profile) -> their logical byte streams.
+
+    Requests sharing a survivor-shard set concatenate their per-shard
+    streams and decode in ONE call (one kernel launch when data shards
+    are missing); each request gets a view of its span of the result."""
+    maps = list(maps)
+    out: List[Optional[memoryview]] = [None] * len(maps)
+    groups: Dict[tuple, List[int]] = {}
+    for i, m in enumerate(maps):
+        groups.setdefault(tuple(sorted(m)), []).append(i)
+    chunk = sinfo.get_chunk_size()
+    width = sinfo.get_stripe_width()
+    for key, idxs in groups.items():
+        streams = {s: b"".join(maps[i][s] for i in idxs) for s in key}
+        folded = memoryview(decode(sinfo, ec_impl, streams))
+        off = 0
+        for i in idxs:
+            span = (len(next(iter(maps[i].values()))) // chunk) * width
+            out[i] = folded[off:off + span]
+            off += span
+    return out  # type: ignore[return-value]
 
 
 def decode(sinfo: StripeInfo, ec_impl,

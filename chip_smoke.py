@@ -7,9 +7,10 @@ Run from the repository root:
 
 Phases; any failure exits nonzero and prints no result line:
 
-1. Build the CUDA kernels from ceph_tpu_torch/csrc (GF, crc, scoring and the
-   CRUSH placement kernel, one nvcc per source, started together) and print the
-   seconds it took and what ptxas reports (registers per source, spills).
+1. Build the CUDA kernels from ceph_tpu_torch/csrc (GF, crc, scoring, the
+   CRUSH placement kernel and the GF fold, one nvcc per source, started
+   together) and print the seconds it took and what ptxas reports
+   (registers per source, spills).
 2. Hold every kernel against its plain PyTorch version on the card at the
    main path's shapes, bit-exact: the GF kernel through gf_matmul_spec
    (the registered generator's stored schedule) on RS 8+3
@@ -128,6 +129,34 @@ Phases; any failure exits nonzero and prints no result line:
    batch.  The launch counters are zeroed before the store path and again
    before the cluster; score_blocks and crc32c_blocks must launch on the
    store path, the GF kernels and crc32c_blocks on the cluster.
+3g. Coded compute, coded inference and the read tier: gf_fold against its
+   plain version (all-ones and gf_fingerprint rows) at the scan's
+   (44, 262144, 32) and at (33, 1, 32), (7, 129, 32), (1, 3, 32) and
+   (5, 1000, 64); then, the launch counters zeroed, a LocalCluster(24 OSDs,
+   12 hosts) with config 5's EC 8+3 pool and four seeded 64 MiB objects (the
+   last of float32 vectors), their 44 shard streams gathered from the
+   stores and folded in one wave by compute.shard_eval_batch for gf_fold
+   and gf_fingerprint, the results decoded in the result domain by
+   ec_util.decode_many (8 data shards; data shard 0 lost; shards 0, 3 and 6
+   lost) and combined, each answer against kernel.reference on the
+   object's bytes and the whole scan against a device="cpu" twin
+   (gf_matmul_gen must launch for the lost cases); compress_score (on
+   score_blocks), count, sum, filter and dot_score on the objects read
+   back, against the CPU twin; a linear scorer (131,072 x 128 float32) and
+   an MLP (256 -> 3,072 -> 256) stored with inference.registry.build and
+   write_full (6 data and 2 fused streams), queried with 64 queries through
+   InferShardKernel.shard_eval on the OSDs' streams: the exact combine
+   within INFER_RTOL of model.exact_forward, fisher.combine with data
+   streams 0 and 0, 3 lost under the 0.05 budget (served within it, or
+   refused where the structural bound exceeds it, as on the CPU twin);
+   a TierAgent with the reference's defaults (hit sets rotated by call
+   every 10,000 reads) over 100,000 Zipf(1.1) reads of 10,000 oids in 128
+   PGs, every decision and the counters against a device="cpu" twin; bloom
+   positions on the card against numpy at 8, 1024 and 65536 hashes.  Host
+   times: the scan split into gather, stage, fold, decode and combine, and
+   its GiB/s of shard bytes; queries per second per model; gf_fold alone,
+   back to back and its device time beside its byte bound and its plain
+   version; positions_for at 1024 and 65536 hashes and its CUDA kernels.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -143,7 +172,7 @@ Phases; any failure exits nonzero and prints no result line:
    ((1, 8, 8 MiB) encode, (2048, 8, 4096) decode of 1 and 3 rows), each
    against its plain version, and the placement kernel at phase 3c's.
    Every kernels-line row carries its launches per path (codec, crushtool,
-   osdmap, cluster, codecs, store, store_cluster) and their sum.
+   osdmap, cluster, codecs, store, store_cluster, compute) and their sum.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The card's name and power limit, as
@@ -1618,6 +1647,459 @@ def store_phase(torch, dev, card: str, wrappers: dict) -> dict:
             "score_err": worst, "score_times": ktimes}
 
 
+# phase 3g: coded compute, coded inference and the read tier on the card.
+# Config 5's shape (24 MemStore OSDs in 12 hosts, reed_sol_van 8+3 over
+# hosts); 4 seeded 64 MiB objects, the last of them float32 vectors; the scan
+# folds every object's 11 shard streams (8 MiB each, 262,144 rows of 32
+# lanes) in one wave.
+SCAN_OBJECTS = 4
+SCAN_LOST = {"data": (), "1_lost": (0,), "3_lost": (0, 3, 6)}
+FOLD_SHAPES = ((33, 1, 32), (7, 129, 32), (1, 3, 32), (5, 1000, 64))
+# two models in the 8+3 pool, k_model = 6 data and m = 2 fused streams: a
+# linear scorer with a 131,072 x 128 float32 table (64 MiB) and a 2-layer
+# MLP (256 -> 3,072 -> 256); 64 queries each
+MODELS = (("linear", 128, 131072, 0), ("mlp", 256, 256, 3072))
+MODEL_M, MODEL_QUERIES, MODEL_BUDGET = 2, 64, 0.05
+# the exact combine sums float32 in another order on the card: a relative
+# norm of 1e-5 is over a hundred times what a reordered 128- or 3072-term
+# float32 sum moves
+INFER_RTOL = 1e-5
+# the tier: 100,000 Zipf(1.1) reads over 10,000 oids in 128 PGs, hit sets
+# rotated every 10,000 reads
+TIER_READS, TIER_OIDS, TIER_PGS, TIER_ROTATE = 100_000, 10_000, 128, 10_000
+TIER_OPTIONS = ("osd_tier_enable", "osd_hit_set_count", "osd_hit_set_period",
+                "osd_hit_set_target_size", "osd_hit_set_bloom_fpp",
+                "osd_hit_set_type", "osd_tier_promote_min_recency",
+                "osd_tier_cache_bytes", "osd_tier_promote_max_inflight",
+                "osd_tier_promote_backoff")
+
+
+def zipf_indices(theta: float, n: int, count: int,
+                 seed: int = 0) -> np.ndarray:
+    """Deterministic Zipf(theta) sample of `count` object ranks in [0, n)
+    (a copy of ceph_tpu/tools/rados.py zipf_indices)."""
+    ranks = np.arange(1, max(int(n), 1) + 1, dtype=np.float64)
+    weights = ranks ** -float(theta)
+    cdf = np.cumsum(weights)
+    cdf /= cdf[-1]
+    u = np.random.default_rng(seed).random(int(count))
+    return np.searchsorted(cdf, u).astype(np.int64)
+
+
+def drive_tier(agent, trace, pgs, sizes) -> list:
+    """The OSD read path's tier calls for each read of `trace`, hit sets
+    rotated every TIER_ROTATE reads; returns every decision."""
+    log = []
+    for n, i in enumerate(trace):
+        oid, pg = f"obj{i}", pgs[i]
+        agent.record_read(pg, oid)
+        hc = agent.hit_count(pg, oid)
+        data = agent.lookup(pg, oid)
+        wants = began = False
+        if data is None:
+            wants = agent.wants_promote(pg, oid, hc)
+            if wants:
+                began = agent.begin_promote(pg, oid)
+                if began:
+                    agent.end_promote(pg, oid, bytes(sizes[i]))
+        log.append((hc, data is not None, wants, began))
+        if (n + 1) % TIER_ROTATE == 0:
+            agent.rotate_all()
+            log.append([(pg, seq, s.to_dict())
+                        for pg, seq, s in agent.pop_sealed()])
+    return log
+
+
+def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3g: gf_fold against its plain version; the pushdown scan of
+    four 64 MiB EC 8+3 objects (gf_fold and gf_fingerprint over the wave
+    of 44 shard streams, results decoded on three survivor sets) against
+    the host oracle and the CPU twin; the nonlinear kernels; two stored
+    models queried through the shard kernel; the tier agent against its
+    CPU twin over a Zipf trace; host-clock times.  Returns the launches,
+    the kernel's check and its times."""
+    from ceph_tpu_torch import compute
+    from ceph_tpu_torch.common import options
+    from ceph_tpu_torch.compute import kernels as ckernels
+    from ceph_tpu_torch.ec import plan
+    from ceph_tpu_torch.ec.registry import create_erasure_code
+    from ceph_tpu_torch.inference import fisher, model, registry
+    from ceph_tpu_torch.inference import kernels as ikernels
+    from ceph_tpu_torch.ops import fold_kernels
+    from ceph_tpu_torch.os import ObjectId
+    from ceph_tpu_torch.osd import ec_util, hitset
+    from ceph_tpu_torch.osd.tier import TierAgent
+    from ceph_tpu_torch.rados.embedded import LocalCluster, shard_collection
+    from ceph_tpu_torch.tools.kernel_shapes import (alone_ms, back_to_back_ms,
+                                                    host_us, kernel_ms)
+
+    phase_t0 = time.perf_counter()
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    n = K + M
+    stream = CLUSTER_OBJECT // K
+    rows, lanes = stream // compute.DEFAULT_LANES, compute.DEFAULT_LANES
+    fp = ckernels.GfFingerprint()
+
+    def weights_of(kind: str, r: int):
+        if kind == "gf_fold":
+            return None
+        return torch.from_numpy(np.array(fp.row_weights(r)).reshape(-1)) \
+            .to(dev)
+
+    # -- 1. the kernel against its plain version -------------------------
+    wave = torch.randint(0, 256, (SCAN_OBJECTS * n, rows, lanes),
+                         dtype=torch.uint8, device=dev, generator=gen)
+    fold_cases = {}
+    for shape in ((SCAN_OBJECTS * n, rows, lanes), *FOLD_SHAPES):
+        d = wave if shape == tuple(wave.shape) else torch.randint(
+            0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+        for kind in ("gf_fold", "gf_fingerprint"):
+            w = weights_of(kind, shape[1])
+            a = fold_kernels.gf_fold(w, d)
+            b = fold_kernels.gf_fold_plain(w, d)
+            fold_cases[f"{kind} {list(shape)}"] = int(
+                (a.to(torch.int16) - b.to(torch.int16)).abs().max())
+    sync()
+    fold_err = max(fold_cases.values())
+    print(json.dumps({"phase": "compute_kernel_vs_plain", "cases": fold_cases,
+                      "card": card}))
+    check(fold_err == 0, f"gf_fold disagrees with its plain version:"
+          f" {fold_cases}")
+
+    # -- 2. the main path: writes, the scan, decodes, kernels, models, tier --
+    for fn in wrappers.values():
+        fn.launches = 0
+    rng = np.random.default_rng(SEED + 7)
+    objs = {f"scan-{i}": rng.bytes(CLUSTER_OBJECT)
+            for i in range(SCAN_OBJECTS - 1)}
+    objs[f"scan-{SCAN_OBJECTS - 1}"] = rng.standard_normal(
+        CLUSTER_OBJECT // 4).astype("<f4").tobytes()
+    cluster = LocalCluster(num_osds=CLUSTER_OSDS,
+                           osds_per_host=CLUSTER_OSDS_PER_HOST, device=dev)
+    cluster.create_erasure_pool("ecpool", EC_PROFILE)
+    io = cluster.open_ioctx("ecpool")
+    codec = cluster._codec(io.pool_id)
+    check(codec.device == dev and codec.supports_result_decode(),
+          "the pool's codec is not on the card or refuses result decodes")
+    for name, data in objs.items():
+        io.write_full(name, data)
+
+    def gather(name, shards):
+        pg = io.object_pg(name)
+        acting, _primary = io.acting(pg)
+        return [cluster.stores[acting[s]].read(shard_collection(pg, s),
+                                               ObjectId(name))
+                for s in shards]
+
+    def gather_all():
+        return [buf for name in objs for buf in gather(name, range(n))]
+
+    payloads = gather_all()
+    check(all(len(p) == stream for p in payloads), "a shard stream is short")
+    rsinfo = ec_util.StripeInfo(K, K * lanes)
+    maps_order = [(name, lost) for name in objs for lost in SCAN_LOST]
+
+    def result_maps(results):
+        maps = []
+        for name, lost in maps_order:
+            base = list(objs).index(name) * n
+            have = [s for s in range(n) if s not in SCAN_LOST[lost]][:K]
+            maps.append({s: results[base + s] for s in have})
+        return maps
+
+    def combine_all(kern, decoded):
+        return [kern.combine([bytes(d)[i * lanes:(i + 1) * lanes]
+                              for i in range(K)]) for d in decoded]
+
+    scan = {}
+    for kname in ("gf_fold", "gf_fingerprint"):
+        kern = compute.get_kernel(kname)
+        results = compute.shard_eval_batch(kern, payloads, {}, device=dev)
+        gen_before = wrappers["gf_matmul_gen"].launches
+        decoded = ec_util.decode_many(rsinfo, codec, result_maps(results))
+        scan[kname] = {"results": results,
+                       "answers": combine_all(kern, decoded),
+                       "gen_launches": wrappers["gf_matmul_gen"].launches
+                       - gen_before}
+    sync()
+
+    # nonlinear kernels on the objects read back
+    back = {name: io.read(name) for name in objs}
+    floats = f"scan-{SCAN_OBJECTS - 1}"
+    query = np.random.default_rng(SEED).standard_normal(16).tolist()
+    nonlinear_cases = [
+        ("compress_score", "scan-0", {}),
+        ("compress_score", floats, {"block": 65536}),
+        ("count", floats, {"record": 8, "cmp": "lt", "value": 1 << 62}),
+        ("sum", floats, {"record": 8, "off": 0, "len": 4}),
+        ("filter", floats, {"record": 4, "cmp": "gt", "value": 0x40800000,
+                            "limit": 64}),
+        ("dot_score", floats, {"dim": 16, "query": query})]
+    nonlinear = [compute.get_kernel(kn).eval_object(back[obj], args,
+                                                    device=dev)
+                 for kn, obj, args in nonlinear_cases]
+    score_launches = wrappers["score_blocks"].launches
+
+    # models stored through the registry into the pool, queried from the
+    # OSDs' streams
+    chunk = codec.get_chunk_size(K * 4096)
+    models = {}
+    for kind, dim, out, hidden in MODELS:
+        spec, blobs = registry.build(
+            f"m-{kind}", kind, registry.make_model(
+                kind, dim, out, seed=SEED, hidden=hidden),
+            K - MODEL_M, MODEL_M, chunk)
+        for oid, blob in blobs.items():
+            io.write_full(oid, blob)
+        q = np.random.default_rng(SEED + dim).standard_normal(
+            (MODEL_QUERIES, dim)).astype(np.float32)
+        args = {"model": spec, "q": ikernels.encode_queries(q), "stream": 0}
+        streams = gather(spec["params_oid"], range(K))
+        contrib = compute.get_kernel("infer_shard").shard_eval(
+            streams, args, device=dev)
+        models[kind] = {"spec": spec, "q": q, "args": args,
+                        "streams": streams, "contrib": contrib,
+                        "data": blobs[spec["params_oid"]]}
+
+    # the tier over a Zipf trace, its hit sets hashed on the card
+    cfg = {name: options.get_option(name).default for name in TIER_OPTIONS}
+    cfg["osd_hit_set_period"] = 0.0     # rotated by call
+    trace = zipf_indices(1.1, TIER_OIDS, TIER_READS, seed=SEED)
+    pgs = [hitset.hash_oid(f"obj{i}") % TIER_PGS for i in range(TIER_OIDS)]
+    sizes = [4096 * (1 + i % 16) for i in range(TIER_OIDS)]
+    agent = TierAgent("osd.0", cfg, device=dev)
+    t0 = time.perf_counter()
+    tier_log = drive_tier(agent, trace, pgs, sizes)
+    tier_s = time.perf_counter() - t0
+    sync()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    # -- 3. checks against the host oracle and the CPU twins ---------------
+    cpu_codec = create_erasure_code({**EC_PROFILE, "device": "cpu"})
+    scan_ok = {}
+    for kname, got in scan.items():
+        kern = compute.get_kernel(kname)
+        refs = {name: kern.reference(data, {}, k=K, chunk=chunk)
+                for name, data in objs.items()}
+        twin = compute.shard_eval_batch(kern, payloads, {}, device="cpu")
+        twin_answers = combine_all(kern, ec_util.decode_many(
+            rsinfo, cpu_codec, result_maps(twin)))
+        scan_ok[kname] = {
+            "vs_host_reference": all(
+                a == refs[name] for a, (name, _l) in zip(got["answers"],
+                                                         maps_order)),
+            "vs_cpu_twin": [bytes(r) for r in got["results"]]
+            == [bytes(r) for r in twin] and got["answers"] == twin_answers,
+            "gf_matmul_gen_launches": got["gen_launches"]}
+    nonlinear_ok = [got == compute.get_kernel(kn).eval_object(
+        back[obj], args, device="cpu")
+        for got, (kn, obj, args) in zip(nonlinear, nonlinear_cases)]
+    reads_ok = all(back[name] == data for name, data in objs.items())
+
+    infer = {}
+    for kind, mdl in models.items():
+        spec, q = mdl["spec"], mdl["q"]
+        k_model = int(spec["k"])
+        parts = [np.frombuffer(c, "<f4").reshape(MODEL_QUERIES, -1)
+                 for c in mdl["contrib"]]
+        twin = [np.frombuffer(c, "<f4").reshape(MODEL_QUERIES, -1)
+                for c in compute.get_kernel("infer_shard").shard_eval(
+                    mdl["streams"], mdl["args"], device="cpu")]
+        exact = model.exact_forward(spec, mdl["data"], q)
+        scores = model.combine_contributions(spec, parts[:k_model])
+        rel = float(np.linalg.norm(scores - exact) / np.linalg.norm(exact))
+        lost_cases = {}
+        for lost in ((0,), (0, 3)):
+            def served(ps):
+                return fisher.combine(
+                    spec, {i: ps[i] for i in range(k_model) if i not in lost},
+                    {j: ps[k_model + j] for j in range(MODEL_M)}, q,
+                    MODEL_BUDGET)
+            res, res_twin = served(parts), served(twin)
+            case = {"served": res is not None,
+                    "twin_served": res_twin is not None,
+                    "structural_error": fisher.structural_error(
+                        spec, [i for i in range(k_model) if i not in lost],
+                        list(range(MODEL_M)), fisher.query_scale(q))}
+            if res is not None:
+                case.update(est_error=res[1], rel_error=float(
+                    np.linalg.norm(res[0] - exact) / np.linalg.norm(exact)))
+            lost_cases[f"lost {list(lost)}"] = case
+        infer[kind] = {"exact_rel_error": rel, "lost": lost_cases,
+                       "twin_rel_error": float(max(
+                           np.linalg.norm(a - b) / max(np.linalg.norm(b),
+                                                       1e-30)
+                           for a, b in zip(parts, twin)))}
+
+    twin_agent = TierAgent("osd.0", cfg, device="cpu")
+    t0 = time.perf_counter()
+    twin_log = drive_tier(twin_agent, trace, pgs, sizes)
+    tier_twin_s = time.perf_counter() - t0
+    tier_ok = twin_log == tier_log and agent.counters() == \
+        twin_agent.counters()
+    bloom_ok = {}
+    nbits, nhash = hitset.bloom_geometry(cfg["osd_hit_set_target_size"],
+                                         cfg["osd_hit_set_bloom_fpp"])
+    for batch in (8, 1024, 65536):
+        h = np.random.default_rng(batch).integers(
+            0, 1 << 32, batch, dtype=np.uint64).astype(np.uint32)
+        bloom_ok[batch] = bool(np.array_equal(
+            hitset.positions_for(h, nbits, nhash, device=dev),
+            hitset.bloom_positions(h, nbits, nhash)))
+
+    result = {"phase": "compute", "objects": SCAN_OBJECTS,
+              "object_bytes": CLUSTER_OBJECT, "streams": len(payloads),
+              "rows": rows, "lanes": lanes, "scan": scan_ok,
+              "reads_exact": reads_ok,
+              "nonlinear_vs_cpu_twin": dict(zip(
+                  [f"{kn} {obj}" for kn, obj, _a in nonlinear_cases],
+                  nonlinear_ok)),
+              "nonlinear_results": [r.decode()[:200] for r in nonlinear],
+              "score_blocks_launches": score_launches,
+              "inference": infer, "inference_rtol": INFER_RTOL,
+              "tier": {"reads": TIER_READS, "same_as_cpu_twin": tier_ok,
+                       "counters": agent.counters(), "seconds": tier_s,
+                       "twin_seconds": tier_twin_s},
+              "bloom_positions_vs_numpy": bloom_ok,
+              "launches": launches, "card": card}
+    print(json.dumps(result))
+    for kname, ok in scan_ok.items():
+        check(ok["vs_host_reference"] and ok["vs_cpu_twin"],
+              f"the {kname} scan differs from the host oracle or the twin")
+        check(ok["gf_matmul_gen_launches"] > 0,
+              f"the {kname} result decode never launched gf_matmul_gen")
+    check(reads_ok, "an object read back differs from the written one")
+    check(all(nonlinear_ok), "a nonlinear kernel differs from its CPU twin")
+    check(score_launches > 0, "compress_score never launched score_blocks")
+    for kind, res in infer.items():
+        check(res["exact_rel_error"] <= INFER_RTOL,
+              f"{kind}: exact combine off by {res['exact_rel_error']}")
+        check(res["twin_rel_error"] <= INFER_RTOL,
+              f"{kind}: contributions differ from the CPU twin")
+        for lost, case in res["lost"].items():
+            check(case["served"] == case["twin_served"],
+                  f"{kind} {lost}: the budget gate decided otherwise on the"
+                  " CPU twin")
+            check(case["served"] or case["structural_error"] > MODEL_BUDGET,
+                  f"{kind} {lost}: refused within the budget")
+            if case["served"]:
+                check(case["est_error"] <= MODEL_BUDGET
+                      and case["rel_error"] <= max(case["est_error"], 1e-6),
+                      f"{kind} {lost}: served outside the budget: {case}")
+    check(infer["linear"]["lost"]["lost [0]"]["served"]
+          and infer["linear"]["lost"]["lost [0, 3]"]["served"],
+          "the linear scorer was not served with data streams lost")
+    check(tier_ok, "the tier agent on the card decided otherwise than its"
+          " CPU twin")
+    check(all(bloom_ok.values()), f"bloom positions on the card: {bloom_ok}")
+    for name in ("gf_fold", "gf_matmul_spec", "gf_matmul_gen",
+                 "score_blocks"):
+        check(launches[name] > 0, f"{name} never launched on the compute"
+              f" path: {launches}")
+
+    # -- 4. times ------------------------------------------------------------
+    kern = compute.get_kernel("gf_fingerprint")
+
+    def stage():
+        st = torch.empty(wave.shape, dtype=torch.uint8, pin_memory=True)
+        host = st.numpy()
+        for i, p in enumerate(payloads):
+            host[i] = np.frombuffer(p, np.uint8).reshape(rows, lanes)
+        return st.to(dev, non_blocking=True)
+
+    staged = stage()
+    maps = result_maps(scan["gf_fingerprint"]["results"])
+    decoded = ec_util.decode_many(rsinfo, codec, maps)
+    steps = {
+        "gather_s": host_median_s(torch, gather_all),
+        "stage_s": host_median_s(torch, stage),
+        "fold_s": host_median_s(torch, lambda: plan.compute_eval(
+            kern.name, kern.row_weights(rows), staged, dev)),
+        "shard_eval_batch_s": host_median_s(
+            torch, lambda: compute.shard_eval_batch(kern, payloads, {},
+                                                    device=dev)),
+        "decode_s": host_median_s(
+            torch, lambda: ec_util.decode_many(rsinfo, codec, maps)),
+        "combine_s": host_median_s(torch, lambda: combine_all(kern,
+                                                              decoded))}
+    total = (steps["gather_s"] + steps["shard_eval_batch_s"]
+             + steps["decode_s"] + steps["combine_s"])
+    shard_gib = len(payloads) * stream / (1 << 30)
+    steps["scan_gib_per_s"] = shard_gib / total
+    qps = {}
+    for kind, mdl in models.items():
+        shard_kernel = compute.get_kernel("infer_shard")
+        qps[kind] = MODEL_QUERIES / host_median_s(
+            torch, lambda: model.combine_contributions(mdl["spec"], [
+                np.frombuffer(c, "<f4").reshape(MODEL_QUERIES, -1)
+                for c in shard_kernel.shard_eval(
+                    mdl["streams"], mdl["args"], device=dev)][
+                        :int(mdl["spec"]["k"])]))
+    fold_times = {}
+    for kind in ("gf_fold", "gf_fingerprint"):
+        w = weights_of(kind, rows)
+        out = torch.empty((wave.shape[0], 1, lanes), dtype=torch.uint8,
+                          device=dev)
+        n_bytes = wave.numel() + out.numel() + (0 if w is None else rows)
+        b_ms, by = bound(n_bytes, 0)
+        t = {"ms": alone_ms(lambda: fold_kernels.gf_fold(w, wave, out=out)),
+             "back_to_back_ms": back_to_back_ms(
+                 lambda: fold_kernels.gf_fold(w, wave, out=out)),
+             "kernel_ms": kernel_ms(
+                 lambda: fold_kernels.gf_fold(w, wave, out=out),
+                 "gf_fold_kernel"),
+             "host_us": host_us(
+                 lambda: fold_kernels.gf_fold(w, wave, out=out)),
+             "plain_ms": alone_ms(lambda: fold_kernels.gf_fold_plain(
+                 w, wave), reps=5, warmup=1),
+             "bound_ms": b_ms, "bound_by": by}
+        t["share_alone"] = b_ms / t["ms"]
+        t["share_back_to_back"] = b_ms / t["back_to_back_ms"]
+        fold_times[kind] = t
+    hashes = {}
+    for batch in (1024, 65536):
+        h = np.random.default_rng(batch).integers(
+            0, 1 << 32, batch, dtype=np.uint64).astype(np.uint32)
+        cuda_kernels = cuda_copies = None
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                hitset.positions_for(h, nbits, nhash, device=dev)
+                sync()
+            on_card = [e.name for e in prof.events()
+                       if str(getattr(e, "device_type", "")).endswith("CUDA")]
+            cuda_kernels = sum(1 for name in on_card
+                               if not name.startswith(("Memcpy", "Memset")))
+            cuda_copies = len(on_card) - cuda_kernels
+        except (RuntimeError, AssertionError) as e:
+            print(json.dumps({"profiler_failed": repr(e)}))
+        t_dev = torch.from_numpy(h.astype(np.int64)).to(dev)
+        hashes[batch] = {
+            "positions_for_ms": host_median_s(
+                torch, lambda: hitset.positions_for(h, nbits, nhash,
+                                                    device=dev),
+                reps=20) * 1e3,
+            "on_device_ms": alone_ms(lambda: hitset.bloom_positions_torch(
+                t_dev, nbits, nhash)),
+            "host_numpy_ms": host_median_s(
+                torch, lambda: hitset.bloom_positions(h, nbits, nhash),
+                reps=20) * 1e3,
+            "cuda_kernels": cuda_kernels, "cuda_copies": cuda_copies}
+    print(json.dumps({"phase": "compute_times", "scan_steps": steps,
+                      "shard_gib": shard_gib, "inference_qps": qps,
+                      "gf_fold": fold_times,
+                      "bloom": {"nbits": nbits, "nhash": nhash,
+                                "by_batch": hashes},
+                      "tier_reads_per_s": TIER_READS / tier_s,
+                      "seconds_in_phase": time.perf_counter() - phase_t0,
+                      "card": card}))
+    return {"launches": launches, "fold_err": fold_err,
+            "fold_times": fold_times}
+
+
 def main() -> None:
     import torch
 
@@ -1630,7 +2112,8 @@ def main() -> None:
         from ceph_tpu_torch.ec.registry import create_erasure_code
         from ceph_tpu_torch.models import reed_solomon as rs
         from ceph_tpu_torch.ops import (_build, crc_kernels, crush_kernels,
-                                        gf_kernels, score_kernels)
+                                        fold_kernels, gf_kernels,
+                                        score_kernels)
         from ceph_tpu_torch.ops import checksum as cks
         from ceph_tpu_torch.ops.gf import gf_matmul_ref
         from ceph_tpu_torch.osd import ec_util
@@ -1785,7 +2268,8 @@ def main() -> None:
                 "gf_matmul_gen": gf_kernels.gf_matmul_gen,
                 "crc32c_blocks": crc_kernels.crc32c_blocks,
                 "crush_do_rule_batch": crush_kernels.crush_do_rule_batch,
-                "score_blocks": score_kernels.score_blocks_packed}
+                "score_blocks": score_kernels.score_blocks_packed,
+                "gf_fold": fold_kernels.gf_fold}
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1855,13 +2339,17 @@ def main() -> None:
 
     # -- 3f. the persistent store -------------------------------------------
     store_state = store_phase(torch, dev, card, wrappers)
+
+    # -- 3g. coded compute, coded inference and the read tier ---------------
+    compute_state = compute_phase(torch, dev, card, wrappers)
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
                "osdmap": {"crush_do_rule_batch": osdmap_state["launches"]},
                "cluster": cluster_launches, "codecs": codecs_launches,
                "store": store_state["store"],
-               "store_cluster": store_state["store_cluster"]}
+               "store_cluster": store_state["store_cluster"],
+               "compute": compute_state["launches"]}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)
@@ -2019,6 +2507,18 @@ def main() -> None:
         "max_abs_err": store_state["score_err"], "ms": span["ms"],
         "plain_ms": span["plain_ms"], "bound_ms": span["bound_ms"],
         "bound_by": span["bound_by"], "library_ms": span["bincount_ms"]})
+    # gf_fold at the scan's shape, all-ones rows (the gf_fold compute
+    # kernel; the fingerprint's weighted rows are on the compute_times
+    # line); PyTorch has no XOR reduction, so no library call
+    fold = compute_state["fold_times"]["gf_fold"]
+    rows.append({
+        "name": "gf_fold", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/gf_fold.cu",
+        "replaces": "ceph_tpu/compute/kernels.py:62",
+        **path_launches("gf_fold"),
+        "max_abs_err": compute_state["fold_err"], "ms": fold["ms"],
+        "plain_ms": fold["plain_ms"], "bound_ms": fold["bound_ms"],
+        "bound_by": fold["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
