@@ -162,3 +162,5 @@ register("CEPH_TPU_INFERENCE", "1", "process",
          "coded inference serving; 0 = exact full-decode only")
 register("CEPH_TPU_TIER", "1", "process",
          "hot-set read tier; 0 = every read from the store")
+register("CEPH_TPU_LOCKDEP", "0", "startup",
+         "runtime lock-order detector")

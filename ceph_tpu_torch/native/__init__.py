@@ -1,7 +1,9 @@
-"""The port's host C++ library: the lz4 and snappy block codecs and xxhash.
+"""The port's host C++ library: the lz4 and snappy block codecs, xxhash,
+crc32c and AES-256-GCM.
 
 Sources live in ``ceph_tpu_torch/native/src`` (copies of the JAX package's
-``compress.cc`` and of the xxhash functions of its ``checksum.cc``).  They
+``compress.cc`` and ``aesgcm.cc``, and of the xxhash and the crc32c
+functions of its ``checksum.cc``).  They
 are host code: the first call to `get_lib` compiles them with ``g++`` into
 one shared library under ``ceph_tpu_torch/_build/`` (reused while the
 sources' hash is unchanged) and binds it with ctypes, here and on the
@@ -41,8 +43,8 @@ def _build() -> Path:
         return so_path
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the port's host codecs and xxhash"
-                           " cannot be built")
+        raise RuntimeError("g++ not found: the port's host codecs, hashes"
+                           " and AES-GCM cannot be built")
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.tmp")
     res = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp),
@@ -58,6 +60,10 @@ def _build() -> Path:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     u8p = ctypes.POINTER(ctypes.c_uint8)
     u32, u64, i64 = ctypes.c_uint32, ctypes.c_uint64, ctypes.c_int64
+    lib.ceph_tpu_crc32c.restype = u32
+    lib.ceph_tpu_crc32c.argtypes = [u32, u8p, u64]
+    lib.ceph_tpu_crc32c_zeros.restype = u32
+    lib.ceph_tpu_crc32c_zeros.argtypes = [u32, u64]
     lib.ceph_tpu_xxh32.restype = u32
     lib.ceph_tpu_xxh32.argtypes = [u8p, u64, u32]
     lib.ceph_tpu_xxh64.restype = u64
@@ -78,6 +84,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn.argtypes = [u8p, u64, u8p, u64]
     lib.ceph_tpu_snappy_uncompressed_length.restype = i64
     lib.ceph_tpu_snappy_uncompressed_length.argtypes = [u8p, u64]
+    for op in ("seal", "open"):     # msgr2 secure mode (aesgcm.cc)
+        fn = getattr(lib, f"ceph_tpu_aesgcm_{op}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [u8p, u8p, u8p, u64, u8p, u64, u8p]
     return lib
 
 
@@ -89,3 +99,10 @@ def get_lib() -> ctypes.CDLL:
         if _lib is None:
             _lib = _bind(ctypes.CDLL(str(_build())))
         return _lib
+
+
+def prewarmed() -> bool:
+    """True once get_lib() has built and bound the library: callers that
+    prewarm the build off an event loop (the messenger's bind) can skip
+    the hop."""
+    return _lib is not None

@@ -49,6 +49,9 @@ _SIGNATURES = {
     "gf_fold": {
         "gf_fold": (_P, _I, _P, _P, _LL, _LL, _I, _P),
     },
+    "hitset_bloom": {
+        "bloom_positions": (_P, _P, _LL, _I, ctypes.c_uint, _I, _P),
+    },
     "crush": {
         "crush_do_rule_batch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _PI, _I, _P, _LL, _P, _P, _P),

@@ -5,7 +5,10 @@ Reference semantics: `ceph_crc32c(seed, data, len)` with no pre/post
 inversion, NULL data meaning a run of zeros, and `ceph_crc32c_zeros`
 O(log n) zero-run folding.
 
-Host path: table-driven numpy, vectorised across rows.  A buffer is
+Host path: `crc32c` runs the native crc of native/src/crc32c.cc (a copy
+of the JAX package's; SSE4.2 three-lane where the CPU has it) for
+bytes-like data.  `crc32c_numpy` is its oracle: table-driven numpy,
+vectorised across rows.  A buffer is
 front-padded with zeros to whole rows (leading zeros leave a zero-seeded
 crc unchanged), each row's zero-seeded crc is computed with the
 slicing-by-4 tables one word column at a time across all rows, and the
@@ -162,12 +165,46 @@ def _np_u8(data) -> np.ndarray:
     return np.frombuffer(data, dtype=np.uint8)
 
 
-def crc32c(crc: int, data, length: int | None = None) -> int:
-    """ceph_crc32c: data=None means `length` zero bytes."""
+def crc32c_numpy(crc: int, data, length: int | None = None) -> int:
+    """ceph_crc32c in numpy (`_crc0` row folds): the oracle the native
+    `crc32c` is held against."""
     if data is None:
         return crc32c_zeros(crc, length or 0)
     arr = _np_u8(data)
     return crc32c_zeros(crc, arr.size) ^ _crc0(arr)
+
+
+@functools.lru_cache(maxsize=1)
+def _fast_crc():
+    """A c_char_p prototype bound to the native symbol: bytes pass
+    straight through with no per-call cast."""
+    proto = ctypes.CFUNCTYPE(ctypes.c_uint32, ctypes.c_uint32,
+                             ctypes.c_char_p, ctypes.c_uint64)
+    return proto(("ceph_tpu_crc32c", native.get_lib()))
+
+
+_fast_crc_fn = None
+
+
+def crc32c(crc: int, data, length: int | None = None) -> int:
+    """ceph_crc32c: data=None means `length` zero bytes.  Bytes-like data
+    runs the native crc of native/src/crc32c.cc (SSE4.2 where the CPU has
+    it)."""
+    global _fast_crc_fn
+    if data is None:
+        return crc32c_zeros(crc, length or 0)
+    if isinstance(data, bytes):
+        # module-global binding: the messenger's per-frame hot path
+        fast = _fast_crc_fn
+        if fast is None:
+            fast = _fast_crc_fn = _fast_crc()
+        return fast(crc & 0xFFFFFFFF, data, len(data))
+    if isinstance(data, (bytearray, memoryview)):
+        arr = np.frombuffer(data, dtype=np.uint8)   # zero-copy view
+    else:
+        arr = _np_u8(data)
+    return int(native.get_lib().ceph_tpu_crc32c(crc & 0xFFFFFFFF,
+                                                _u8_ptr(arr), arr.size))
 
 
 @functools.lru_cache(maxsize=64)

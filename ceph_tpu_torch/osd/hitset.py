@@ -14,8 +14,11 @@ rjenkins hash CRUSH uses (`hash32_2(h, i) % nbits`, probe i salted by seed
 i).  `positions_for` keeps the reference's policy: a batch of fewer than
 DEVICE_MIN_BATCH hashes is hashed on the host; a larger one goes to the
 device the caller names (CUDA unless told otherwise, and never silently the
-host), where `bloom_positions_torch` computes it with
-ops/rjenkins.hash32_2_torch in plain PyTorch.  The host hashes a handful
+host).  On a CUDA device that is one launch of the kernel of
+csrc/hitset_bloom.cu (ops/bloom_kernels.py): one copy in, one copy of the
+uint32 positions back.  On the CPU device `bloom_positions_torch`, the
+kernel's plain version, computes it with ops/rjenkins.hash32_2_torch.  The
+host hashes a handful
 in Python integers and memoizes each hash's positions per geometry, so a
 hit-count probe of a hot object (one per archived set and read) is a
 dictionary lookup, where the reference pays numpy's per-call cost; the
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch.device import resolve_device
-from ceph_tpu_torch.ops import rjenkins
+from ceph_tpu_torch.ops import bloom_kernels, rjenkins
 
 # batches below this hash on the host: a device call per handful of oids
 # costs more latency than it saves
@@ -102,9 +105,13 @@ def positions_for(hashes, nbits: int, nhash: int,
         return np.array([_positions_one(int(h), nbits, nhash) for h in arr],
                         dtype=np.uint32)
     dev = resolve_device(device)
-    t = torch.from_numpy(arr.astype(np.int64)).to(dev)
-    return bloom_positions_torch(t, nbits, nhash).cpu().numpy().astype(
-        np.uint32)
+    if dev.type == "cpu":
+        t = torch.from_numpy(arr.astype(np.int64))
+        return bloom_positions_torch(t, nbits, nhash).numpy().astype(
+            np.uint32)
+    t = torch.from_numpy(arr.view(np.int32)).to(dev)
+    return bloom_kernels.bloom_positions(t, nbits, nhash).cpu().numpy() \
+        .view(np.uint32)
 
 
 class BloomHitSet:

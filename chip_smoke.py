@@ -8,9 +8,9 @@ Run from the repository root:
 Phases; any failure exits nonzero and prints no result line:
 
 1. Build the CUDA kernels from ceph_tpu_torch/csrc (GF, crc, scoring, the
-   CRUSH placement kernel and the GF fold, one nvcc per source, started
-   together) and print the seconds it took and what ptxas reports
-   (registers per source, spills).
+   CRUSH placement kernel, the GF fold and the hit-set hash, one nvcc per
+   source, started together) and print the seconds it took and what ptxas
+   reports (registers per source, spills).
 2. Hold every kernel against its plain PyTorch version on the card at the
    main path's shapes, bit-exact: the GF kernel through gf_matmul_spec
    (the registered generator's stored schedule) on RS 8+3
@@ -151,12 +151,35 @@ Phases; any failure exits nonzero and prints no result line:
    refused where the structural bound exceeds it, as on the CPU twin);
    a TierAgent with the reference's defaults (hit sets rotated by call
    every 10,000 reads) over 100,000 Zipf(1.1) reads of 10,000 oids in 128
-   PGs, every decision and the counters against a device="cpu" twin; bloom
-   positions on the card against numpy at 8, 1024 and 65536 hashes.  Host
+   PGs, every decision and the counters against a device="cpu" twin, both
+   rates printed; bloom_positions against its plain version and numpy
+   before the path (B in 8, 37, 1024, 65536, 65536 + 17; nhash 1, 4, 7,
+   32; nbits 8, 6236, 1048573, 2^31 - 1), and positions_for on the card
+   against numpy at 8, 1024 and 65536 hashes, one CUDA kernel a call
+   (torch.profiler).  Host
    times: the scan split into gather, stage, fold, decode and combine, and
    its GiB/s of shard bytes; queries per second per model; gf_fold alone,
    back to back and its device time beside its byte bound and its plain
-   version; positions_for at 1024 and 65536 hashes and its CUDA kernels.
+   version; positions_for at 1024 and 65536 hashes, its CUDA kernels and
+   the kernel alone.
+3h. The monitors: three `python -m ceph_tpu_torch.mon` processes (and a
+   standalone signed one) on the 10,000-OSD cluster (10 OSDs a host), their
+   SQLite stores seeded with its first map (every OSD up and in), signed,
+   AES-GCM sealed (the native AEAD, checked) and compressing (snappy,
+   zlib).  A client Messenger waits for quorum, sets phase 3c's EC profile,
+   creates a replicated size-3 pool of 128 PGs and an EC 8+3 pool of 32
+   (small, see MON_REP_PGS), takes a seeded 0.5% of the OSDs out and 0.2%
+   down, adds one pg-upmap-items, runs health, status and mon stat, kills
+   the leader with SIGKILL, commits an osd in through the new leader and
+   restarts the killed rank from its store.  Its subscription (MGetMap,
+   full maps and incrementals applied to a port OSDMap) is mapped by
+   OSDMapMapping on the card after the pool creates, after out and down
+   and at the final epoch, against a device="cpu" twin and the host path
+   on every PG; the restarted rank's map and every store's final map
+   against the subscriber's.  Host-clock times: processes bound, quorum,
+   mon stat round trips per second secure and signed, a commit and its
+   map at the subscriber, health (first and cached), re-election, the
+   restart's catch-up, the mappings.  All mon processes die in a finally.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -172,7 +195,9 @@ Phases; any failure exits nonzero and prints no result line:
    ((1, 8, 8 MiB) encode, (2048, 8, 4096) decode of 1 and 3 rows), each
    against its plain version, and the placement kernel at phase 3c's.
    Every kernels-line row carries its launches per path (codec, crushtool,
-   osdmap, cluster, codecs, store, store_cluster, compute) and their sum.
+   osdmap, cluster, codecs, store, store_cluster, compute, mon) and their
+   sum; bloom_positions' row is timed at the tier's geometry and 65536
+   hashes.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The card's name and power limit, as
@@ -1674,6 +1699,19 @@ TIER_OPTIONS = ("osd_tier_enable", "osd_hit_set_count", "osd_hit_set_period",
                 "osd_tier_promote_backoff")
 
 
+# the hit-set hash kernel against its plain version and numpy: batches on
+# both sides of a launch's threads, nhash up to bloom_geometry's 32, nbits
+# from 8 to 2^31 - 1 (mostly not powers of two)
+BLOOM_BATCHES = (8, 37, 1024, 65536, 65536 + 17)
+BLOOM_NHASH = (1, 4, 7, 32)
+BLOOM_NBITS = (8, 6236, 1048573, (1 << 31) - 1)
+# lane instructions a position needs at least: hash32_2's three mixes of
+# nine steps (an IADD3, a shift and a LOP3 each) and its seed XOR, then
+# the magic-reciprocal remainder (IMAD.HI, two shifts, an add, a subtract,
+# an IMAD)
+BLOOM_OPS_PER_POSITION = 3 * 9 * 3 + 1 + 6
+
+
 def zipf_indices(theta: float, n: int, count: int,
                  seed: int = 0) -> np.ndarray:
     """Deterministic Zipf(theta) sample of `count` object ranks in [0, n)
@@ -1725,7 +1763,7 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
     from ceph_tpu_torch.ec.registry import create_erasure_code
     from ceph_tpu_torch.inference import fisher, model, registry
     from ceph_tpu_torch.inference import kernels as ikernels
-    from ceph_tpu_torch.ops import fold_kernels
+    from ceph_tpu_torch.ops import bloom_kernels, fold_kernels
     from ceph_tpu_torch.os import ObjectId
     from ceph_tpu_torch.osd import ec_util, hitset
     from ceph_tpu_torch.osd.tier import TierAgent
@@ -1767,6 +1805,26 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
                       "card": card}))
     check(fold_err == 0, f"gf_fold disagrees with its plain version:"
           f" {fold_cases}")
+    bloom_cases = {}
+    for batch in BLOOM_BATCHES:
+        h = np.random.default_rng(SEED + batch).integers(
+            0, 1 << 32, batch, dtype=np.uint64).astype(np.uint32)
+        t_h = torch.from_numpy(h.view(np.int32)).to(dev)
+        for nhash in BLOOM_NHASH:
+            for nbits in BLOOM_NBITS:
+                a = bloom_kernels.bloom_positions(t_h, nbits, nhash)
+                b = bloom_kernels.bloom_positions_plain(t_h, nbits, nhash)
+                got = a.cpu().numpy().view(np.uint32)
+                bloom_cases[f"{batch} {nhash} {nbits}"] = int(
+                    (a != b).sum()) + int((got != hitset.bloom_positions(
+                        h, nbits, nhash)).sum())
+    sync()
+    bloom_err = max(bloom_cases.values())
+    print(json.dumps({"phase": "bloom_kernel_vs_plain",
+                      "cases": len(bloom_cases), "mismatches": sum(
+                          bloom_cases.values()), "card": card}))
+    check(bloom_err == 0, f"bloom_positions disagrees with its plain"
+          f" version or numpy: {bloom_cases}")
 
     # -- 2. the main path: writes, the scan, decodes, kernels, models, tier --
     for fn in wrappers.values():
@@ -1995,7 +2053,7 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
           " CPU twin")
     check(all(bloom_ok.values()), f"bloom positions on the card: {bloom_ok}")
     for name in ("gf_fold", "gf_matmul_spec", "gf_matmul_gen",
-                 "score_blocks"):
+                 "score_blocks", "bloom_positions"):
         check(launches[name] > 0, f"{name} never launched on the compute"
               f" path: {launches}")
 
@@ -2062,42 +2120,531 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
     for batch in (1024, 65536):
         h = np.random.default_rng(batch).integers(
             0, 1 << 32, batch, dtype=np.uint64).astype(np.uint32)
-        cuda_kernels = cuda_copies = None
-        try:
-            from torch.profiler import ProfilerActivity, profile
+        # CUDA work per positions_for call, from torch.profiler: five calls,
+        # the device events in start order cut at each host-to-device copy
+        # (a call's first); the first cut is dropped, since a session's
+        # first events can go missing, and every other must be one copy
+        # in, the bloom kernel, one copy out
+        from torch.profiler import ProfilerActivity, profile
 
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(5):
                 hitset.positions_for(h, nbits, nhash, device=dev)
-                sync()
-            on_card = [e.name for e in prof.events()
-                       if str(getattr(e, "device_type", "")).endswith("CUDA")]
-            cuda_kernels = sum(1 for name in on_card
-                               if not name.startswith(("Memcpy", "Memset")))
-            cuda_copies = len(on_card) - cuda_kernels
-        except (RuntimeError, AssertionError) as e:
-            print(json.dumps({"profiler_failed": repr(e)}))
+            sync()
+        on_card = sorted(
+            (e.time_range.start, e.name) for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        calls, cur = [], None
+        for _start, name in on_card:
+            if name.startswith("Memcpy HtoD"):
+                cur = []
+                calls.append(cur)
+            if cur is not None:
+                cur.append(name)
+        calls = calls[1:]
+        per_call = [[("bloom" if "bloom_positions_kernel" in n else
+                      "copy" if n.startswith(("Memcpy", "Memset")) else n)
+                     for n in c] for c in calls]
+        cuda_kernels = (sum(len(c) - c.count("copy") for c in per_call)
+                        / max(len(per_call), 1))
+        cuda_copies = (sum(c.count("copy") for c in per_call)
+                       / max(len(per_call), 1))
+        profile_ok = len(per_call) >= 3 and all(
+            c == ["copy", "bloom", "copy"] for c in per_call)
+        if not profile_ok:
+            print(json.dumps({"positions_for_profile": [n for _s, n in
+                                                        on_card]}))
         t_dev = torch.from_numpy(h.astype(np.int64)).to(dev)
+        t_32 = torch.from_numpy(h.view(np.int32)).to(dev)
+        out_32 = torch.empty((batch, nhash), dtype=torch.int32, device=dev)
         hashes[batch] = {
             "positions_for_ms": host_median_s(
                 torch, lambda: hitset.positions_for(h, nbits, nhash,
                                                     device=dev),
                 reps=20) * 1e3,
-            "on_device_ms": alone_ms(lambda: hitset.bloom_positions_torch(
-                t_dev, nbits, nhash)),
+            "kernel_ms": alone_ms(lambda: bloom_kernels.bloom_positions(
+                t_32, nbits, nhash, out=out_32)),
+            "plain_on_device_ms": alone_ms(
+                lambda: hitset.bloom_positions_torch(t_dev, nbits, nhash)),
             "host_numpy_ms": host_median_s(
                 torch, lambda: hitset.bloom_positions(h, nbits, nhash),
                 reps=20) * 1e3,
             "cuda_kernels": cuda_kernels, "cuda_copies": cuda_copies}
+        check(profile_ok, f"positions_for at {batch} hashes: the CUDA"
+              f" work of its calls was {per_call}, not one copy in, the"
+              f" bloom kernel and one copy out")
     print(json.dumps({"phase": "compute_times", "scan_steps": steps,
                       "shard_gib": shard_gib, "inference_qps": qps,
                       "gf_fold": fold_times,
                       "bloom": {"nbits": nbits, "nhash": nhash,
                                 "by_batch": hashes},
                       "tier_reads_per_s": TIER_READS / tier_s,
+                      "tier_twin_reads_per_s": TIER_READS / tier_twin_s,
+                      "tier_rate_vs_twin": tier_twin_s / tier_s,
                       "seconds_in_phase": time.perf_counter() - phase_t0,
                       "card": card}))
+    # the kernels-line row: the tier's geometry at 65,536 hashes
+    big = BLOOM_BATCHES[3]
+    h = np.random.default_rng(big).integers(
+        0, 1 << 32, big, dtype=np.uint64).astype(np.uint32)
+    t_32 = torch.from_numpy(h.view(np.int32)).to(dev)
+    out_32 = torch.empty((big, nhash), dtype=torch.int32, device=dev)
+    b_ms, by = bound(4 * big + 4 * big * nhash,
+                     big * nhash * BLOOM_OPS_PER_POSITION)
+    bloom_row = {
+        "ms": alone_ms(lambda: bloom_kernels.bloom_positions(
+            t_32, nbits, nhash, out=out_32)),
+        "plain_ms": alone_ms(lambda: bloom_kernels.bloom_positions_plain(
+            t_32, nbits, nhash), reps=5, warmup=1),
+        "bound_ms": b_ms, "bound_by": by, "max_abs_err": bloom_err}
     return {"launches": launches, "fold_err": fold_err,
-            "fold_times": fold_times}
+            "fold_times": fold_times, "bloom": bloom_row}
+
+
+# phase 3h: the monitors.  Three port mons as processes on the 10,000-OSD
+# cluster of phase 3c (build_simple, 10 OSDs a host), signed and sealed,
+# compressing.  The pools are far smaller than phase 3c's: the mon's
+# `health` maps every PG on the host inside the leader's event loop (the
+# reference's design, about 2.5 ms a replicated PG at 10,000 OSDs), and a
+# leader that holds its loop past the lease's slack (mon_lease 2 s, renewed
+# every 0.8 s) is voted out; 128 + 32 PGs keep a walk near half a second.
+# The out and down shares are phase 3c's over ten: each commit re-encodes
+# and persists the whole 650 KB map on every mon, about 55 ms (3c's 700
+# OSDs would be 40 s of commits).
+MON_OSDS, MON_OSDS_PER_HOST = 10000, 10
+MON_REP_PGS, MON_EC_PGS = 128, 32
+MON_OUT_SHARE, MON_DOWN_SHARE = OUT_SHARE / 10, DOWN_SHARE / 10
+MON_RTT_CALLS = 200         # mon stat round trips per timed run
+MON_LATENCY_COMMITS = 3     # out commits timed to the subscriber's map
+MON_DRIVE_TIMEOUT = 240.0
+
+
+class MonClient:
+    """A bare port Messenger that sends mon commands (retrying through an
+    election or a dead mon) and follows the published maps: full maps and
+    incrementals applied in epoch order to one port OSDMap."""
+
+    def __init__(self, mon_addrs, secret, secure, compress=""):
+        from ceph_tpu_torch.msg import Messenger
+        from ceph_tpu_torch.msg import messages as mm
+
+        self.mm = mm
+        self.msgr = Messenger("client.chip_smoke", secret=secret)
+        self.msgr.secure = secure
+        if compress:
+            self.msgr.apply_compress_config({"ms_compress_methods": compress})
+        self.msgr.dispatcher = self._dispatch
+        self.addrs = list(mon_addrs)
+        self.target = 0
+        self.tid = 0
+        self.futures = {}
+        self.osdmap = None
+        self.epoch_seen = {}        # epoch -> host clock of its arrival
+
+    async def _dispatch(self, conn, msg) -> None:
+        import asyncio
+
+        from ceph_tpu_torch.osd.osdmap import Incremental, OSDMap
+
+        mm = self.mm
+        if isinstance(msg, mm.MMonCommandReply):
+            fut = self.futures.pop(msg.tid, None)
+            if fut is not None and not fut.done():
+                fut.set_result(msg)
+        elif isinstance(msg, mm.MOSDMapMsg):
+            if msg.full_map and (self.osdmap is None
+                                 or msg.epoch > self.osdmap.epoch):
+                self.osdmap = OSDMap.decode(msg.full_map)
+            for raw in msg.incrementals:
+                inc = Incremental.decode(raw)
+                if self.osdmap is not None and \
+                        inc.epoch == self.osdmap.epoch + 1:
+                    self.osdmap.apply_incremental(inc)
+            if self.osdmap is not None:
+                self.epoch_seen.setdefault(self.osdmap.epoch,
+                                           time.perf_counter())
+            await asyncio.sleep(0)
+
+    async def command(self, cmd: dict, timeout: float = 10.0,
+                      deadline_s: float = 30.0):
+        import asyncio
+
+        t_end = time.perf_counter() + deadline_s
+        last = None
+        while time.perf_counter() < t_end:
+            self.tid += 1
+            tid = self.tid
+            fut = asyncio.get_running_loop().create_future()
+            self.futures[tid] = fut
+            try:
+                conn = await self.msgr.connect(self.addrs[self.target])
+                await conn.send(self.mm.MMonCommand(tid, cmd))
+                reply = await asyncio.wait_for(fut, timeout)
+            except (asyncio.TimeoutError, ConnectionError, OSError) as e:
+                last = repr(e)
+                self.target = (self.target + 1) % len(self.addrs)
+                await asyncio.sleep(0.05)
+                continue
+            finally:
+                self.futures.pop(tid, None)
+            if reply.rc == -11:
+                last = reply.out
+                await asyncio.sleep(0.05)
+                continue
+            return reply.rc, reply.out
+        fail(f"mon command {cmd.get('prefix')} got no answer: {last}")
+
+    async def ok(self, cmd: dict):
+        rc, out = await self.command(cmd)
+        check(rc == 0, f"mon command {cmd} returned {rc}: {out}")
+        return out
+
+    async def subscribe(self, addr: str) -> None:
+        since = self.osdmap.epoch if self.osdmap is not None else 0
+        conn = await self.msgr.connect(addr)
+        await conn.send(self.mm.MGetMap(since_epoch=since, subscribe=True))
+
+    async def wait_epoch(self, epoch: int, timeout: float = 20.0) -> None:
+        import asyncio
+
+        t_end = time.perf_counter() + timeout
+        while self.osdmap is None or self.osdmap.epoch < epoch:
+            if time.perf_counter() > t_end:
+                fail(f"the subscriber never reached epoch {epoch}")
+            await asyncio.sleep(0.002)
+
+
+def _free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    return ports
+
+
+def mon_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3h: three `python -m ceph_tpu_torch.mon` processes (and a
+    fourth, standalone and signed only, for the signed round trips), driven
+    by a client Messenger through quorum, an EC profile, two pools, OSDs
+    out and down, an upmap, health, a kill -9 of the leader, a commit
+    through the new leader and the killed rank's restart from its store; the
+    subscriber's maps at three epochs mapped by OSDMapMapping on the card,
+    against its CPU twin and the host path; every store's final map against
+    the subscriber's.  Returns the launches and the numbers."""
+    import asyncio
+    import os
+    import shutil
+    import tempfile
+
+    from ceph_tpu_torch.common import auth
+    from ceph_tpu_torch.kv import SQLiteDB
+    from ceph_tpu_torch.msg import messages as mm
+    from ceph_tpu_torch.osd.osdmap import OSDMap, OSDMapMapping, PgId
+
+    phase_t0 = time.perf_counter()
+    aead = auth._resolve_aead()
+    check(aead == "native", f"secure frames would not run the native"
+          f" AES-GCM here: _resolve_aead() is {aead!r}")
+    secret = auth.generate_secret()
+    config = {"auth_secret": secret, "auth_secure": True,
+              "ms_local_fastpath": False,
+              "ms_compress_methods": "snappy,zlib"}
+    signed_config = {"auth_secret": secret, "ms_local_fastpath": False}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mon_")
+    ports = _free_ports(4)
+    addrs = [f"127.0.0.1:{p}" for p in ports[:3]]
+    stores = [os.path.join(tmp, f"mon.{r}") for r in range(3)]
+
+    # every mon's store starts with the cluster's first map, all 10,000
+    # OSDs up and in (the `ceph-mon --mkfs --osdmap` role: booting 10,000
+    # OSDs through MOSDBoot would be 10,000 commits); the mons load it
+    seed_map = OSDMap.build_simple(MON_OSDS, osds_per_host=MON_OSDS_PER_HOST)
+    for path in stores:
+        db = SQLiteDB(path)
+        db.create_and_open()
+        t = db.get_transaction()
+        t.set("mon", b"osdmap_full", seed_map.encode())
+        db.submit_transaction_sync(t)
+        db.close()
+
+    def spawn(rank: int, standalone: bool = False):
+        argv = [sys.executable, "-m", "ceph_tpu_torch.mon", "--num-osds",
+                str(MON_OSDS), "--osds-per-host", str(MON_OSDS_PER_HOST)]
+        if standalone:
+            argv += ["--port", str(ports[3]), "--config",
+                     json.dumps(signed_config)]
+        else:
+            argv += ["--rank", str(rank), "--mon-addrs", ",".join(addrs),
+                     "--store-path", stores[rank], "--config",
+                     json.dumps(config)]
+        log = open(os.path.join(tmp, f"mon.{'s' if standalone else rank}"
+                                     ".log"), "a")
+        return subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=log,
+                                text=True)
+
+    async def read_addr(proc) -> str:
+        line = await asyncio.to_thread(proc.stdout.readline)
+        check(line.startswith("MON_ADDR"), f"a mon process printed"
+              f" {line!r} (exit {proc.poll()})")
+        return line.split()[1]
+
+    procs = {}
+    timings, out = {}, {}
+
+    async def stat(client):
+        return await client.ok({"prefix": "mon stat"})
+
+    async def rtt_rate(client) -> float:
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(MON_RTT_CALLS):
+                await client.ok({"prefix": "mon stat"})
+            rates.append(MON_RTT_CALLS / (time.perf_counter() - t0))
+        return statistics.median(rates)
+
+    async def drive():
+        t_spawn = time.perf_counter()
+        for r in range(3):
+            procs[r] = spawn(r)
+        procs["signed"] = spawn(0, standalone=True)
+        for proc in procs.values():
+            await read_addr(proc)
+        timings["processes_bound_s"] = time.perf_counter() - t_spawn
+        client = MonClient(addrs, secret, secure=True, compress="snappy,zlib")
+        while True:
+            st = await stat(client)
+            if len(st.get("quorum", [])) >= 2 and st.get("lease_valid"):
+                break
+            check(time.perf_counter() - t_spawn < 60, f"no quorum: {st}")
+            await asyncio.sleep(0.02)
+        timings["time_to_quorum_s"] = time.perf_counter() - t_spawn
+        leader = st["leader"]
+        client.target = leader
+        await client.subscribe(addrs[leader])
+        await client.wait_epoch(1)
+        maps = {}
+
+        async def settle(name: str) -> None:
+            epoch = (await client.ok({"prefix": "status"}))["epoch"]
+            await client.wait_epoch(epoch)
+            maps[name] = client.osdmap.encode()
+
+        # the pools of phase 3c's shapes, at the mon path's PG counts
+        await client.ok({"prefix": "osd erasure-code-profile set",
+                         "name": "ec83", "profile": dict(EC_PROFILE)})
+        rep_id = (await client.ok({
+            "prefix": "osd pool create", "name": "rbd", "size": 3,
+            "pg_num": MON_REP_PGS, "pool_type": "replicated"}))["pool_id"]
+        ec_id = (await client.ok({
+            "prefix": "osd pool create", "name": "ec83",
+            "pg_num": MON_EC_PGS, "pool_type": "erasure",
+            "erasure_code_profile": "ec83"}))["pool_id"]
+        await settle("after pool creates")
+
+        # OSDs out and down by seeded draw; the last outs timed from the
+        # command to the subscriber's map
+        order = [int(o) for o in np.random.default_rng(SEED + 8)
+                 .permutation(MON_OSDS)]
+        n_out = int(MON_OSDS * MON_OUT_SHARE)
+        n_down = int(MON_OSDS * MON_DOWN_SHARE)
+        t0 = time.perf_counter()
+        for osd in order[MON_LATENCY_COMMITS:n_out]:
+            await client.ok({"prefix": "osd out", "osd": osd})
+        for osd in order[n_out:n_out + n_down]:
+            await client.ok({"prefix": "osd down", "osd": osd})
+        timings["out_down_commits"] = n_out + n_down - MON_LATENCY_COMMITS
+        timings["seconds_per_commit"] = (time.perf_counter() - t0) / (
+            n_out + n_down - MON_LATENCY_COMMITS)
+        # the first outs one at a time, the subscriber caught up before
+        # each: command to the leader's reply (the commit) and command to
+        # the subscriber's map of that epoch
+        replies, arrivals = [], []
+        for osd in order[:MON_LATENCY_COMMITS]:
+            epoch = (await client.ok({"prefix": "status"}))["epoch"]
+            await client.wait_epoch(epoch)
+            t_cmd = time.perf_counter()
+            await client.ok({"prefix": "osd out", "osd": osd})
+            replies.append(time.perf_counter() - t_cmd)
+            await client.wait_epoch(epoch + 1)
+            arrivals.append(client.epoch_seen[epoch + 1] - t_cmd)
+        timings["command_to_commit_reply_s"] = statistics.median(replies)
+        timings["command_to_subscriber_map_s"] = statistics.median(arrivals)
+        await settle("after out and down")
+
+        # one upmap, then health, status and mon stat
+        m = client.osdmap
+        pg = PgId(rep_id, 0)
+        raw, _pps = m._pg_to_raw_osds(m.pools[rep_id], pg)
+        dst = next(o for o in order[n_out + n_down:] if o not in raw)
+        await client.ok({"prefix": "osd pg-upmap-items", "pgid": f"{pg}",
+                         "mappings": [[raw[0], dst]]})
+        # the first health walks every PG on the leader's host mapper; the
+        # leader's placement cache serves the same epoch's later calls
+        for prefix in ("health", "status", "mon stat"):
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                res = await client.ok({"prefix": prefix})
+                runs.append(time.perf_counter() - t0)
+            out[prefix] = res
+            key = prefix.replace(" ", "_")
+            timings[key + "_first_s"] = runs[0]
+            timings[key + "_s"] = statistics.median(runs)
+
+        # mon stat round trips: secure frames to the quorum's leader,
+        # signed frames to the standalone mon
+        timings["mon_stat_per_s_secure"] = await rtt_rate(client)
+        signed = MonClient([f"127.0.0.1:{ports[3]}"], secret, secure=False)
+        timings["mon_stat_per_s_signed"] = await rtt_rate(signed)
+        await signed.msgr.shutdown()
+
+        # kill -9 the leader; the survivors elect; one more commit through
+        # the new leader
+        t0 = time.perf_counter()
+        procs[leader].kill()
+        await asyncio.to_thread(procs[leader].wait)
+        client.target = (leader + 1) % 3
+        while True:
+            rc, st = await client.command({"prefix": "mon stat"},
+                                          timeout=0.5)
+            if rc == 0 and st.get("leader") not in (None, leader) and \
+                    st.get("lease_valid"):
+                break
+            check(time.perf_counter() - t0 < 60, f"no new leader: {st}")
+            await asyncio.sleep(0.02)
+        timings["reelection_s"] = time.perf_counter() - t0
+        out["new_leader"] = st["leader"]
+        client.target = st["leader"]
+        await client.subscribe(addrs[st["leader"]])
+        await client.ok({"prefix": "osd in", "osd": order[0]})
+        await settle("final")
+        final_epoch = client.osdmap.epoch
+
+        # the killed rank restarts from its store and catches up
+        t0 = time.perf_counter()
+        procs[leader] = spawn(leader)
+        await read_addr(procs[leader])
+        probe = MonClient([addrs[leader]], secret, secure=True)
+        conn = await probe.msgr.connect(addrs[leader])
+        while probe.osdmap is None or probe.osdmap.epoch < final_epoch:
+            await conn.send(mm.MGetMap(since_epoch=0))
+            await asyncio.sleep(0.05)
+            check(time.perf_counter() - t0 < 60,
+                  "the restarted mon never caught up")
+        timings["restart_catch_up_s"] = time.perf_counter() - t0
+        out["restarted_rank_epoch"] = probe.osdmap.epoch
+        out["restarted_rank_map_equal"] = \
+            probe.osdmap.encode() == client.osdmap.encode()
+        await probe.msgr.shutdown()
+        # it calls an election on boot; with a lower election epoch than
+        # the survivors' promises it bids until it passes them
+        while True:
+            st = await stat(client)
+            if len(st.get("quorum", [])) == 3 and st.get("lease_valid"):
+                break
+            check(time.perf_counter() - t0 < 60, f"the restarted mon never"
+                  f" rejoined the quorum: {st}")
+            await asyncio.sleep(0.05)
+        timings["restart_to_full_quorum_s"] = time.perf_counter() - t0
+        out["mon_stat_after_restart"] = st
+        await client.msgr.shutdown()
+        return maps, final_epoch, {"rep": rep_id, "ec": ec_id, "out": n_out,
+                                   "down": n_down}
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    try:
+        maps, final_epoch, info = asyncio.run(
+            asyncio.wait_for(drive(), MON_DRIVE_TIMEOUT))
+    finally:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+    drive_s = time.perf_counter() - phase_t0
+
+    # every store's final map, read after the kill, against the
+    # subscriber's
+    stored = []
+    for path in stores:
+        db = SQLiteDB(path)
+        db.create_and_open()
+        stored.append(db.get("mon", b"osdmap_full"))
+        db.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    stores_equal = [raw == maps["final"] for raw in stored]
+
+    # map on the card at each epoch, against the CPU twin and the host path
+    rng = np.random.default_rng(SEED + 9)
+    mapping = {}
+    for name, raw in maps.items():
+        m = OSDMap.decode(raw)
+        t0 = time.perf_counter()
+        got = OSDMapMapping(m, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        twin = OSDMapMapping(m, device="cpu")
+        twin_s = time.perf_counter() - t0
+        pgs = [PgId(p.id, ps) for p in m.pools.values()
+               for ps in range(p.pg_num)]
+        twin_bad = sum(got.get(pg) != twin.get(pg) for pg in pgs)
+        host_bad = host_n = 0
+        for pool in m.pools.values():
+            for ps in rng.choice(pool.pg_num, min(pool.pg_num,
+                                                  OSDMAP_SAMPLES),
+                                 replace=False):
+                pg = PgId(pool.id, int(ps))
+                host_bad += got.get(pg) != m.pg_to_up_acting_osds(pg)
+                host_n += 1
+        mapping[name] = {"epoch": m.epoch, "pgs": len(pgs),
+                         "mapping_s": card_s, "twin_s": twin_s,
+                         "twin_mismatches": int(twin_bad),
+                         "host_path_pgs": host_n,
+                         "host_path_mismatches": int(host_bad),
+                         "up_osds": len(m.get_up_osds()),
+                         "in_osds": sum(map(m.is_in, range(m.max_osd)))}
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    health = out["health"]
+    status = out["status"]
+    result = {"phase": "mon", "osds": MON_OSDS, "pools": info,
+              "aead": aead, "timings": timings, "mapping": mapping,
+              "health": {"status": health["status"], "checks": {
+                  k: v["summary"] for k, v in health["checks"].items()}},
+              "status_epoch": status["epoch"], "final_epoch": final_epoch,
+              "new_leader": out["new_leader"],
+              "restarted_rank_epoch": out["restarted_rank_epoch"],
+              "restarted_rank_map_equal": out["restarted_rank_map_equal"],
+              "quorum_after_restart": out["mon_stat_after_restart"].get(
+                  "quorum"),
+              "stores_equal_subscriber": stores_equal,
+              "drive_s": drive_s,
+              "seconds": time.perf_counter() - phase_t0,
+              "launches": launches, "card": card}
+    print(json.dumps(result))
+    check(all(stores_equal), "a mon's stored map differs from the"
+          " subscriber's final map")
+    check(out["restarted_rank_epoch"] == final_epoch
+          and out["restarted_rank_map_equal"],
+          "the restarted mon did not catch up to the final map")
+    check(status["num_in_osds"] == MON_OSDS - info["out"]
+          and status["num_up_osds"] == MON_OSDS - info["down"],
+          f"status counts differ from the commands: {status}")
+    check(health["checks"].get("OSD_DOWN", {}).get("summary")
+          == f"{info['down']} osds down", f"health: {health}")
+    for name, res in mapping.items():
+        check(res["twin_mismatches"] == 0 and res["host_path_mismatches"]
+              == 0, f"the card's mapping at {name} differs: {res}")
+    check(launches["crush_do_rule_batch"] > 0,
+          "the subscriber's mappings never launched the placement kernel")
+    return {"launches": launches, "timings": timings}
 
 
 def main() -> None:
@@ -2111,9 +2658,9 @@ def main() -> None:
         from ceph_tpu_torch.ec import plan
         from ceph_tpu_torch.ec.registry import create_erasure_code
         from ceph_tpu_torch.models import reed_solomon as rs
-        from ceph_tpu_torch.ops import (_build, crc_kernels, crush_kernels,
-                                        fold_kernels, gf_kernels,
-                                        score_kernels)
+        from ceph_tpu_torch.ops import (_build, bloom_kernels, crc_kernels,
+                                        crush_kernels, fold_kernels,
+                                        gf_kernels, score_kernels)
         from ceph_tpu_torch.ops import checksum as cks
         from ceph_tpu_torch.ops.gf import gf_matmul_ref
         from ceph_tpu_torch.osd import ec_util
@@ -2269,7 +2816,8 @@ def main() -> None:
                 "crc32c_blocks": crc_kernels.crc32c_blocks,
                 "crush_do_rule_batch": crush_kernels.crush_do_rule_batch,
                 "score_blocks": score_kernels.score_blocks_packed,
-                "gf_fold": fold_kernels.gf_fold}
+                "gf_fold": fold_kernels.gf_fold,
+                "bloom_positions": bloom_kernels.bloom_positions}
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -2342,6 +2890,9 @@ def main() -> None:
 
     # -- 3g. coded compute, coded inference and the read tier ---------------
     compute_state = compute_phase(torch, dev, card, wrappers)
+
+    # -- 3h. the monitors and a map subscriber ------------------------------
+    mon_state = mon_phase(torch, dev, card, wrappers)
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
@@ -2349,7 +2900,8 @@ def main() -> None:
                "cluster": cluster_launches, "codecs": codecs_launches,
                "store": store_state["store"],
                "store_cluster": store_state["store_cluster"],
-               "compute": compute_state["launches"]}
+               "compute": compute_state["launches"],
+               "mon": mon_state["launches"]}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)
@@ -2519,6 +3071,17 @@ def main() -> None:
         "max_abs_err": compute_state["fold_err"], "ms": fold["ms"],
         "plain_ms": fold["plain_ms"], "bound_ms": fold["bound_ms"],
         "bound_by": fold["bound_by"], "library_ms": None})
+    # bloom_positions at the tier's geometry and 65,536 hashes; no PyTorch
+    # call computes the rjenkins hash, so no library call
+    bloom = compute_state["bloom"]
+    rows.append({
+        "name": "bloom_positions", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/hitset_bloom.cu",
+        "replaces": "ceph_tpu/osd/hitset.py:70",
+        **path_launches("bloom_positions"),
+        "max_abs_err": bloom["max_abs_err"], "ms": bloom["ms"],
+        "plain_ms": bloom["plain_ms"], "bound_ms": bloom["bound_ms"],
+        "bound_by": bloom["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -165,3 +165,50 @@ def test_stack_rotation_and_decay_sequences_equal(kind, count):
     dump_ref["open"].pop("age")
     assert dump_port == dump_ref
     assert not port.due() and not ref.due()
+
+
+def test_cpu_device_stays_on_the_plain_version(monkeypatch):
+    """positions_for(device="cpu") hashes with bloom_positions_torch and
+    never reaches the kernel's wrapper; the wrapper on a CPU tensor runs
+    that plain version and counts no launch."""
+    from ceph_tpu_torch.ops import bloom_kernels
+
+    nbits, nhash = hs.bloom_geometry(10000, 0.05)
+    h = _hashes(1000)
+    want = jhs.bloom_positions(h, nbits, nhash, xp=np)
+    before = bloom_kernels.bloom_positions.launches
+
+    def refuse(*args, **kw):
+        raise AssertionError("the CPU device reached the kernel's wrapper")
+
+    with monkeypatch.context() as m:
+        m.setattr(bloom_kernels, "bloom_positions", refuse)
+        np.testing.assert_array_equal(
+            hs.positions_for(h, nbits, nhash, device="cpu"), want)
+    t = torch.from_numpy(h.view(np.int32))
+    got = bloom_kernels.bloom_positions(t, nbits, nhash)
+    assert got.dtype == torch.int32 and got.shape == (1000, nhash)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    out = torch.empty((1000, nhash), dtype=torch.int32)
+    assert bloom_kernels.bloom_positions(t, nbits, nhash, out=out) is out
+    np.testing.assert_array_equal(out.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(
+        bloom_kernels.bloom_positions_plain(
+            torch.from_numpy(h.astype(np.int64)), nbits, nhash)
+        .numpy().view(np.uint32), want)
+    assert bloom_kernels.bloom_positions.launches == before
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "nhash", "nbits"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    """Like the other wrappers, it refuses on any device what the kernel
+    does not take: a tensor that is not [B] int32/int64, nhash outside
+    [1, 32], nbits outside [1, 2^32 - 1]."""
+    from ceph_tpu_torch.ops import bloom_kernels
+
+    t = torch.zeros(16, dtype=torch.int32)
+    args = {"shape": (t.view(4, 4), 100, 4),
+            "dtype": (t.to(torch.float32), 100, 4),
+            "nhash": (t, 100, 33), "nbits": (t, 0, 4)}[bad]
+    with pytest.raises(ValueError):
+        bloom_kernels.bloom_positions(*args)
