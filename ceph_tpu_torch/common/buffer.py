@@ -1,6 +1,7 @@
 """Zero-copy shard buffer views (the bufferlist share-don't-copy role;
 the part of ceph_tpu/common/buffer.py that the port's stores and
-compute kernels use: `is_immutable`, `as_buffer`).
+compute kernels and the OSD's tier promote use: `is_immutable`, `adopt`,
+`as_buffer`).
 
 Reference parity: ceph::buffer::list (the reference's src/include/
 buffer.h) lets every layer pass refcounted views of the same pages —
@@ -43,6 +44,12 @@ def is_immutable(data) -> bool:
         return is_immutable(data.base)
     return False
 
+
+def adopt(data):
+    """Immutable form of `data` for long-lived caches and stores: pass
+    through when is_immutable() proves no other owner can mutate the
+    bytes (frozen decode views, bytes), copy otherwise."""
+    return data if is_immutable(data) else bytes(data)
 
 
 def as_buffer(data):

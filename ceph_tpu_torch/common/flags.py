@@ -21,7 +21,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 __all__ = [
-    "register", "get", "enabled", "set_flag", "clear", "on_flip",
+    "register", "get", "enabled", "flag_float", "flag_int", "set_flag", "clear", "on_flip",
     "remove_hook", "flips", "clear_flips", "registry", "UnregisteredFlag",
 ]
 
@@ -87,6 +87,17 @@ def get(name: str, default: Any = _UNSET) -> Optional[str]:
 def enabled(name: str) -> bool:
     """On unless unset with a falsy default, empty, or ``"0"``."""
     return get(name) not in (None, "", "0")
+
+
+def flag_float(name: str, default: Any = _UNSET) -> float:
+    v = get(name, default)
+    return float(v if v is not None else 0.0)
+
+
+def flag_int(name: str, default: Any = _UNSET) -> int:
+    v = get(name, default)
+    # int("3.0") raises: go through float
+    return int(float(v if v is not None else 0))
 
 
 def _audit(name: str, old: Optional[str], new: Optional[str]) -> None:
@@ -164,3 +175,44 @@ register("CEPH_TPU_TIER", "1", "process",
          "hot-set read tier; 0 = every read from the store")
 register("CEPH_TPU_LOCKDEP", "0", "startup",
          "runtime lock-order detector")
+register("CEPH_TPU_DEBUG", None, "startup",
+         "daemon debug logging")
+
+# -- the OSD data path --------------------------------------------------
+register("CEPH_TPU_HEDGE", "1", "process",
+         "hedged shard reads; 0 = single-attempt gathers")
+register("CEPH_TPU_TRACE", "1", "process",
+         "critical-path span layer; 0 = spans off")
+register("CEPH_TPU_ENCODE_SERVICE", "1", "startup",
+         "micro-batching encode service; 0 = inline encodes")
+register("CEPH_TPU_ENCODE_BATCH_WINDOW_MS", "1.0", "startup",
+         "encode-service batch window milliseconds")
+register("CEPH_TPU_ENCODE_BATCH_BYTES", str(8 << 20), "startup",
+         "encode-service batch byte ceiling")
+register("CEPH_TPU_GROUP_COMMIT", "1", "startup",
+         "group-commit fsync barriers; 0 = one commit per txn")
+register("CEPH_TPU_GROUP_COMMIT_WINDOW_MS", "0.5", "startup",
+         "group-commit accumulation window (ms)")
+register("CEPH_TPU_GROUP_COMMIT_TXNS", "64", "startup",
+         "group-commit max transactions per batch")
+register("CEPH_TPU_GROUP_COMMIT_BYTES", str(4 << 20), "startup",
+         "group-commit max payload bytes per batch")
+register("CEPH_TPU_FUSE_MIN_BYTES", None, "process",
+         "object-size floor for the fused encode+crc dispatch")
+
+# -- QoS / scheduling ---------------------------------------------------
+register("CEPH_TPU_QOS", "1", "startup",
+         "per-tenant mClock classes + admission gate; 0 = one "
+         "shared client class")
+register("CEPH_TPU_DMCLOCK", "1", "process",
+         "distributed mClock delta/rho piggybacking: MOSDOp carries "
+         "per-tenant service deltas so tags are cluster-consistent; "
+         "0 = per-OSD tags only")
+register("CEPH_TPU_OP_FAST_LANE", "1", "startup",
+         "sub-chunk write fast lane; 0 = every op queues")
+register("CEPH_TPU_BREAKER_THRESHOLD", "3", "process",
+         "consecutive failures before a peer breaker opens")
+register("CEPH_TPU_BREAKER_BACKOFF_S", "0.5", "process",
+         "initial open-state backoff seconds")
+register("CEPH_TPU_BREAKER_BACKOFF_MAX_S", "30.0", "process",
+         "open-state backoff ceiling seconds")

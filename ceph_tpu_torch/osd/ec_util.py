@@ -11,18 +11,24 @@ ECUtil parity:
   (HashInfo), fused on the device: on a CUDA codec the parity and every
   chunk's crc come from one call (ec/plan.encode_with_crc) and fold into
   the ledger on the host.  On the CPU it is encode plus the host crc;
+- encode_many_with_hinfo / encode_many: N objects of one profile in one
+  fused call (the encode service's flush);
 - decode_many: requests that share a survivor set decode together, one
-  codec call per group (the coded-compute scan's result-domain decode).
+  codec call per group (the coded-compute scan's result-domain decode);
+- fastest_survivors / choose_decode_set: the read path's survivor choice.
 
 Shards leave as read-only memoryviews of buffers nothing writes again.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 
+from ceph_tpu_torch.common import flags
+from ceph_tpu_torch.common.buffer import as_buffer
 from ceph_tpu_torch.ec.interface import ErasureCodeError
 from ceph_tpu_torch.ops import checksum as cks
 
@@ -199,9 +205,20 @@ def _encode_with_hinfo_device(sinfo: StripeInfo, ec_impl, data,
         return None
     n_stripes = len(data) // width
     k = width // chunk
-    n = ec_impl.get_chunk_count()
     arr = np.frombuffer(data, dtype=np.uint8).reshape(n_stripes, k, chunk)
     parity, crc0 = ec_impl.encode_batch_with_crc(arr, init=0)
+    return _fused_result(ec_impl, arr, parity, crc0, want, data,
+                         logical_len)
+
+
+def _fused_result(ec_impl, arr: np.ndarray, parity: np.ndarray,
+                  crc0: np.ndarray, want: Iterable[int], data,
+                  logical_len: Optional[int]):
+    """One object's (shards, hinfo, data_crc) from the fused outputs:
+    the (B, n) zero-seeded chunk crcs fold into the cumulative ledger,
+    every wanted shard leaves as a frozen contiguous view."""
+    n_stripes, k, chunk = arr.shape
+    n = ec_impl.get_chunk_count()
     hinfo = HashInfo(n)
     hinfo.cumulative_shard_hashes = fold_ledger(crc0, chunk)
     hinfo.total_chunk_size = n_stripes * chunk
@@ -212,6 +229,176 @@ def _encode_with_hinfo_device(sinfo: StripeInfo, ec_impl, data,
             src = arr[:, i, :] if i < k else parity[:, i - k, :]
             shards[i] = _frozen_view(np.ascontiguousarray(src).reshape(-1))
     return shards, hinfo, _data_crc(data, logical_len)
+
+
+def _fuse_min_bytes() -> Optional[int]:
+    """CEPH_TPU_FUSE_MIN_BYTES as an int, or None when unset: set (tests
+    set 0), it engages the batched fused body for codecs on the CPU too,
+    from that many bytes a batch."""
+    env = flags.get("CEPH_TPU_FUSE_MIN_BYTES")
+    if env is None:
+        return None
+    try:
+        return int(env)
+    except ValueError:
+        # a typo'd knob must not silently change the tier: warn, unset
+        print(f"# CEPH_TPU_FUSE_MIN_BYTES={env!r} is not an integer;"
+              " ignored", file=sys.stderr)
+        return None
+
+
+def device_fused_available(ec_impl) -> bool:
+    """True when the encode service may batch this codec's encodes into
+    one fused call: the codec runs on CUDA (or CEPH_TPU_FUSE_MIN_BYTES
+    is set), has an identity chunk mapping and the fused batched entry
+    points."""
+    return ((bool(getattr(ec_impl, "use_tpu", False))
+             or _fuse_min_bytes() is not None)
+            and not ec_impl.get_chunk_mapping()
+            and hasattr(ec_impl, "encode_batch_with_crc")
+            and hasattr(ec_impl, "encode_many_with_crc"))
+
+
+def encode_many_with_hinfo(sinfo: StripeInfo, ec_impl, items
+                           ) -> List[Tuple[Dict[int, memoryview],
+                                           "HashInfo", Optional[int]]]:
+    """N whole-object encodes of one codec profile in ONE fused call.
+
+    ``items`` is a sequence of ``(data, want, logical_len)`` tuples;
+    returns per-item ``(shards, hinfo, data_crc)`` exactly as
+    encode_with_hinfo would produce.  Objects of different sizes share
+    the call (their stripes concatenate).  When the fused call does not
+    apply (the codec or a geometry does not fit), the items run through
+    encode_with_hinfo one by one — the same results."""
+    items = list(items)
+    if not items:
+        return []
+    fused = _encode_many_device(sinfo, ec_impl, items)
+    if fused is not None:
+        return fused
+    return [encode_with_hinfo(sinfo, ec_impl, d, w, logical_len=l)
+            for d, w, l in items]
+
+
+def _encode_many_device(sinfo: StripeInfo, ec_impl, items):
+    """Batched twin of _encode_with_hinfo_device: the CEPH_TPU_FUSE_MIN_
+    BYTES floor applies to the TOTAL batch.  None when any item cannot
+    ride the fused call (the caller then encodes them one by one)."""
+    if not device_fused_available(ec_impl):
+        return None
+    width = sinfo.get_stripe_width()
+    chunk = sinfo.get_chunk_size()
+    if ec_impl.get_chunk_size(width) != chunk:
+        return None
+    datas = []
+    total = 0
+    for d, _w, _l in items:
+        d = as_buffer(d)
+        if len(d) == 0 or len(d) % width:
+            return None
+        datas.append(d)
+        total += len(d)
+    if total < max(_fuse_min_bytes() or 0, 1):
+        return None
+    k = width // chunk
+    arrs = [np.frombuffer(d, dtype=np.uint8).reshape(-1, k, chunk)
+            for d in datas]
+    out = ec_impl.encode_many_with_crc(arrs, init=0)
+    if out is None:
+        return None
+    return [_fused_result(ec_impl, arr, parity, crc0, want, d, logical_len)
+            for (_d, want, logical_len), d, arr, (parity, crc0)
+            in zip(items, datas, arrs, out)]
+
+
+def encode_many(sinfo: StripeInfo, ec_impl, datas,
+                wants) -> List[Dict[int, memoryview]]:
+    """N plain whole-object encodes (same profile) in one call.
+
+    Shard streams are chunk-aligned, so cross-object batching is
+    concatenation along the stripe axis: ONE ``encode`` of the joined
+    bytes, then each object's shard slices come back out.  An error
+    raises; the encode service's batch body isolates it per item."""
+    datas = list(datas)
+    wants = [set(w) for w in wants]
+    if len(datas) != len(wants):
+        raise ValueError("one want set per object")
+    width = sinfo.get_stripe_width()
+    chunk = sinfo.get_chunk_size()
+
+    def one(d, w) -> Dict[int, memoryview]:
+        return encode(sinfo, ec_impl, as_buffer(d), w)
+
+    if len(datas) <= 1 or any(len(d) % width for d in datas):
+        return [one(d, w) for d, w in zip(datas, wants)]
+    union = set().union(*wants)
+    # b"".join takes memoryview/bytearray parts straight off the buffer
+    # protocol: one copy of every payload
+    full = encode(sinfo, ec_impl, b"".join(datas), union)
+    out: List[Dict[int, memoryview]] = []
+    offsets = {s: 0 for s in union}
+    for d, w in zip(datas, wants):
+        shard_len = (len(d) // width) * chunk
+        shards = {}
+        # offsets advance for EVERY union shard — each item owns a
+        # shard_len slice of every joined stream whether or not it
+        # asked for that shard
+        for s in union:
+            if s in w:
+                shards[s] = full[s][offsets[s]:offsets[s] + shard_len]
+            offsets[s] += shard_len
+        out.append(shards)
+    return out
+
+
+def fastest_survivors(ec_impl, have: Mapping[int, bytes], k: int,
+                      prefer=None) -> Dict[int, bytes]:
+    """Choose a decodable subset of survivor shard streams.
+
+    The payloads are already fetched, so decode COST dominates the
+    choice: available data shards always rank first (all-data decode
+    is a free interleave — no GF launch), and only the erasure
+    fill-ins among parity shards follow the caller's rank order
+    (fastest peers first — the hedge tracker's EWMA ranking feeds
+    `prefer`).
+
+    Grows the candidate set in that order until the codec's
+    minimum_to_decode accepts it, then returns exactly the minimum
+    streams.  Deterministic for a fixed rank, so objects decoded in
+    the same wave keep sharing survivor sets (the decode_many
+    batching key).  Raises the codec's error when even the full
+    survivor set cannot decode."""
+    if not have:
+        raise ValueError("no survivors")
+    want = {ec_impl.chunk_index(i) for i in range(k)}
+    rank = prefer if prefer is not None else (lambda s: (s,))
+    order = sorted(have, key=lambda s: (s not in want, rank(s)))
+    for j in range(min(k, len(order)), len(order) + 1):
+        try:
+            minimum = ec_impl.minimum_to_decode(want, set(order[:j]))
+        except Exception:
+            if j >= len(order):
+                raise
+            continue
+        return {i: have[i] for i in minimum}
+    raise AssertionError("unreachable")  # loop returns or re-raises
+
+
+def choose_decode_set(ec_impl, have: Mapping[int, bytes], k: int,
+                      prefer=None, first_k: bool = False,
+                      ) -> Optional[Dict[int, bytes]]:
+    """fastest_survivors plus the daemon's failure policy.
+
+    Returns the minimal decodable survivor map.  When no subset
+    decodes: the first k shards by index if `first_k` (paths that
+    leave below-k adjudication to the decode itself), else None (read
+    paths that answer EIO)."""
+    try:
+        return fastest_survivors(ec_impl, have, k, prefer=prefer)
+    except Exception:
+        if first_k:
+            return {s: have[s] for s in sorted(have)[:k]}
+        return None
 
 
 def decode_many(sinfo: StripeInfo, ec_impl, maps) -> List[memoryview]:

@@ -180,6 +180,22 @@ Phases; any failure exits nonzero and prints no result line:
    mon stat round trips per second secure and signed, a commit and its
    map at the subscriber, health (first and cached), re-election, the
    restart's catch-up, the mappings.  All mon processes die in a finally.
+3i. The OSD daemons and the RADOS client (BASELINE config 5 below RGW):
+   one port mon and 12 port OSDs on the card in one loop, pools rgw.data
+   (EC 8+3, 64 KiB stripe units) and rgw.meta (size 3); the launch
+   counters zeroed, a 64 MiB PUT as 16 objects of 4 MiB in four parts in
+   flight (3 trials), meta objects, every object read back, a ranged read,
+   an unaligned 1 MiB overwrite, one traced 4 MiB write_full, then one and
+   three OSDs killed, marked down and every object read; the counters
+   read.  Checks: every read exact, every shard's hinfo against
+   encode_with_hinfo on the CPU, every store's shard objects, xattrs and
+   pg logs against a device="cpu" twin cluster, gf_matmul_spec launched
+   once per encode-service batch (whole-object writes and the RMW's
+   re-encode), crc32c_blocks twice per whole-object batch, gf_matmul_gen
+   at least once per decode batch and at most once per batched read.
+   Host-clock medians of the PUT's and reads' GiB/s, the traced write
+   split into client, encode service and sub-writes, and (after the
+   counters are read) its encode alone and the pinned staging in it.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -195,9 +211,9 @@ Phases; any failure exits nonzero and prints no result line:
    ((1, 8, 8 MiB) encode, (2048, 8, 4096) decode of 1 and 3 rows), each
    against its plain version, and the placement kernel at phase 3c's.
    Every kernels-line row carries its launches per path (codec, crushtool,
-   osdmap, cluster, codecs, store, store_cluster, compute, mon) and their
-   sum; bloom_positions' row is timed at the tier's geometry and 65536
-   hashes.
+   osdmap, cluster, codecs, store, store_cluster, compute, mon, osd) and
+   their sum; bloom_positions' row is timed at the tier's geometry and
+   65536 hashes.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The card's name and power limit, as
@@ -777,6 +793,7 @@ def cluster_phase(torch, dev, card: str, wrappers: dict) -> dict:
         "steps": steps, "seconds_in_phase": time.perf_counter() - phase_t0,
         "card": card}
     print(json.dumps(result))
+    PHASE_RESULTS["cluster"] = result
     check(all(exact) and read_corrupt_ok, "a cluster read differs from the"
           " written object")
     check(clean_before == [] and clean_after == []
@@ -2647,6 +2664,429 @@ def mon_phase(torch, dev, card: str, wrappers: dict) -> dict:
     return {"launches": launches, "timings": timings}
 
 
+# phase 3i: BASELINE config 5 below RGW through the OSD daemons, in the
+# shape bench.py gives it: one mon and 12 OSDs, 3 to a host, in one asyncio
+# loop; pool rgw.data EC 8+3 with 64 KiB stripe units over OSDs, pool
+# rgw.meta replicated size 3; a 64 MiB PUT as 16 RADOS objects of 4 MiB
+# (rgw_obj_stripe_size), four 16 MiB parts in flight together
+OSD_OSDS, OSD_OSDS_PER_HOST = 12, 3
+OSD_PROFILE = {"plugin": "ec_torch", "technique": "reed_sol_van",
+               "k": str(K), "m": str(M), "crush-failure-domain": "osd",
+               "stripe_unit": "65536"}
+OSD_PUT, OSD_PART, OSD_OBJECT = 64 << 20, 16 << 20, 4 << 20
+OSD_TRIALS = 3              # the first warms
+OSD_META_OBJECTS = 8
+OSD_CONFIG = {"osd_heartbeat_interval": 3.0, "osd_heartbeat_grace": 20.0}
+OSD_MON_CONFIG = {"mon_osd_min_down_reporters": 1}
+OSD_PHASE_TIMEOUT = 300.0
+PHASE_RESULTS: dict = {}    # what a later phase compares with
+
+
+def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3i: the port's OSD daemons and RADOS client on the card.  The
+    PUT in three trials, meta objects, every object read back, a ranged
+    read and an unaligned 1 MiB overwrite (RMW), then one non-primary OSD
+    holding data shards killed and marked down, all 16 objects of a trial
+    read, two more killed (3 = m lost) and read again.  Every read against
+    the written bytes, every shard's hinfo against encode_with_hinfo on
+    the CPU, and the same writes (each PG's in the card's order) through
+    a device="cpu" twin cluster against every store's shard objects,
+    xattrs and logs.  Returns the launches and the numbers."""
+    import asyncio
+
+    from ceph_tpu_torch.device import to_device
+    from ceph_tpu_torch.ec import plan
+    from ceph_tpu_torch.ec.registry import create_erasure_code
+    from ceph_tpu_torch.mon import MonDaemon
+    from ceph_tpu_torch.os.memstore import MemStore
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.daemon import OSDDaemon
+    from ceph_tpu_torch.osd.osdmap import PgId
+    from ceph_tpu_torch.common import tracing
+    from ceph_tpu_torch.os import ObjectId
+    from ceph_tpu_torch.osd.pg_log import PGMETA_OID
+    from ceph_tpu_torch.rados.client import RadosClient
+    from ceph_tpu_torch.rados.embedded import HINFO_ATTR, shard_collection
+
+    phase_t0 = time.perf_counter()
+    payload = np.random.default_rng(SEED + 9).bytes(OSD_PUT)
+    per_part = OSD_PART // OSD_OBJECT
+    n_objs = OSD_PUT // OSD_OBJECT
+
+    def names(trial):
+        return [f"put{trial}.part{p}.{i}" for p in range(OSD_PUT // OSD_PART)
+                for i in range(per_part)]
+
+    def piece(j):
+        return memoryview(payload)[j * OSD_OBJECT:(j + 1) * OSD_OBJECT]
+
+    meta = {f"meta.{i}": np.random.default_rng(SEED + 10 + i).bytes(
+        512 + 97 * i) for i in range(OSD_META_OBJECTS)}
+    rmw_name, rmw_off = names(OSD_TRIALS - 1)[5], 1_000_003
+    rmw_data = np.random.default_rng(SEED + 11).bytes(1 << 20)
+    range_off, range_len = 777_777, 1_234_567
+
+    async def start(device):
+        mon = MonDaemon(OSD_OSDS, osds_per_host=OSD_OSDS_PER_HOST,
+                        config=dict(OSD_MON_CONFIG))
+        addr = await mon.start()
+        osds, stores = {}, {}
+        for i in range(OSD_OSDS):
+            store = MemStore()
+            store.mkfs()
+            store.mount()
+            stores[i] = store
+            osds[i] = OSDDaemon(i, [addr], store=store,
+                                config=dict(OSD_CONFIG), device=device)
+            await osds[i].start()
+        client = RadosClient([addr])
+        await client.connect()
+        await client.create_replicated_pool("rgw.meta", size=3, pg_num=8)
+        await client.create_ec_pool("rgw.data", dict(OSD_PROFILE), pg_num=8)
+        return mon, osds, stores, client
+
+    async def stop(mon, osds, client):
+        await client.shutdown()
+        for osd in osds.values():
+            await osd.stop()
+        await mon.shutdown()
+
+    async def active(mon, osds, pool_id):
+        """Every PG of the pool active on its live primary."""
+        for _ in range(600):
+            ok = True
+            for ps in range(mon.osdmap.pools[pool_id].pg_num):
+                pg = PgId(pool_id, ps)
+                _a, primary = mon.osdmap.pg_to_acting_osds(pg)
+                st = osds[primary].pgs.get(pg) if primary in osds else None
+                ok = ok and st is not None and st.state == "active" and \
+                    osds[primary].osdmap.epoch >= mon.osdmap.epoch
+            if ok:
+                return
+            await asyncio.sleep(0.05)
+        fail(f"pool {pool_id} never went active")
+
+    async def put(io, trial):
+        """The 64 MiB PUT: four 16 MiB parts in flight, each part its
+        four 4 MiB objects in order (the put processor's stripes)."""
+        objs = names(trial)
+
+        async def part(p):
+            for i in range(per_part):
+                j = p * per_part + i
+                await io.write_full(objs[j], piece(j))
+        await asyncio.gather(*(part(p) for p in range(OSD_PUT // OSD_PART)))
+
+    async def get(io, trial):
+        objs = names(trial)
+
+        async def part(p):
+            return [await io.read(objs[p * per_part + i])
+                    for i in range(per_part)]
+        got = await asyncio.gather(*(part(p)
+                                     for p in range(OSD_PUT // OSD_PART)))
+        return [b for part_objs in got for b in part_objs]
+
+    async def writes(io, mio):
+        """Three PUTs, then the meta objects.  Returns each PUT's
+        seconds."""
+        put_s = []
+        for trial in range(OSD_TRIALS):
+            t0 = time.perf_counter()
+            await put(io, trial)
+            put_s.append(time.perf_counter() - t0)
+        for name, data in meta.items():
+            await mio.write_full(name, data)
+        return put_s
+
+    def data_of(name):
+        return piece(names(int(name[3])).index(name))
+
+    def pg_logs(mon, stores, pool_id):
+        """Each PG's log entries (oid, op, version) in order, from its
+        primary's store: the order the concurrent parts' writes took."""
+        out = {}
+        for ps in range(mon.osdmap.pools[pool_id].pg_num):
+            pg = PgId(pool_id, ps)
+            acting, primary = mon.osdmap.pg_to_acting_osds(pg)
+            cid = shard_collection(pg, acting.index(primary))
+            omap = stores[primary].omap_get(cid, ObjectId(PGMETA_OID))
+            out[ps] = [(e["oid"], e["op"], e["version"])
+                       for e in json.loads(omap["log"])]
+        return out
+
+    def snapshot(stores, pool_id):
+        """Every shard object's bytes and xattrs, per OSD (the pg-meta
+        omap holds hit sets sealed on the clock, so it is left out)."""
+        out = {}
+        for osd_id, store in stores.items():
+            for cid in store.list_collections():
+                if not cid.startswith(f"{pool_id}."):
+                    continue
+                for oid in store.list_objects(cid):
+                    if oid.name.startswith("_"):
+                        continue
+                    out[(osd_id, cid, oid.name)] = (
+                        store.read(cid, oid), store.getattrs(cid, oid))
+        return out
+
+    def service_counts(osd):
+        """An OSD's encode-service counters, with its requests and batches
+        by bucket kind (encode_hinfo, encode, decode)."""
+        out = dict(osd.encode_service.counters)
+        for label, prof in osd.encode_service.stats()["profiles"].items():
+            kind = label.split("[", 1)[0]
+            for key in ("requests", "batches"):
+                out[f"{kind}_{key}"] = out.get(f"{kind}_{key}", 0) \
+                    + prof[key]
+        return out
+
+    result: dict = {"phase": "osd", "osds": OSD_OSDS,
+                    "hosts": OSD_OSDS // OSD_OSDS_PER_HOST,
+                    "put_bytes": OSD_PUT, "object_bytes": OSD_OBJECT,
+                    "trials": OSD_TRIALS, "card": card}
+    exact = []
+
+    async def drive():
+        mon, osds, stores, client = await start(dev)
+        try:
+            check(all(o.device.type == "cuda" for o in osds.values()),
+                  "an OSD is not on the card")
+            data_id = mon.osdmap.lookup_pool("rgw.data")
+            meta_id = mon.osdmap.lookup_pool("rgw.meta")
+            await active(mon, osds, data_id)
+            await active(mon, osds, meta_id)
+            io = client.open_ioctx("rgw.data")
+            mio = client.open_ioctx("rgw.meta")
+            # the main path, its counts zeroed just before it; every OSD
+            # kept for its service's counters (the killed ones' too)
+            everyone = dict(osds)
+            for fn in wrappers.values():
+                fn.launches = 0
+            svc0 = {i: service_counts(o) for i, o in everyone.items()}
+            put_s = await writes(io, mio)
+            read_s = []
+            for trial in range(OSD_TRIALS):
+                t0 = time.perf_counter()
+                got = await get(io, trial)
+                read_s.append(time.perf_counter() - t0)
+                exact.extend(g == piece(j) for j, g in enumerate(got))
+            for name, data in meta.items():
+                exact.append(await mio.read(name) == data)
+            rng_got = await io.read(names(0)[3], range_off, range_len)
+            exact.append(rng_got == piece(3)[range_off:range_off
+                                              + range_len])
+            t0 = time.perf_counter()
+            await io.write(rmw_name, rmw_data, rmw_off)
+            rmw_s = time.perf_counter() - t0
+            rmw_want = bytearray(piece(5))
+            rmw_want[rmw_off:rmw_off + len(rmw_data)] = rmw_data
+            exact.append(await io.read(rmw_name) == bytes(rmw_want))
+            snap = snapshot(stores, data_id)
+            meta_snap = snapshot(stores, meta_id)
+            logs = pg_logs(mon, stores, data_id)
+
+            # one 4 MiB write_full traced end to end: the client's span,
+            # the primary's op tree and the encode flush it rode
+            client.trace_all = True
+            tname = "traced.0"
+            t0 = time.perf_counter()
+            await io.write_full(tname, piece(0))
+            traced_s = time.perf_counter() - t0
+            client.trace_all = False
+            cspan = [s for s in client.tracer.dump()
+                     if s["name"].endswith(tname)][-1]
+            pg = io.object_pg(tname)
+            _a, primary = mon.osdmap.pg_to_acting_osds(pg)
+            tree = osds[primary].tracer.dump(int(cspan["trace_id"], 16))
+            op = [s for s in tree if s["name"].startswith("osd_op")][0]
+            cp = tracing.critical_path([s for s in tree])
+            flushes = [s for s in osds[primary].tracer.dump()
+                       if s["name"].startswith("encode_flush")
+                       and f"{op['trace_id']}/{op['span_id']}"
+                       in s.get("links", [])]
+            sub_us = [s["duration_us"] for s in tree
+                      if s["name"].startswith("subwrite")]
+            result["write_4mib_breakdown_s"] = {
+                "client_total": cspan["duration_us"] / 1e6,
+                "host_clock_total": traced_s,
+                "client_send_and_reply": (cspan["duration_us"]
+                                          - op["duration_us"]) / 1e6,
+                "primary_op": op["duration_us"] / 1e6,
+                "encode_wait": sum(s["duration_us"] for s in tree
+                                   if s["name"] == "encode_wait") / 1e6,
+                "encode_dispatch": (flushes[0]["attrs"]["dispatch_ms"] / 1e3
+                                    if flushes else None),
+                "subwrite_fanout_and_commits": (max(sub_us) / 1e6
+                                                if sub_us else None),
+                "critical_path_stages_s": {k: v / 1e6 for k, v in
+                                           cp["stages"].items()}}
+            # the encode of that write alone is timed after the counts
+            # are read: its launches are not the OSD path's
+            codec = osds[primary]._codec(data_id)
+            sinfo = osds[primary]._sinfo(data_id)
+            arr = np.frombuffer(piece(0), np.uint8).reshape(
+                -1, K, sinfo.get_chunk_size())
+
+            # degraded reads: a non-primary OSD holding data shards, then
+            # two more (3 lost = m); each marked down through the mon
+            pgs = [io.object_pg(n) for t in range(OSD_TRIALS)
+                   for n in names(t)]
+            acting = {pg: mon.osdmap.pg_to_acting_osds(pg) for pg in pgs}
+            primaries = {p for _a, p in acting.values()}
+            holders: dict = {}
+            for pg in pgs:
+                for shard, osd in enumerate(acting[pg][0][:K]):
+                    holders[osd] = holders.get(osd, 0) + 1
+            order = sorted(holders, key=lambda o: (o in primaries,
+                                                   -holders[o], o))
+            victims = order[:3]
+            deg_s = {}
+            for key, kill in (("read_1_lost", victims[:1]),
+                              ("read_3_lost", victims[1:3])):
+                for v in kill:
+                    await osds.pop(v).kill()
+                    rc, out = await client.mon_command(
+                        {"prefix": "osd down", "osd": v})
+                    check(rc == 0, f"osd down {v}: {out}")
+                await active(mon, osds, data_id)
+                deg_s[key] = []
+                # each pass reads one PUT's objects once: the interval
+                # change emptied the read tier, so every read decodes
+                for trial in range(OSD_TRIALS):
+                    t0 = time.perf_counter()
+                    got = await get(io, trial)
+                    deg_s[key].append(time.perf_counter() - t0)
+                    want = [bytes(rmw_want) if names(trial)[j] == rmw_name
+                            else piece(j) for j in range(n_objs)]
+                    exact.extend(g == w for g, w in zip(got, want))
+            launches = {n: fn.launches for n, fn in wrappers.items()}
+            svc = {}
+            for i, o in everyone.items():
+                for k2, v in service_counts(o).items():
+                    svc[k2] = svc.get(k2, 0) + v - svc0[i].get(k2, 0)
+            hist: dict = {}
+            for o in everyone.values():
+                for prof in o.encode_service.stats()["profiles"].values():
+                    for size, cnt in prof["batch_size_hist"].items():
+                        hist[size] = hist.get(size, 0) + cnt
+            # the encode of one 4 MiB write alone, and the pinned
+            # staging in it
+            result["write_4mib_encode_s"] = {
+                "encode_with_hinfo": host_median_s(
+                    torch, lambda: ec_util.encode_with_hinfo(
+                        sinfo, codec, piece(0), range(K + M),
+                        logical_len=OSD_OBJECT)),
+                "plan_encode_with_crc": host_median_s(
+                    torch, lambda: plan.encode_with_crc(codec.matrix, arr,
+                                                        dev)),
+                "to_device_pinned_staging": host_median_s(
+                    torch, lambda: to_device(arr, dev))}
+            result.update({
+                "launches": launches, "victims": victims,
+                "victims_primary_of_a_data_pg": [v in primaries
+                                                 for v in victims],
+                "encode_service": svc, "batch_size_hist": hist,
+                "seconds": {"put": put_s, "read": read_s, **deg_s,
+                            "rmw_1mib": rmw_s}})
+            return snap, meta_snap, logs
+        finally:
+            await stop(mon, osds, client)
+
+    async def drive_twin(logs):
+        """The same writes on a device="cpu" cluster, each PG's in the
+        order its log took on the card (the parts in flight interleave
+        there at the card's pace, and an object's version is its place
+        in that order)."""
+        mon, osds, stores, client = await start("cpu")
+        try:
+            data_id = mon.osdmap.lookup_pool("rgw.data")
+            meta_id = mon.osdmap.lookup_pool("rgw.meta")
+            await active(mon, osds, data_id)
+            await active(mon, osds, meta_id)
+            io = client.open_ioctx("rgw.data")
+            mio = client.open_ioctx("rgw.meta")
+            for ps, entries in sorted(logs.items()):
+                for k, (oid, op, _v) in enumerate(entries):
+                    check(op == "modify", f"pg {ps}: a {op} entry")
+                    if oid == rmw_name and all(o != oid for o, _p, _w
+                                               in entries[k + 1:]):
+                        await io.write(oid, rmw_data, rmw_off)
+                    else:
+                        await io.write_full(oid, data_of(oid))
+            for name, data in meta.items():
+                await mio.write_full(name, data)
+            return (snapshot(stores, data_id), snapshot(stores, meta_id),
+                    pg_logs(mon, stores, data_id))
+        finally:
+            await stop(mon, osds, client)
+
+    snap, meta_snap, logs = asyncio.run(
+        asyncio.wait_for(drive(), OSD_PHASE_TIMEOUT))
+    twin, twin_meta, twin_logs = asyncio.run(
+        asyncio.wait_for(drive_twin(logs), OSD_PHASE_TIMEOUT))
+
+    # every shard's hinfo against encode_with_hinfo on the CPU (the RMW'd
+    # object's ledger is the twin's business: an overwrite clears it)
+    cpu_codec = create_erasure_code({**OSD_PROFILE, "device": "cpu"})
+    cpu_sinfo = ec_util.StripeInfo(K, K * 65536)
+    want_hinfo = {}
+    for j in range(n_objs):
+        _s, h, _c = ec_util.encode_with_hinfo(cpu_sinfo, cpu_codec, piece(j),
+                                              range(K + M))
+        want_hinfo[j] = h.to_dict()
+    hinfo_ok, hinfo_n = True, 0
+    for (osd_id, cid, name), (_data, attrs) in snap.items():
+        if not name.startswith("put") or name == rmw_name:
+            continue
+        j = names(int(name[3])).index(name)
+        hinfo_ok = hinfo_ok and json.loads(attrs[HINFO_ATTR]) \
+            == want_hinfo[j]
+        hinfo_n += 1
+    diff = sorted(k for k in set(snap) | set(twin)
+                  if snap.get(k) != twin.get(k))
+    same_as_twin = not diff and meta_snap == twin_meta \
+        and logs == twin_logs
+    launches = result["launches"]
+    gib = OSD_PUT / (1 << 30)
+    med = {k: statistics.median(v[1:] if k in ("put", "read") else v)
+           for k, v in result["seconds"].items() if isinstance(v, list)}
+    result.update({
+        "reads_exact": sum(exact), "reads": len(exact),
+        "hinfo_vs_cpu_encode_ok": hinfo_ok, "hinfo_shards_checked": hinfo_n,
+        "same_as_cpu_twin": same_as_twin, "shard_objects": len(snap),
+        "twin_differs_at": [list(k) for k in diff[:5]],
+        "writes_per_pg": {ps: len(e) for ps, e in logs.items()},
+        "median_s": med,
+        "gib_per_s": {k: gib / v for k, v in med.items()
+                      if k != "rmw_1mib"},
+        "local_cluster_gib_per_s_64mib_object": PHASE_RESULTS.get(
+            "cluster", {}).get("gib_per_s"),
+        "seconds_in_phase": time.perf_counter() - phase_t0})
+    print(json.dumps(result))
+    check(all(exact), "an OSD-path read differs from the written bytes")
+    check(hinfo_ok and hinfo_n >= n_objs * (K + M),
+          "a shard's hinfo differs from encode_with_hinfo on the CPU")
+    check(same_as_twin, "the card cluster's shard objects or xattrs differ"
+          " from the CPU twin's")
+    # each encode-service batch of whole-object writes is one fused call
+    # (one GF launch, two crc launches), each RMW re-encode batch one GF
+    # launch; each decode batch one GF launch per survivor set in it
+    svc = result["encode_service"]
+    hinfo_b, enc_b = (svc.get("encode_hinfo_batches", 0),
+                      svc.get("encode_batches", 0))
+    check(hinfo_b > 0 and enc_b > 0
+          and launches["gf_matmul_spec"] == hinfo_b + enc_b
+          and launches["crc32c_blocks"] == 2 * hinfo_b,
+          f"the OSD path's GF and crc launches {launches} are not its"
+          f" encode service's batches {svc}")
+    check(0 < svc.get("decode_batches", 0) <= launches["gf_matmul_gen"]
+          <= svc.get("decode_requests", 0),
+          f"the OSD path's decode launches {launches} are not its encode"
+          f" service's decode batches {svc}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -2893,6 +3333,9 @@ def main() -> None:
 
     # -- 3h. the monitors and a map subscriber ------------------------------
     mon_state = mon_phase(torch, dev, card, wrappers)
+
+    # -- 3i. the OSD daemons and the RADOS client ----------------------------
+    osd_launches = osd_phase(torch, dev, card, wrappers)
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
@@ -2901,7 +3344,7 @@ def main() -> None:
                "store": store_state["store"],
                "store_cluster": store_state["store_cluster"],
                "compute": compute_state["launches"],
-               "mon": mon_state["launches"]}
+               "mon": mon_state["launches"], "osd": osd_launches}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)
