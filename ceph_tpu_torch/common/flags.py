@@ -199,6 +199,8 @@ register("CEPH_TPU_GROUP_COMMIT_BYTES", str(4 << 20), "startup",
          "group-commit max payload bytes per batch")
 register("CEPH_TPU_FUSE_MIN_BYTES", None, "process",
          "object-size floor for the fused encode+crc dispatch")
+register("CEPH_TPU_MSR_REPAIR", "1", "process",
+         "MSR regenerating repair; 0 = classic k-read rebuild")
 
 # -- QoS / scheduling ---------------------------------------------------
 register("CEPH_TPU_QOS", "1", "startup",

@@ -1,5 +1,6 @@
-"""OSD daemon: the data-plane node (port of the client write, read and
-degraded-read slice of ceph_tpu/osd/daemon.py).
+"""OSD daemon: the data-plane node (port of the client write, read,
+degraded-read, recovery, backfill and scrub slice of
+ceph_tpu/osd/daemon.py).
 
 Reference parity: ceph-osd (the reference's src/osd/OSD.cc,
 PrimaryLogPG.cc, ECBackend.cc, ReplicatedBackend.cc) re-designed on an
@@ -15,8 +16,9 @@ asyncio event loop:
 - peering on map change (PeeringState roles): primary queries shard
   infos+logs (GetInfo/GetLog), elects the authoritative log (max
   last_update), pushes it to peers who merge + rewind divergent entries
-  (PGLog.h:1241-1247), computes per-shard missing sets, then activates
-  and drains queued ops;
+  (PGLog.h:1241-1247), computes per-shard missing sets, recovers
+  missing objects (EC reconstruct + push — the RecoveryOp role,
+  ECBackend.h:249), then activates and drains queued ops;
 - reads gather the first k shards (hedged, osd/hedge.py) and decode
   through the encode service when a data shard is lost;
 - OSD<->OSD heartbeats (OSD.cc:5235 handle_osd_ping) with failure
@@ -26,15 +28,18 @@ Device placement: every EC encode and decode goes through the codec the
 daemon builds on its own device (`device=`, CUDA unless the caller names
 another; the pool's profile carries none): on the card the encode
 service batches concurrent writes into one fused GF + crc32c call
-(gf_matmul_spec, crc32c_blocks) and degraded reads decode on
-gf_matmul_gen.  Placement is per PG on the host; everything else is
-host control-plane.
+(gf_matmul_spec, crc32c_blocks), degraded reads and recovery decode on
+gf_matmul_gen (one launch per survivor set of a wave), a recovery wave
+re-encodes in one gf_matmul_spec launch, and MSR repair rebuilds each
+(lost, helper set) group in one gf_matmul_gen product.  Scrub's digests
+and the hinfo checks are the host's native crc32c.  Placement is per PG
+on the host; everything else is host control-plane.
 
-Not in this slice (ROADMAP A4b): recovery and backfill, scrub and its
-repair, PG splits, snapshots, omap, object classes and watch/notify, the
-compute and inference engines, the admin socket.  Their client ops
-answer EOPNOTSUPP; peering that would need recovery, a post-write
-repair and a pg_num increase raise NotImplementedError.
+Not in this slice (ROADMAP A4b): PG splits, snapshots, omap, object
+classes and watch/notify, the compute and inference engines, the admin
+socket.  Their client ops answer EOPNOTSUPP; a pg_num increase raises
+NotImplementedError.  A recovery decode that raises is not retried on a
+host twin: the object stays missing and the next interval retries it.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import time
 from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Set, Tuple
 
+import numpy as np
 import torch
 
 from ceph_tpu_torch.common import buffer as buffer_mod
@@ -80,6 +86,7 @@ from ceph_tpu_torch.msg.messages import (
     ShardOp,
     decode_kv_map,
     decode_str_list,
+    encode_kv_map,
 )
 from ceph_tpu_torch.ops import checksum as cks
 from ceph_tpu_torch.os import ObjectId, ObjectStore, Transaction
@@ -205,9 +212,12 @@ class PGState:
         self.peer_missing: Dict[int, Dict[str, tuple]] = {}
         self.active_event = asyncio.Event()
         self.peering_task: Optional[asyncio.Task] = None
-        # objects recovery could not reconstruct yet; never set in this
-        # slice (peering that needs recovery raises, _recover_pg)
+        # objects recovery could not reconstruct yet (pg_missing with no
+        # found location); re-peered when the up set changes
         self.unfound = False
+        # in-place recovery retry for unfound leftovers (no interval
+        # change to trigger re-peering)
+        self._unfound_retry: Optional[asyncio.Task] = None
         # per-object write serialization + primary-side extent cache
         # (the ECBackend ExtentCache role): oid -> {"version", "size",
         # "stripes": {stripe_start: logical stripe bytes}}.  Coherent
@@ -439,7 +449,26 @@ class OSDDaemon:
         # data-path transfer/dispatch accounting (perf-counter tier);
         # tests assert small writes/reads move O(stripe), not O(object)
         self.perf = {"subread_bytes": 0, "subwrite_bytes": 0,
-                     "encode_dispatches": 0, "decode_dispatches": 0}
+                     "encode_dispatches": 0, "decode_dispatches": 0,
+                     # objects this shard received as RECOVERY pushes
+                     # (installs of entries from its missing set) —
+                     # the log-based-vs-backfill discriminator: a
+                     # revived OSD with an intact store recovers only
+                     # the log diff, not the whole PG
+                     "recovery_installs": 0,
+                     # repair-bandwidth accounting (ALL codecs): bytes
+                     # the recovery engine pulled over the wire vs
+                     # bytes of lost chunks it rebuilt — the scrapeable
+                     # bytes-read-per-repaired-byte ratio the
+                     # regenerating-code path is judged by
+                     "recovery_bytes_read": 0,
+                     "recovery_bytes_repaired": 0,
+                     # fractional-repair engine: waves served by the
+                     # MSR repair path vs objects that fell back to
+                     # the classic k-read reconstruct
+                     "repair_fragments": 0,
+                     "repair_objects": 0,
+                     "repair_fallbacks": 0}
         # async micro-batching encode/decode front end: concurrent EC
         # ops share fused launches on the card; inline when the codec
         # is on the CPU or CEPH_TPU_ENCODE_SERVICE=0
@@ -455,6 +484,8 @@ class OSDDaemon:
         self.hedge = HedgeTracker(who=f"osd.{osd_id}",
                                   config=self.config)
         self._promote_tasks: Set[asyncio.Task] = set()
+        # post-write repairs scheduled and not yet finished, (pg, oid)
+        self._pending_repairs: Set[Tuple[PgId, str]] = set()
         # completed-op replay cache (osd_reqid_t dedup): a client
         # resend after a lost reply gets the STORED reply instead of
         # re-executing a non-idempotent op.  Keyed (client, tid);
@@ -515,7 +546,18 @@ class OSDDaemon:
                                        profile_of=profile_of)
         if not self._qos_tenants_enabled:
             self.admission.enabled = False
-        # op tracking
+        # backfill/recovery throttle (osd_max_backfills role): at most
+        # N PGs may run _recover_pg concurrently on this OSD.  An
+        # elasticity event (osd out/in, revive) re-peers MANY PGs at
+        # once; without the cap their plan waves all contend for
+        # scheduler slots and device dispatches at the same time and
+        # client reservations starve exactly when the cluster is
+        # already degraded.
+        self._backfill_sem = asyncio.Semaphore(
+            max(int(self.config.get("osd_max_backfills", 1)), 1))
+        self.perf["backfills_active"] = 0
+        self.perf["backfill_waits"] = 0
+        # op tracking + background scrub
         from ceph_tpu_torch.osd.op_tracker import OpTracker
 
         self.op_tracker = OpTracker(
@@ -524,6 +566,8 @@ class OSDDaemon:
             complaint_time=float(self.config.get(
                 "osd_op_complaint_time", 30.0)),
             who=f"osd.{osd_id}")
+        self._scrub_task: Optional[asyncio.Task] = None
+        self.scrub_stats = {"objects": 0, "errors": 0, "repaired": 0}
         # stage-span tracing: head-sampled ring retention (the bulk),
         # tail-based exemplar retention via the op tracker (the ops
         # worth explaining keep their full tree even at rate 0)
@@ -582,6 +626,10 @@ class OSDDaemon:
             await asyncio.sleep(0.02)
         self._hb_task = asyncio.get_running_loop().create_task(
             self._heartbeat_loop())
+        scrub_iv = float(self.config.get("osd_scrub_interval", 0))
+        if scrub_iv > 0:
+            self._scrub_task = asyncio.get_running_loop().create_task(
+                self._scrub_loop(scrub_iv))
         return addr
 
     def _prewarm_device(self) -> None:
@@ -623,6 +671,9 @@ class OSDDaemon:
                                        "acting": list(st.acting)}
                              for pg, st in list(self.pgs.items())},
                 "per-PG state"),
+            "scrub_stats": (
+                lambda cmd: dict(self.scrub_stats),
+                "lifetime scrub object/error/repair counters"),
             "encode_service": (
                 lambda cmd: self.encode_service.stats(),
                 "micro-batching encode service: batch/fill/wait"
@@ -861,11 +912,15 @@ class OSDDaemon:
         # flush the group-commit window: every acked txn is durable
         # and no caller is stranded on an unresolved commit future
         await self.committer.stop()
+        if self._scrub_task is not None:
+            self._scrub_task.cancel()
         if self._hb_task is not None:
             self._hb_task.cancel()
         for ps in self.pgs.values():
             if ps.peering_task is not None:
                 ps.peering_task.cancel()
+            if ps._unfound_retry is not None:
+                ps._unfound_retry.cancel()
         await self.msgr.shutdown()
         if self._own_store:
             self.store.umount()
@@ -875,6 +930,8 @@ class OSDDaemon:
         self._stopping = True
         if self._hb_task is not None:
             self._hb_task.cancel()
+        if self._scrub_task is not None:
+            self._scrub_task.cancel()
         for task in list(self._promote_tasks):
             task.cancel()
         await self.scheduler.stop()
@@ -888,6 +945,8 @@ class OSDDaemon:
         for ps in self.pgs.values():
             if ps.peering_task is not None:
                 ps.peering_task.cancel()
+            if ps._unfound_retry is not None:
+                ps._unfound_retry.cancel()
         await self.msgr.shutdown()
 
     # -- plumbing ----------------------------------------------------------
@@ -1029,8 +1088,20 @@ class OSDDaemon:
                     out = await out  # async handlers (statfs scan)
                 rc = 0
             elif prefix == "scrub":
-                # scrub is not ported yet (ROADMAP A4b)
-                rc, out = EOPNOTSUPP, {"error": "scrub is not ported"}
+                # trigger an immediate scrub of my primary PGs and
+                # report the run's totals (`ceph tell osd.N scrub`)
+                out = {"objects": 0, "errors": 0, "repaired": 0}
+                for pg, state in list(self.pgs.items()):
+                    if state.primary != self.osd_id or \
+                            state.state != "active" or self.osdmap is None:
+                        continue
+                    pool = self.osdmap.pools.get(pg.pool)
+                    if pool is None:
+                        continue
+                    run = await self.scrub_pg(state, pool)
+                    for key in out:
+                        out[key] += run[key]
+                rc = 0
             else:
                 rc, out = EINVAL, {"error": f"unknown command {prefix!r}"}
         except Exception as e:
@@ -1268,6 +1339,9 @@ class OSDDaemon:
                     if state.peering_task is not None:
                         state.peering_task.cancel()
                         state.peering_task = None
+                    if state._unfound_retry is not None:
+                        state._unfound_retry.cancel()
+                        state._unfound_retry = None
                 if not in_acting:
                     state.state = "inactive"
                     state.active_event.clear()
@@ -1648,6 +1722,8 @@ class OSDDaemon:
                         plog.trim_to(
                             int(self.config["osd_min_pg_log_entries"]))
                 # a write (client or recovery push) fills the object in
+                if msg.log_entry is None and msg.oid in plog.missing:
+                    self.perf["recovery_installs"] += 1
                 plog.missing.pop(msg.oid, None)
                 plog.stage(t, cid)
                 # replica-side group commit: concurrent sub-writes on
@@ -1721,9 +1797,7 @@ class OSDDaemon:
                     msg.tid, ENOENT, shard=msg.shard))
                 return
         if getattr(msg, "repair", None) is not None:
-            # fractional-repair reads belong to recovery (ROADMAP A4b)
-            await conn.send(MOSDSubReadReply(
-                msg.tid, EOPNOTSUPP, shard=msg.shard))
+            await self._answer_repair_read(conn, msg, pool)
             return
         rc, data, attrs = self._read_shard(
             msg.pg, msg.shard, msg.oid,
@@ -1738,6 +1812,39 @@ class OSDDaemon:
         await conn.send(MOSDSubReadReply(
             msg.tid, rc, data, attrs if msg.want_attrs else {},
             shard=msg.shard, omap=omap))
+
+    async def _answer_repair_read(self, conn: Connection,
+                                  msg: MOSDSubRead, pool) -> None:
+        """Helper side of regenerating-code repair: read my full
+        chunk, project it against the codec's repair vector for the
+        lost chunk, ship the beta = chunk/alpha byte fragment.  Any
+        mismatch with the primary's view of the codec (no fractional
+        repair, alpha drift, misaligned chunk) answers EOPNOTSUPP —
+        the primary treats that helper as failed and, past d
+        survivors, falls back to the classic k-read path."""
+        lost, alpha = msg.repair
+        rc, data, attrs = self._read_shard(msg.pg, msg.shard, msg.oid,
+                                           0, 0)
+        if rc == 0:
+            codec = self._codec(pool.id) if pool is not None else None
+            if codec is None or \
+                    not getattr(codec, "supports_fractional_repair",
+                                lambda: False)() or \
+                    codec.get_sub_chunk_count() != alpha or \
+                    len(data) % max(alpha, 1):
+                rc, data = EOPNOTSUPP, b""
+            else:
+                try:
+                    frag = await asyncio.to_thread(
+                        codec.repair_project, lost, data)
+                    self.perf["repair_fragments"] += 1
+                    data = frag
+                except Exception:
+                    rc, data = EOPNOTSUPP, b""
+        await conn.send(MOSDSubReadReply(
+            msg.tid, rc, data if rc == 0 else b"",
+            attrs if msg.want_attrs and rc == 0 else {},
+            shard=msg.shard))
 
     # -- peering -----------------------------------------------------------
 
@@ -1919,6 +2026,15 @@ class OSDDaemon:
             plog.info.last_epoch_started = self._epoch()
             state.state = "active"
             state.active_event.set()
+            if state.unfound:
+                self._clog("WRN", f"pg {pg} active with unfound"
+                                  " objects (sources down?)")
+                # leftover missing entries are not only map-change
+                # driven: a recovery PUSH can fail on a transient
+                # timeout with no interval change, and nothing else
+                # would ever retry it — keep retrying in place with
+                # backoff (the DoRecovery requeue discipline)
+                self._schedule_unfound_retry(state, pool)
         except asyncio.CancelledError:
             raise
         except Exception:
@@ -1932,28 +2048,53 @@ class OSDDaemon:
         finally:
             state.peering_task = None
 
-    async def _recover_pg(self, state: PGState, pool,
-                          peer_shards: Dict[int, int]) -> None:
-        """Recover missing objects.  On a clean PG (no shard misses
-        anything) the reference recovers nothing and only persists the
-        primary's log; anything else needs the recovery engine, which
-        this slice does not port: raise, so peering fails loudly and
-        retries."""
-        plog = self._load_log(state, pool)
-        missing = sorted(set(plog.missing).union(
-            *state.peer_missing.values()))
-        if missing:
-            raise NotImplementedError(
-                f"pg {state.pg}: {len(missing)} objects to recover"
-                f" ({missing[:3]}...): recovery and backfill are not"
-                " ported yet (ROADMAP A4b)")
-        cid = self._cid(state.pg, state.my_shard(self.osd_id, pool.type))
-        t = Transaction()
-        if not self.store.collection_exists(cid):
-            t.create_collection(cid)
-        plog.stage(t, cid)
-        # recovery barrier: drained bypass, never windowed
-        await self.committer.commit_now(t)
+    def _schedule_unfound_retry(self, state: PGState, pool) -> None:
+        """Re-run recovery for an active PG that still carries missing
+        entries, with backoff, until it drains or the interval moves
+        on (then peering owns it again).  Armed from EVERY path that
+        can leave entries behind without an interval change —
+        activation, failed recovery pushes, scrub repairs."""
+        interval = state.interval_epoch
+        if state._unfound_retry is not None:
+            return
+        state.unfound = True
+
+        def live_peers() -> Dict[int, int]:
+            out: Dict[int, int] = {}
+            for idx, osd in enumerate(state.acting):
+                if osd == CRUSH_ITEM_NONE or osd == self.osd_id or \
+                        not self.osdmap.is_up(osd):
+                    continue
+                out[idx if pool.type == TYPE_ERASURE
+                    else -(idx + 2)] = osd
+            return out
+
+        async def retry() -> None:
+            backoff = 1.0
+            try:
+                while not self._stopping and state.state == "active" \
+                        and state.interval_epoch == interval \
+                        and state.unfound:
+                    await asyncio.sleep(backoff)
+                    backoff = min(backoff * 2, 8.0)
+                    if state.state != "active" or \
+                            state.interval_epoch != interval:
+                        return
+                    plog = self._load_log(state, pool)
+                    await self._recover_pg(state, pool, live_peers())
+                    state.unfound = bool(plog.missing) or \
+                        any(bool(m)
+                            for m in state.peer_missing.values())
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("osd.%d: unfound retry of %s failed",
+                              self.osd_id, state.pg)
+            finally:
+                state._unfound_retry = None
+
+        state._unfound_retry = \
+            asyncio.get_running_loop().create_task(retry())
 
     async def _retry_peering(self, state: PGState) -> None:
         await asyncio.sleep(0.5)
@@ -2300,6 +2441,1205 @@ class OSDDaemon:
 
     # -- scrub (daemon-side scheduled scrub; PG.cc scrub + be_deep_scrub
     # roles) ---------------------------------------------------------------
+
+    async def _fetch_omap_any(self, state: PGState, pool, oid: str
+                              ) -> Optional[Dict[str, bytes]]:
+        """Best-effort omap fetch from any up holder (recovery needs
+        the omap too, or a recovered replica silently loses it)."""
+        plog = self._load_log(state, pool)
+        if oid not in plog.missing:
+            try:
+                return self.store.omap_get(self._cid(state.pg, -1),
+                                           ObjectId(oid))
+            except (KeyError, IOError):
+                pass
+        for osd in state.acting:
+            if osd == CRUSH_ITEM_NONE or osd == self.osd_id or \
+                    not self.osdmap.is_up(osd):
+                continue
+            tid = self._next_tid()
+            reply = await self._request(
+                osd, MOSDSubRead(tid, state.pg, -1, oid, 0, 1,
+                                 want_omap=True), tid)
+            if reply is not None and reply.rc == 0:
+                return reply.omap
+        return None
+
+    # -- scrub (daemon-side scheduled scrub; PG.cc scrub + be_deep_scrub
+    # roles) ---------------------------------------------------------------
+
+    async def _scrub_loop(self, interval: float) -> None:
+        """Background scrub: walk my primary PGs comparing shard
+        payloads against their recorded digests, repairing through the
+        recovery path."""
+        while not self._stopping:
+            await asyncio.sleep(interval)
+            if self.osdmap is None:
+                continue
+            for pg, state in list(self.pgs.items()):
+                if state.primary != self.osd_id or \
+                        state.state != "active":
+                    continue
+                pool = self.osdmap.pools.get(pg.pool)
+                if pool is None:
+                    continue
+                try:
+                    await self.scrub_pg(state, pool)
+                except asyncio.CancelledError:
+                    raise
+                except Exception:
+                    log.exception("osd.%d: scrub %s failed",
+                                  self.osd_id, pg)
+
+    async def scrub_pg(self, state: PGState, pool) -> Dict[str, int]:
+        """Scrub one PG; returns this run's {objects, errors,
+        repaired}.  Exposed for tests and an admin trigger."""
+        run = {"objects": 0, "errors": 0, "repaired": 0}
+        my_shard = state.my_shard(self.osd_id, pool.type)
+        scrub_interval_epoch = state.interval_epoch
+        # union the listings across the ACTING set: a straggler copy
+        # (e.g. one that missed a remove fan-out) may exist only on a
+        # peer shard, invisible to the primary's own listing — the
+        # reference's scrub maps cover every shard for the same reason
+        name_set = set(self._list_shard_objects(state.pg, my_shard))
+
+        async def peer_listing(osd: int):
+            tid = self._next_tid()
+            return await self._request(
+                osd, MPGQuery(tid, state.pg, state.interval_epoch,
+                              self.osd_id), tid)
+
+        peers = [osd for osd in state.acting
+                 if osd != CRUSH_ITEM_NONE and osd != self.osd_id
+                 and self.osdmap.is_up(osd)]
+        for reply in await asyncio.gather(*(peer_listing(o)
+                                            for o in peers)):
+            if reply is not None:
+                name_set.update(reply.info.get("objects", []))
+        names = sorted(n for n in name_set if not is_internal_name(n))
+        for oid in names:
+            # QoS admit BEFORE taking the object lock: a scrub item
+            # parked in the queue while holding the lock would stall
+            # that object's client ops behind the lowest-priority class
+            async def scrub_one(oid=oid):
+                async with state.obj_lock(oid):
+                    if state.state != "active" or \
+                            state.interval_epoch != scrub_interval_epoch:
+                        return False
+                    await self._scrub_object(state, pool, oid, run)
+                    return True
+
+            if not await self.scheduler.run(sched_mod.SCRUB, 1.0,
+                                            scrub_one):
+                # an interval change mid-scrub hands the PG to
+                # peering; repairs computed against the old acting set
+                # would corrupt state — abort, next pass rescans
+                break
+        self.scrub_stats["objects"] += run["objects"]
+        self.scrub_stats["errors"] += run["errors"]
+        self.scrub_stats["repaired"] += run["repaired"]
+        if run["errors"]:
+            self._clog("ERR", f"scrub {state.pg}: {run['errors']}"
+                              f" inconsistencies, {run['repaired']}"
+                              " repaired")
+        return run
+
+    @staticmethod
+    def _newest_log_entry(plog, oid: str) -> Optional[Dict[str, Any]]:
+        for le in reversed(plog.entries):
+            if le.get("oid") == oid:
+                return le
+        return None
+
+    async def _scrub_object(self, state: PGState, pool, oid: str,
+                            run: Dict[str, int]) -> None:
+        run["objects"] += 1
+        plog = self._load_log(state, pool)
+        if oid in plog.missing or \
+                any(oid in m for m in state.peer_missing.values()):
+            return  # recovery owns this object right now
+        newest = self._newest_log_entry(plog, oid)
+        if newest is not None and newest.get("op") == "delete":
+            # the log says this object was DELETED: any surviving copy
+            # is a straggler that missed the remove fan-out — purge it
+            # rather than adjudicating it as data (reinstalling would
+            # resurrect a deletion the client was acked for)
+            await self._purge_deleted_stragglers(state, pool, oid,
+                                                 ev(newest["version"]))
+            return
+        # gather with explicit per-copy identity: (acting position,
+        # osd, payload, attrs) — candidate order from the generic
+        # gather cannot identify WHICH replica a copy came from
+        copies: List[Tuple[int, int, bytes, Dict[str, bytes]]] = []
+
+        async def fetch(idx: int, osd: int, shard: int) -> None:
+            if osd == self.osd_id:
+                rc, data, at = self._read_shard(state.pg, shard, oid)
+            else:
+                tid = self._next_tid()
+                reply = await self._request(
+                    osd, MOSDSubRead(tid, state.pg, shard, oid), tid)
+                if reply is None or reply.rc != 0:
+                    return
+                rc, data, at = 0, reply.data, reply.attrs
+            if rc == 0:
+                copies.append((idx, osd, data, at))
+
+        jobs = []
+        expected: List[Tuple[int, int]] = []
+        for idx, osd in enumerate(state.acting):
+            if osd == CRUSH_ITEM_NONE or not self.osdmap.is_up(osd):
+                continue
+            shard = idx if pool.type == TYPE_ERASURE else -1
+            expected.append((idx, osd))
+            jobs.append(fetch(idx, osd, shard))
+        await asyncio.gather(*jobs)
+        if not copies:
+            return
+        # an up acting member that should hold the object but returned
+        # nothing IS an inconsistency (a silently lost copy) — count it
+        # and repair it like a corrupt one
+        absent = [(idx, osd) for idx, osd in expected
+                  if not any(c[0] == idx for c in copies)]
+        k = self._codec(pool.id).get_data_chunk_count() \
+            if pool.type == TYPE_ERASURE else 1
+        versions: Dict[tuple, int] = {}
+        for _idx, _osd, _data, at in copies:
+            v = self._oi_version(at)
+            if v is not None:
+                versions[v] = versions.get(v, 0) + 1
+        auth = [v for v, n in versions.items() if n >= k]
+        if not auth:
+            # no version reaches k among the acting HEADS — a
+            # soft-failed write fan-out left mixed generations.
+            # Re-select across heads + rollback generations + strays
+            # and reinstall every acting shard (the roll-forward/
+            # roll-back decision ECBackend encodes in log entries,
+            # recomputed from the data itself).
+            run["errors"] += 1
+            if await self._repair_mixed_generations(state, pool, oid):
+                run["repaired"] += 1
+            return
+        version = max(auth)
+        bad: List[Tuple[int, int]] = []  # (acting idx, osd)
+        # a copy at any OTHER version than the adjudicated one is
+        # stale (older: missed a write fan-out; newer: an unacked
+        # partial that lost — ECBackend would roll it back).  Without
+        # this, a soft-timed-out shard stays divergent forever while
+        # the k-quorum masks it, and redundancy silently degrades.
+        for idx, osd, _payload, at in copies:
+            if self._oi_version(at) != version:
+                bad.append((idx, osd))
+        if pool.type == TYPE_ERASURE:
+            # hinfo chunk crcs identify the corrupt shard exactly
+            # (be_deep_scrub re-hash, ECBackend.cc:2494); RMW-era
+            # objects without chunk hashes fall back to the version
+            # agreement already checked above
+            for idx, osd, payload, at in copies:
+                if self._oi_version(at) != version:
+                    continue
+                if not _hinfo_chunk_ok(at, idx, payload):
+                    bad.append((idx, osd))
+        else:
+            # replicated: a STRICT majority digest wins; dissenters are
+            # corrupt.  A tie (1-vs-1 on a 2-copy object) is
+            # undecidable — repairing on a tie can destroy the good
+            # copy, so it is reported and left alone (inconsistent).
+            digests: Dict[int, List[Tuple[int, int]]] = {}
+            voters = 0
+            for idx, osd, payload, at in copies:
+                if self._oi_version(at) != version:
+                    continue
+                voters += 1
+                d = cks.crc32c(0xFFFFFFFF, payload)
+                digests.setdefault(d, []).append((idx, osd))
+            if len(digests) > 1:
+                majority = max(digests.values(), key=len)
+                if len(majority) * 2 > voters:
+                    # EXTEND: version-stale copies collected above must
+                    # not be discarded by the digest adjudication
+                    bad.extend(who for members in digests.values()
+                               if members is not majority
+                               for who in members)
+                else:
+                    run["errors"] += 1
+                    log.warning(
+                        "osd.%d: scrub %s/%s: digest tie (%d groups),"
+                        " cannot adjudicate — left inconsistent",
+                        self.osd_id, state.pg, oid, len(digests))
+                    return
+        bad.extend(absent)
+        if not bad:
+            return
+        run["errors"] += len(bad)
+        log.warning("osd.%d: scrub %s/%s: %d bad cop%s at %s",
+                    self.osd_id, state.pg, oid, len(bad),
+                    "y" if len(bad) == 1 else "ies", bad)
+        repaired = await self._scrub_repair(state, pool, oid, bad,
+                                            version)
+        run["repaired"] += repaired
+
+    async def _purge_deleted_stragglers(self, state: PGState, pool,
+                                        oid: str,
+                                        del_version: tuple) -> None:
+        """Remove copies of an object the log says was deleted at
+        del_version from every acting shard that still holds one."""
+        pg = state.pg
+        for idx, osd in enumerate(state.acting):
+            if osd == CRUSH_ITEM_NONE:
+                continue
+            shard = idx if pool.type == TYPE_ERASURE else -1
+            if osd == self.osd_id:
+                rc, _d, at = self._read_shard(pg, shard, oid, 0, 1)
+                if rc == 0:
+                    v = self._oi_version(at)
+                    if v is None or v < del_version:
+                        t = Transaction()
+                        cid = self._cid(pg, shard)
+                        t.remove(cid, ObjectId(oid))
+                        t.remove(cid, ObjectId(RB_PREFIX + oid))
+                        # scrub barrier: bypass the window (drain +
+                        # inline) so the purge cannot reorder around
+                        # in-window client txns
+                        await self.committer.commit_now(t)
+                        log.info("osd.%d: scrub purged deleted"
+                                 " straggler %s/%s (shard %d)",
+                                 self.osd_id, pg, oid, shard)
+            elif self.osdmap.is_up(osd):
+                cands, _ok = await self._read_candidates(
+                    pg, shard, osd, oid, include_rollback=False,
+                    offset=0, length=1)
+                for _s, _p, at in cands:
+                    v = self._oi_version(at)
+                    if v is None or v < del_version:
+                        tid = self._next_tid()
+                        await self._request(
+                            osd, MOSDSubWrite(
+                                tid, pg, shard, oid,
+                                [ShardOp("remove")],
+                                state.interval_epoch, None,
+                                self.osd_id, guard=del_version), tid)
+                        log.info("osd.%d: scrub purged deleted"
+                                 " straggler %s/%s on osd.%d",
+                                 self.osd_id, pg, oid, osd)
+
+    async def _repair_mixed_generations(self, state: PGState, pool,
+                                        oid: str) -> bool:
+        """Reinstall one consistent generation of an object whose
+        acting heads disagree below reconstructibility: select the
+        newest version reaching k across heads + rollback generations
+        + strays, rebuild, and install on EVERY acting shard."""
+        candidates, _c1 = await self._gather_object_shards(
+            state, pool, oid, exclude_missing=False,
+            include_rollback=True)
+        have = {(idx if pool.type == TYPE_ERASURE else -1, osd)
+                for idx, osd in enumerate(state.acting)
+                if osd != CRUSH_ITEM_NONE}
+        strays, _c2 = await self._gather_stray_shards(
+            state, pool, oid, have)
+        candidates += strays
+
+        def attrs_of(version, chosen) -> Dict[str, bytes]:
+            src = next(iter(chosen))
+            for shard, _payload, at in candidates:
+                if shard == src and self._oi_version(at) == version:
+                    return at
+            return {}
+
+        targets = []
+        for idx, osd in enumerate(state.acting):
+            if osd == CRUSH_ITEM_NONE or osd == self.osd_id or \
+                    not self.osdmap.is_up(osd):
+                continue
+            targets.append((idx if pool.type == TYPE_ERASURE
+                            else -(idx + 2), osd))
+        guard = self._plan_guard(candidates)
+        if pool.type == TYPE_REPLICATED:
+            version, chosen, _oi = self._select_consistent(
+                candidates, need=1)
+            if version is None:
+                return False
+            plan = {"kind": "replicated", "oid": oid,
+                    "targets": targets, "i_need": True,
+                    "guard": guard,
+                    "payload": {-1: chosen[next(iter(chosen))]},
+                    "attrs": attrs_of(version, chosen),
+                    "omap": await self._fetch_omap_any(
+                        state, pool, oid)}
+        else:
+            codec = self._codec(pool.id)
+            k = codec.get_data_chunk_count()
+            version, chosen, _oi = self._select_consistent(
+                candidates, need=k, verify_hinfo=True)
+            if version is None:
+                return False  # genuinely below k: recovery/rollback
+                # adjudication owns this on the next peering
+            chosen_k = ec_util.choose_decode_set(
+                codec, chosen, k, prefer=self._shard_rank(state),
+                first_k=True)
+            plan = {"kind": "ec", "oid": oid, "targets": targets,
+                    "i_need": True, "guard": guard,
+                    "chosen": chosen_k,
+                    "attrs": attrs_of(version, chosen), "omap": None}
+            if not await self._batch_reconstruct(pool, [plan]):
+                return False
+        await self._recover_commit(state, pool, plan)
+        log.info("osd.%d: %s/%s: reinstalled generation %s across"
+                 " the acting set", self.osd_id, state.pg, oid,
+                 version)
+        return True
+
+    async def _scrub_repair(self, state: PGState, pool, oid: str,
+                            bad: List[Tuple[int, int]],
+                            version: tuple) -> int:
+        """Repair through the recovery path: drop the corrupt copies,
+        mark them missing AT THE OBJECT'S authoritative version (not
+        the PG head's last_update — recovery's need_v guard compares
+        against this, and an inflated version makes the located,
+        correct copy look too old to install), reconstruct + push."""
+        peer_shards = self._acting_peer_shards(state, pool)
+        plog = self._load_log(state, pool)
+        my_cid = self._cid(state.pg,
+                           state.my_shard(self.osd_id, pool.type))
+        for idx, osd in bad:
+            shard_key = idx if pool.type == TYPE_ERASURE else -(idx + 2)
+            # mark missing WITHOUT removing the data: recovery's
+            # install overwrites the stale copy atomically, so a
+            # failed push leaves the old (degraded but real) copy
+            # instead of destroying it — repeated drop-then-fail
+            # cycles under load would otherwise bleed away every copy
+            # of the authoritative generation one scrub at a time
+            if osd == self.osd_id:
+                t = Transaction()
+                plog.missing[oid] = version
+                # DURABLE missing marker: a crash before recovery must
+                # resume the repair, not strand reduced redundancy
+                # (scrub barrier: drained bypass, never windowed)
+                plog.stage(t, my_cid)
+                await self.committer.commit_now(t)
+            else:
+                state.peer_missing.setdefault(shard_key, {})[oid] = \
+                    version
+        await self._recover_object(state, pool, oid, peer_shards)
+        # count repaired only if recovery actually restored everything
+        still_bad = (oid in plog.missing) or any(
+            oid in m for m in state.peer_missing.values())
+        if still_bad:
+            # arm the in-place retry: nothing else re-runs recovery
+            # for entries created outside peering
+            self._schedule_unfound_retry(state, pool)
+        return 0 if still_bad else len(bad)
+
+    async def _recover_pg(self, state: PGState, pool,
+                          peer_shards: Dict[int, int]) -> None:
+        """Recover missing objects: mine by reconstruct, peers by push.
+
+        Three phases, shaped for the device (the RecoveryOp batching of
+        ECBackend.h:249, re-designed TPU-first):
+        1. PLAN — gather candidate shards for EVERY missing object
+           concurrently (each gather already fans its sub-reads out).
+        2. RECONSTRUCT — group EC objects by survivor-shard set and
+           decode + re-encode each group's concatenated stripe streams
+           in ONE device dispatch per group (dispatch-per-object would
+           pay host<->device latency O(objects) times).
+        3. COMMIT — install/push all objects concurrently.
+        """
+        pg = state.pg
+        # the per-OSD backfill cap: PGs queue here, not in the device
+        # layer.  Taken BEFORE any object lock (same slot/lock
+        # discipline as the pacing token below — a capped PG holds
+        # nothing a client op could be waiting on).
+        if self._backfill_sem.locked():
+            self.perf["backfill_waits"] = \
+                self.perf.get("backfill_waits", 0) + 1
+        async with self._backfill_sem:
+            self.perf["backfills_active"] = \
+                self.perf.get("backfills_active", 0) + 1
+            try:
+                await self._recover_pg_throttled(state, pool,
+                                                peer_shards)
+            finally:
+                self.perf["backfills_active"] -= 1
+
+    async def _recover_pg_throttled(self, state: PGState, pool,
+                                    peer_shards: Dict[int, int]
+                                    ) -> None:
+        pg = state.pg
+        plog = self._load_log(state, pool)
+        my_shard = state.my_shard(self.osd_id, pool.type)
+        # union of all objects anyone is missing
+        todo: Set[str] = set(plog.missing)
+        for missing in state.peer_missing.values():
+            todo.update(missing)
+        order = sorted(todo)
+        # fixed-size waves bound memory (shard streams + reconstructed
+        # payloads resident at once) and in-flight probe RPCs while
+        # keeping the per-wave dispatch batching win
+        WAVE = 64
+        for lo in range(0, len(order), WAVE):
+            wave = order[lo:lo + WAVE]
+            # each object's lock is held from plan through commit:
+            # client writes to an object being recovered wait (and vice
+            # versa), so a push selected at version v can never be
+            # overtaken by a concurrent write at v+1 on the primary
+            # (the wait_for_degraded_object serialization; the replica-
+            # side guard token covers the timed-out-push-in-flight case)
+            #
+            # LOCK/SLOT DISCIPLINE: client ops wait for obj locks while
+            # INSIDE bounded scheduler slots, so a lock holder must
+            # never wait on a slot grant — blocked clients would pin
+            # every slot and wedge the grant loop.  QoS pacing for
+            # recovery therefore uses a pacing token (a slot acquired
+            # and released BEFORE touching any lock); plan and commit
+            # themselves run outside the scheduler.
+            held: Dict[str, Any] = {}
+
+            async def _noop():
+                return None
+
+            async def plan_locked(oid: str):
+                # push-only objects (a peer is behind, this primary is
+                # whole) are BACKFILL work: they ride the best-effort
+                # class so a drain/add wave cannot eat the reservation
+                # budget client ops share with genuine self-recovery
+                cls = sched_mod.RECOVERY if oid in plog.missing \
+                    else sched_mod.BEST_EFFORT
+                await self.scheduler.run(cls, 1.0, _noop)
+                ctx = state.obj_lock(oid)
+                await ctx.__aenter__()
+                held[oid] = ctx
+                return await self._recover_plan(
+                    state, pool, oid, peer_shards)
+
+            try:
+                results = await asyncio.gather(
+                    *(plan_locked(oid) for oid in wave),
+                    return_exceptions=True)
+                plans = []
+                for oid, plan in zip(wave, results):
+                    if isinstance(plan, Exception):
+                        # an unrecoverable object stays missing; the
+                        # next interval retries
+                        log.error(
+                            "osd.%d: recovery plan of %s/%s failed",
+                            self.osd_id, pg, oid, exc_info=plan)
+                        continue
+                    if isinstance(plan, BaseException):  # Cancelled
+                        raise plan
+                    if plan is not None:
+                        plans.append(plan)
+                reconstructed = await self._batch_reconstruct(
+                    pool, [p for p in plans
+                           if p["kind"] in ("ec", "ec_repair")])
+                plans = [p for p in plans
+                         if p["kind"] not in ("ec", "ec_repair")
+                         or p in reconstructed]
+                # commits run OUTSIDE the QoS scheduler: object locks
+                # are held here, and client ops blocked on those locks
+                # sit inside scheduler slots — commits queued behind
+                # them would deadlock the slot pool.  The wave is
+                # already QoS-paced by its plan phase.
+                t_commit = time.monotonic()
+                commits = await asyncio.gather(
+                    *(self._recover_commit(state, pool, plan)
+                      for plan in plans),
+                    return_exceptions=True)
+                # (the port's own stage: the wave's installs and pushes)
+                self.tracer.record_stages({"recover_commit": int(
+                    (time.monotonic() - t_commit) * 1e6)})
+                for plan, res in zip(plans, commits):
+                    if isinstance(res, Exception):
+                        log.error(
+                            "osd.%d: recovery commit of %s/%s failed",
+                            self.osd_id, pg, plan["oid"], exc_info=res)
+                    elif isinstance(res, BaseException):
+                        raise res
+            finally:
+                for ctx in held.values():
+                    await ctx.__aexit__(None, None, None)
+        # persist whatever missing state remains
+        cid = self._cid(pg, my_shard)
+        t = Transaction()
+        if not self.store.collection_exists(cid):
+            t.create_collection(cid)
+        plog.stage(t, cid)
+        # recovery barrier: drained bypass, never windowed
+        await self.committer.commit_now(t)
+
+    async def _recover_object(self, state: PGState, pool, oid: str,
+                              peer_shards: Dict[int, int]) -> None:
+        """Single-object recovery (scrub repair's and
+        wait_for_degraded's entry point): plan, reconstruct, commit —
+        the unbatched form of _recover_pg.  CONTRACT: the caller holds
+        state.obj_lock(oid) (every current caller does), which is what
+        serializes this install against concurrent client writes."""
+        plan = await self._recover_plan(state, pool, oid, peer_shards)
+        if plan is None:
+            return
+        if plan["kind"] in ("ec", "ec_repair") and \
+                not await self._batch_reconstruct(pool, [plan]):
+            return
+        await self._recover_commit(state, pool, plan)
+
+    async def _recover_plan(self, state: PGState, pool, oid: str,
+                            peer_shards: Dict[int, int],
+                            allow_repair: bool = True
+                            ) -> Optional[Dict[str, Any]]:
+        """Locate and select an object's authoritative copy; returns a
+        commit plan or None (unfound — stays missing).
+
+        allow_repair=False forces the classic full-chunk plan even for
+        regenerating codecs — the recursion target when the repair
+        fast path hits a complication (too few helpers, fragment
+        fetch/verify failure)."""
+        pg = state.pg
+        plog = self._load_log(state, pool)
+        state.extent_cache.pop(oid, None)  # recovery rewrites shards
+        targets = [(shard_key, osd)
+                   for shard_key, osd in peer_shards.items()
+                   if oid in state.peer_missing.get(shard_key, {})]
+        i_need = oid in plog.missing
+        # REPAIR-AWARE probe sizing: when every missing target is the
+        # SAME single chunk of a regenerating codec, the plan needs
+        # only versions and attrs from the survivors — 1-byte thin
+        # reads — because the payload will be rebuilt from beta-size
+        # repair fragments shipped by d helpers, never from full
+        # chunks.  Any complication downgrades to the classic plan.
+        repair_lost: Optional[int] = None
+        if allow_repair and pool.type == TYPE_ERASURE and \
+                self._repair_enabled():
+            codec0 = self._codec(pool.id)
+            lost_set = {sk for sk, _o in targets}
+            if i_need:
+                lost_set.add(state.my_shard(self.osd_id, pool.type))
+            if len(lost_set) == 1 and \
+                    codec0.supports_fractional_repair():
+                cand = next(iter(lost_set))
+                if 0 <= cand < codec0.get_chunk_count():
+                    repair_lost = cand
+        probe_len = 1 if repair_lost is not None else 0
+        t_read = time.monotonic()
+        # include_rollback: an acked write that later partial writes
+        # pushed off some heads may survive only in acting members'
+        # rollback generations — recovery (and especially the
+        # no-version purge decision below) must see them
+        candidates, acting_complete = await self._gather_object_shards(
+            state, pool, oid, include_rollback=True, length=probe_len)
+        # always search strays during recovery: after several remaps the
+        # newest acked version may exist only on prior-interval members
+        have = set()
+        for idx, osd in enumerate(state.acting):
+            if osd != CRUSH_ITEM_NONE:
+                have.add((idx if pool.type == TYPE_ERASURE else -1, osd))
+        strays, stray_complete = await self._gather_stray_shards(
+            state, pool, oid, have, length=probe_len)
+        candidates += strays
+        self.tracer.record_stages(
+            {"recover_read": int((time.monotonic() - t_read) * 1e6)})
+        probes_complete = acting_complete and stray_complete
+        # the newest version the PG log says was acked — recovery may
+        # not install anything OLDER unless every possible source was
+        # probed (otherwise a stale stray copy silently rolls back an
+        # acked write while its real holder is down)
+        need_v = plog.missing.get(oid) or ZERO
+        for shard_key, _osd in targets:
+            nv = state.peer_missing.get(shard_key, {}).get(oid) or ZERO
+            if nv > need_v:
+                need_v = nv
+        # causality token for the pushes: the newest version this plan
+        # OBSERVED anywhere.  A replica whose state moved past this
+        # after the plan was made (a newer client write landed) refuses
+        # the push — that push is by definition stale.
+        guard = self._plan_guard(candidates, need_v)
+
+        # DELETE-AWARE adjudication: if the authoritative log's newest
+        # word on this object is a delete (and nothing recreated it
+        # after), the recovered state is ABSENT.  Without this check a
+        # stale replica's older generation reaches k/1 candidates and
+        # recovery would faithfully REINSTALL it — resurrecting an
+        # acked remove (found by the thrash model checker).  The
+        # reference encodes deletes in the missing set as
+        # "need > have, item.is_delete()" (PGLog) for the same reason.
+        newest = self._newest_log_entry(plog, oid)
+        if newest is not None and newest.get("op") == "delete" and \
+                ev(newest["version"]) >= need_v:
+            dv = ev(newest["version"])
+            if dv > guard:
+                guard = dv
+            holders = await self._locate_holders(pg, pool, oid)
+            log.info("osd.%d: %s/%s: newest log entry is a delete at"
+                     " %s — propagating removal (%d stale holders)",
+                     self.osd_id, pg, oid, dv, len(holders))
+            return {"kind": "remove", "oid": oid, "targets": targets,
+                    "i_need": i_need, "purge": True, "guard": guard,
+                    "purge_locations": holders}
+
+        if not candidates:
+            if not probes_complete:
+                # zero copies found but a possible source is down or
+                # unreachable: the object is UNFOUND, not deleted.
+                # Removing here would garbage-collect an acked write
+                # whose only holders are temporarily dead.  Keep it
+                # missing; the PG stays unfound and re-peers on every
+                # map change until a source comes back (the reference
+                # blocks recovery the same way until might_have_unfound
+                # is drained or an OSD is declared lost).
+                log.warning(
+                    "osd.%d: %s/%s unfound (0 copies located, probes"
+                    " incomplete — possible source down)",
+                    self.osd_id, pg, oid)
+                return None
+            # object does not exist at any authoritative source: the
+            # divergent entry was a create nobody kept — remove it
+            return {"kind": "remove", "oid": oid, "targets": targets,
+                    "i_need": i_need, "guard": guard}
+
+        def _attrs_of(version, chosen) -> Dict[str, bytes]:
+            src = next(iter(chosen))
+            for shard, _payload, at in candidates:
+                if shard == src and self._oi_version(at) == version:
+                    return at
+            return {}
+
+        if pool.type == TYPE_REPLICATED:
+            version, chosen, _oi = self._select_consistent(
+                candidates, need=1)
+            if version is None:
+                return None  # no readable copy with object_info: retry
+            if not probes_complete and need_v > version:
+                log.warning(
+                    "osd.%d: %s/%s unfound at acked version %s (best"
+                    " located %s, probes incomplete — possible source"
+                    " down)", self.osd_id, pg, oid, need_v, version)
+                return None
+            return {"kind": "replicated", "oid": oid,
+                    "targets": targets, "i_need": i_need,
+                    "guard": guard,
+                    "payload": {-1: chosen[next(iter(chosen))]},
+                    "attrs": _attrs_of(version, chosen),
+                    "omap": await self._fetch_omap_any(
+                        state, pool, oid)}
+
+        codec = self._codec(pool.id)
+        k = codec.get_data_chunk_count()
+        # thin probes carry 1-byte payloads, so the per-shard CRC
+        # ledger cannot be checked here; the repair path instead
+        # verifies the REBUILT stream against the ledger and falls
+        # back to this plan (full reads, verify_hinfo) on mismatch
+        version, chosen, _oi = self._select_consistent(
+            candidates, need=k, verify_hinfo=repair_lost is None)
+        if version is None:
+            if not probes_complete:
+                # not enough same-version shards REACHABLE yet: the
+                # object stays missing (unfound), a later interval
+                # retries when sources return
+                log.warning("osd.%d: %s/%s unfound (candidate versions"
+                            " %s, probes incomplete)", self.osd_id, pg,
+                            oid, sorted({self._oi_version(at)
+                                         for _s, _p, at in candidates
+                                         if self._oi_version(at)}))
+                return None
+            # EVERY possible source answered and no version — head or
+            # rollback generation — reaches k shards: the logged entry
+            # was an in-progress write that never committed on enough
+            # shards (its older generations were already consumed or
+            # the object was removed before it).  Roll back to the last
+            # complete state, which the candidate set proved is
+            # "object absent" — the role of ECBackend's rollback of
+            # uncommitted log entries (ECBackend.cc try_state_to_reads
+            # rollback path, PGLog rollback metadata).  An acked write
+            # can never land here: ack requires every shard durable, so
+            # some version would reconstruct.
+            log.warning("osd.%d: %s/%s: no reconstructible version"
+                        " after exhaustive probe — rolling back the"
+                        " uncommitted entry (remove)",
+                        self.osd_id, pg, oid)
+            # locate the partial fragments so the purge removes
+            # exactly the holders (quiet + O(holders), not a
+            # cluster-wide broadcast)
+            holders = await self._locate_holders(pg, pool, oid)
+            return {"kind": "remove", "oid": oid, "targets": targets,
+                    "i_need": i_need, "purge": True, "guard": guard,
+                    "purge_locations": holders}
+        if not probes_complete and need_v > version:
+            log.warning(
+                "osd.%d: %s/%s unfound at acked version %s (best"
+                " located %s, probes incomplete — possible source"
+                " down)", self.osd_id, pg, oid, need_v, version)
+            return None
+        if repair_lost is not None:
+            # rank the helper pool by the hedge tracker's EWMAs (the
+            # same octave-quantized key the decode survivor choice
+            # uses) and keep every eligible shard: the fragment fetch
+            # hedges over the tail as straggler replacements
+            rank = self._shard_rank(state)
+            acting = list(state.acting)
+            helper_pool = [
+                s for s in sorted(chosen, key=rank)
+                if s != repair_lost and 0 <= s < len(acting)
+                and acting[s] != CRUSH_ITEM_NONE
+                and self.osdmap.is_up(acting[s])]
+            if len(helper_pool) >= codec.repair_degree():
+                return {"kind": "ec_repair", "oid": oid,
+                        "targets": targets, "i_need": i_need,
+                        "lost": repair_lost,
+                        "helpers": [(s, acting[s])
+                                    for s in helper_pool],
+                        "guard": guard,
+                        "attrs": _attrs_of(version, chosen),
+                        "version": version, "omap": None, "pg": pg,
+                        "state": state,
+                        "peer_shards": dict(peer_shards)}
+            # fewer than d up acting helpers hold this version: the
+            # repair math needs exactly d, so take the classic k-read
+            # plan (which may also use strays/rollback generations)
+            return await self._recover_plan(
+                state, pool, oid, peer_shards, allow_repair=False)
+        # normalize to k shards (what decode consumes) pulled from the
+        # FASTEST survivor set — the hedge tracker's EWMA rank is
+        # stable across a wave, so equal survivor sets batch together
+        # exactly as the old first-k normalization did
+        chosen_k = ec_util.choose_decode_set(
+            codec, chosen, k, prefer=self._shard_rank(state),
+            first_k=True)
+        return {"kind": "ec", "oid": oid, "targets": targets,
+                "i_need": i_need, "chosen": chosen_k, "guard": guard,
+                "attrs": _attrs_of(version, chosen), "omap": None}
+
+    async def _batch_reconstruct(self, pool,
+                                 ec_plans: List[Dict[str, Any]]
+                                 ) -> List[Dict[str, Any]]:
+        """Fill each EC plan's `payload` (all n shard streams): decode
+        groups that share a survivor set in one dispatch each, then
+        re-encode every successful object's data in one dispatch total
+        — shard streams are chunk-aligned, so cross-object batching is
+        plain concatenation along the stripe axis.  Both legs await
+        the encode service, so concurrent recovery waves (and client
+        writes) share device dispatches.  A group whose batch fails
+        is retried item by item by the service on the same codec, so
+        one malformed object cannot livelock the rest of the PG;
+        returns the plans that got payloads.
+
+        `ec_repair` plans take the regenerating-code leg first
+        (_batch_repair: beta-size fragments from d helpers, one
+        plan-cached dispatch per helper set); a repair that cannot
+        complete is RE-PLANNED classic (allow_repair=False, full reads
+        + hinfo verify) in place and rejoins the decode leg — the
+        caller's plan identity is preserved by mutating the dict."""
+        if not ec_plans:
+            return []
+        repair_plans = [p for p in ec_plans if p["kind"] == "ec_repair"]
+        ec_plans = [p for p in ec_plans if p["kind"] != "ec_repair"]
+        done_repair: List[Dict[str, Any]] = []
+        if repair_plans:
+            repaired, fallbacks = await self._batch_repair(
+                pool, repair_plans)
+            done_repair.extend(repaired)
+            for p in fallbacks:
+                self.perf["repair_fallbacks"] += 1
+                try:
+                    p2 = await self._recover_plan(
+                        p["state"], pool, p["oid"], p["peer_shards"],
+                        allow_repair=False)
+                except Exception:
+                    log.exception(
+                        "osd.%d: classic re-plan of %s after repair"
+                        " fallback failed", self.osd_id, p["oid"])
+                    continue
+                if p2 is None:
+                    continue
+                p.clear()
+                p.update(p2)
+                if p["kind"] == "ec":
+                    ec_plans.append(p)
+                else:
+                    # adjudicated remove: needs no reconstruct, commit
+                    # handles it — but it must count as "done" so the
+                    # wave's commit phase keeps the plan
+                    done_repair.append(p)
+        if not ec_plans:
+            return done_repair
+        codec = self._codec(pool.id)
+        sinfo = self._sinfo(pool.id)
+        n = codec.get_chunk_count()
+        chunk = sinfo.get_chunk_size()
+        width = sinfo.get_stripe_width()
+        maps = [p["chosen"] for p in ec_plans]
+        for p in ec_plans:
+            self.perf["recovery_bytes_read"] += sum(
+                len(b) for b in p["chosen"].values())
+        # one fold per distinct survivor set (the service/ec_util
+        # decode_many contract), counted as such
+        self.perf["decode_dispatches"] += len(
+            {tuple(sorted(m)) for m in maps})
+        t_dec = time.monotonic()
+        results = await self.encode_service.decode_many(sinfo, codec,
+                                                        maps)
+        datas: Dict[str, bytes] = {}
+        for p, res in zip(ec_plans, results):
+            if isinstance(res, BaseException):
+                # no host twin: the encode service already retried the
+                # failed batch item by item on this codec and device,
+                # so this is the object's own error (below-k
+                # survivors, malformed streams, a failed launch).  It
+                # stays missing and the next interval retries it, as
+                # an unrecoverable plan does.
+                log.error("osd.%d: reconstruct of %s failed",
+                          self.osd_id, p["oid"], exc_info=res)
+                continue
+            datas[p["oid"]] = res
+        done = [p for p in ec_plans if p["oid"] in datas]
+        if not done:
+            return []
+        # (the port's own stage, inside recover_decode: the re-encode)
+        t_enc = time.monotonic()
+        try:
+            all_data = b"".join(datas[p["oid"]] for p in done)
+            self.perf["encode_dispatches"] += 1
+            full = await self.encode_service.encode(
+                sinfo, codec, all_data, range(n))
+            offsets: Dict[int, int] = {s: 0 for s in range(n)}
+            for p in done:
+                span = len(datas[p["oid"]])
+                shard_len = (span // width) * chunk
+                payload = {}
+                for s in range(n):
+                    payload[s] = full.get(s, b"")[
+                        offsets[s]:offsets[s] + shard_len]
+                    offsets[s] += shard_len
+                p["payload"] = payload
+        except Exception:
+            done2 = []
+            for p in done:
+                try:
+                    self.perf["encode_dispatches"] += 1
+                    p["payload"] = await self.encode_service.encode(
+                        sinfo, codec, datas[p["oid"]], range(n))
+                    done2.append(p)
+                except Exception:
+                    log.exception("osd.%d: re-encode of %s failed",
+                                  self.osd_id, p["oid"])
+            done = done2
+        now = time.monotonic()
+        self.tracer.record_stages(
+            {"recover_decode": int((now - t_dec) * 1e6),
+             "recover_encode": int((now - t_enc) * 1e6)})
+        return done + done_repair
+
+    def _repair_enabled(self) -> bool:
+        """Repair-aware recovery kill switch: CEPH_TPU_MSR_REPAIR=0
+        (env) or osd_msr_repair_enable=false (config) forces the
+        classic k-read reconstruct for every object.  Results are
+        bit-identical either way — repair and full decode agree by
+        construction — so the switch exists for triage, not safety."""
+        if not flags.enabled("CEPH_TPU_MSR_REPAIR"):
+            return False
+        return bool(self.config.get("osd_msr_repair_enable", True))
+
+    async def _batch_repair(
+            self, pool, plans: List[Dict[str, Any]]
+    ) -> Tuple[List[Dict[str, Any]], List[Dict[str, Any]]]:
+        """Regenerating-code leg of _batch_reconstruct: fetch beta =
+        chunk/alpha byte fragments from d helpers per object (hedged —
+        stragglers recruit the next-ranked helper), then rebuild every
+        lost chunk with ONE plan-cached dispatch per (lost, helper
+        set) group: fragment streams of same-group objects concatenate
+        along the byte axis, so cross-object batching is free exactly
+        as in the decode leg.  Returns (done, fallbacks); fallback
+        plans re-enter planning as classic full reads.
+
+        The rebuilt stream is verified against the shard's crc32c
+        ledger (hinfo) before it counts — fragments themselves cannot
+        be CRC-checked, so a corrupt helper surfaces HERE and demotes
+        the object to the verified classic path."""
+        codec = self._codec(pool.id)
+        alpha = codec.get_sub_chunk_count()
+        d = codec.repair_degree()
+        t_read = time.monotonic()
+
+        async def fetch_one(plan: Dict[str, Any]
+                            ) -> Optional[Dict[int, bytes]]:
+            pg, oid = plan["pg"], plan["oid"]
+            lost, want_v = plan["lost"], plan["version"]
+
+            async def frag_job(shard: int, osd: int):
+                ts = time.monotonic()
+                if osd == self.osd_id:
+                    rc, data, at = self._read_shard(pg, shard, oid,
+                                                    0, 0)
+                    self.hedge.observe(osd, time.monotonic() - ts,
+                                       ok=rc in (0, ENOENT))
+                    if rc != 0 or self._oi_version(at) != want_v:
+                        return None
+                    try:
+                        frag = await asyncio.to_thread(
+                            codec.repair_project, lost, data)
+                    except Exception:
+                        return None
+                    self.perf["repair_fragments"] += 1
+                    return (shard, frag)
+                tid = self._next_tid()
+                m = MOSDSubRead(tid, pg, shard, oid)
+                m.repair = (lost, alpha)
+                reply = await self._request(osd, m, tid)
+                self.hedge.observe(osd, time.monotonic() - ts,
+                                   ok=reply is not None
+                                   and reply.rc in (0, ENOENT))
+                if reply is None or reply.rc != 0 or \
+                        self._oi_version(reply.attrs) != want_v:
+                    # EOPNOTSUPP (codec drift), a stale version, or a
+                    # transport fault all just fail this helper; the
+                    # hedge recruits the next-ranked one
+                    return None
+                self.perf["subread_bytes"] += len(reply.data)
+                return (shard, reply.data)
+
+            jobs = [(osd, (lambda s=shard, o=osd: frag_job(s, o)))
+                    for shard, osd in plan["helpers"]]
+
+            def sufficient(results) -> bool:
+                return len({r[0] for r in results
+                            if r is not None}) >= d
+
+            results, _all = await self.hedge.gather(
+                jobs, need=d, sufficient=sufficient,
+                failed=lambda r: r is None, label="repair_read")
+            frags: Dict[int, bytes] = {}
+            for r in results:
+                if r is not None:
+                    frags.setdefault(r[0], r[1])
+            if len(frags) < d:
+                return None
+            # exactly d fragments in helper-rank order feed the math
+            rank = {s: i for i, (s, _o) in enumerate(plan["helpers"])}
+            keep = sorted(frags, key=lambda s: rank.get(s, 1 << 30))[:d]
+            if len({len(frags[s]) for s in keep}) != 1:
+                return None  # ragged shard lengths: not one version
+            self.perf["recovery_bytes_read"] += sum(
+                len(frags[s]) for s in keep)
+            return {s: frags[s] for s in keep}
+
+        fetched = await asyncio.gather(*(fetch_one(p) for p in plans))
+        self.tracer.record_stages(
+            {"recover_read": int((time.monotonic() - t_read) * 1e6)})
+
+        t_dec = time.monotonic()
+        done: List[Dict[str, Any]] = []
+        fallbacks: List[Dict[str, Any]] = []
+        groups: Dict[tuple, List[Dict[str, Any]]] = {}
+        for plan, frags in zip(plans, fetched):
+            if frags is None:
+                fallbacks.append(plan)
+                continue
+            plan["_frags"] = frags
+            groups.setdefault(
+                (plan["lost"], tuple(sorted(frags))), []).append(plan)
+        for (lost, helpers), group in groups.items():
+            try:
+                stacked = np.concatenate(
+                    [np.stack([np.frombuffer(p["_frags"][h],
+                                             dtype=np.uint8)
+                               for h in helpers]) for p in group],
+                    axis=1)
+                syms = await asyncio.to_thread(
+                    codec.repair_syms, lost, helpers, stacked)
+                off = 0
+                for p in group:
+                    flen = len(p["_frags"][helpers[0]])
+                    stream = codec.repair_assemble(
+                        syms[:, off:off + flen])
+                    off += flen
+                    if not _hinfo_chunk_ok(p["attrs"], lost, stream):
+                        log.warning(
+                            "osd.%d: repaired chunk of %s fails its"
+                            " crc ledger — falling back to verified"
+                            " full decode", self.osd_id, p["oid"])
+                        fallbacks.append(p)
+                        continue
+                    p["payload"] = {lost: stream}
+                    self.perf["repair_objects"] += 1
+                    done.append(p)
+            except Exception:
+                log.exception(
+                    "osd.%d: batched repair of %d objects (lost=%d)"
+                    " failed", self.osd_id, len(group), lost)
+                fallbacks.extend(group)
+        for p in plans:
+            p.pop("_frags", None)
+        self.tracer.record_stages(
+            {"recover_decode": int((time.monotonic() - t_dec) * 1e6)})
+        return done, fallbacks
+
+    async def _locate_holders(self, pg: PgId, pool,
+                              oid: str) -> List[Tuple[int, int]]:
+        """(shard, osd) pairs of every up OSD holding any copy/fragment
+        of oid — the purge target list for rollback/delete propagation."""
+        if pool.type == TYPE_ERASURE:
+            shard_list = list(
+                range(self._codec(pool.id).get_chunk_count()))
+        else:
+            shard_list = [-1]
+        probes = [(shard, osd)
+                  for osd in self.osdmap.get_up_osds()
+                  for shard in shard_list if osd != self.osd_id]
+        results = await asyncio.gather(
+            *(self._read_candidates(pg, shard, osd, oid,
+                                    include_rollback=True)
+              for shard, osd in probes))
+        return [(shard, osd)
+                for (shard, osd), (cands, _ok)
+                in zip(probes, results) if cands]
+
+    def _plan_guard(self, candidates, *extra) -> tuple:
+        """Newest object version a recovery plan observed: max over the
+        probed candidates' OI versions and any extra versions (need_v,
+        adjudicated version).  Stamped on the plan's pushes so replicas
+        can refuse pushes that predate their current state."""
+        guard = ZERO
+        for v in extra:
+            if v is not None and v > guard:
+                guard = v
+        for _s, _p, at in candidates:
+            v = self._oi_version(at)
+            if v is not None and v > guard:
+                guard = v
+        return guard
+
+    async def _recover_commit(self, state: PGState, pool,
+                              plan: Dict[str, Any]) -> None:
+        """Apply one plan: remove everywhere, or install the
+        reconstructed copy wherever it's missing (concurrent pushes)."""
+        pg = state.pg
+        plog = self._load_log(state, pool)
+        my_shard = state.my_shard(self.osd_id, pool.type)
+        oid = plan["oid"]
+        targets = plan["targets"]
+        i_need = plan["i_need"]
+        # recovery rewrites shards (or removes the object): the tier
+        # entry may describe pre-adjudication state
+        self.tier.invalidate(pg, oid)
+
+        if plan["kind"] == "remove":
+            async def remove_peer(shard_key: int, osd: int) -> None:
+                shard = shard_key if shard_key >= -1 else -1
+                tid = self._next_tid()
+                # recovery ops carry the INTERVAL epoch: a live-epoch
+                # stamp would raise replica fences above this interval
+                # and fence out every subsequent client write
+                reply = await self._request(
+                    osd, MOSDSubWrite(tid, pg, shard, oid,
+                                      [ShardOp("remove")],
+                                      state.interval_epoch, None,
+                                      self.osd_id,
+                                      guard=plan.get("guard")), tid)
+                # the remove RESOLVES the missing entry: the rollback
+                # adjudicated "object does not exist" as the recovered
+                # state.  Leaving peer_missing populated would re-plan
+                # the same remove from the unfound-retry loop forever —
+                # the silent livelock that parked k2m2 thrash runs with
+                # an active+unfound PG and an empty log.
+                if reply is None or reply.rc != 0:
+                    log.warning(
+                        "osd.%d: recovery remove of %s/%s on osd.%d"
+                        " failed (%s)", self.osd_id, pg, oid, osd,
+                        "timeout" if reply is None else reply.rc)
+                    return
+                if shard_key in state.peer_missing:
+                    state.peer_missing[shard_key].pop(oid, None)
+
+            removals = list(targets)
+            if plan.get("purge"):
+                # rolling back an uncommitted entry must also drop the
+                # partial shards that DO exist — on acting members AND
+                # on strays — or the orphan fragments resurface as
+                # below-k candidates on every later read.  The plan
+                # phase located the exact holders.
+                seen = {(sk if sk >= -1 else -1, osd)
+                        for sk, osd in removals}
+                for shard, osd in plan.get("purge_locations", []):
+                    if (shard, osd) not in seen:
+                        removals.append((shard, osd))
+            await asyncio.gather(*(remove_peer(sk, osd)
+                                   for sk, osd in removals))
+            if plan.get("purge") and not i_need:
+                # my own partial shard goes too (I may hold data while
+                # not being in my own missing set)
+                t = Transaction()
+                cid = self._cid(pg, my_shard)
+                t.remove(cid, ObjectId(oid))
+                try:
+                    # recovery barrier: drained bypass, never windowed
+                    await self.committer.commit_now(t)
+                except KeyError:
+                    pass
+            if i_need:
+                t = Transaction()
+                cid = self._cid(pg, my_shard)
+                t.remove(cid, ObjectId(oid))
+                plog.missing.pop(oid, None)
+                plog.stage(t, cid)
+                try:
+                    await self.committer.commit_now(t)
+                except KeyError:
+                    pass
+            return
+
+        payload = plan["payload"]
+        obj_attrs = plan["attrs"]
+        omap_payload = plan["omap"]
+
+        async def install(shard: int, osd: int,
+                          shard_key: Optional[int] = None) -> None:
+            buf = payload.get(shard if pool.type == TYPE_ERASURE else -1,
+                              b"")
+            ops = [ShardOp("create"), ShardOp("truncate", size=0),
+                   ShardOp("write", 0, buf)]
+            for name, value in obj_attrs.items():
+                ops.append(ShardOp("setattr", name=name, value=value))
+            if pool.type == TYPE_REPLICATED:
+                # authoritative omap REPLACES the target's: clear
+                # first or deleted keys resurrect on the recovered copy
+                ops.append(ShardOp("omap_clear"))
+                if omap_payload:
+                    ops.append(ShardOp(
+                        "omap_set", data=encode_kv_map(omap_payload)))
+            if osd == self.osd_id:
+                t = Transaction()
+                cid = self._cid(pg, shard)
+                self._apply_shard_ops(t, cid, oid, ops)
+                plog.missing.pop(oid, None)
+                plog.stage(t, cid)
+                # recovery install barrier: drained bypass
+                await self.committer.commit_now(t)
+            else:
+                tid = self._next_tid()
+                reply = await self._request(
+                    osd, MOSDSubWrite(tid, pg, shard, oid, ops,
+                                      state.interval_epoch, None,
+                                      self.osd_id,
+                                      guard=plan.get("guard")), tid)
+                if reply is None or reply.rc != 0:
+                    # the push did NOT land: leave this target in
+                    # peer_missing so the next interval retries it
+                    log.warning(
+                        "osd.%d: recovery push of %s/%s to osd.%d"
+                        " failed (%s)", self.osd_id, pg, oid, osd,
+                        "timeout" if reply is None else reply.rc)
+                    return
+            # mark THIS target recovered as soon as its own push
+            # lands: a failed sibling push must not cause successful
+            # targets to be re-pushed next interval
+            self.perf["recovery_bytes_repaired"] += len(buf)
+            if shard_key is not None:
+                state.peer_missing.get(shard_key, {}).pop(oid, None)
+
+        jobs = []
+        if i_need:
+            jobs.append(install(my_shard, self.osd_id))
+        for shard_key, osd in targets:
+            jobs.append(install(shard_key if shard_key >= -1 else -1,
+                                osd, shard_key))
+        await asyncio.gather(*jobs)
 
     # -- client op engine (primary) ----------------------------------------
 
@@ -2710,12 +4050,41 @@ class OSDDaemon:
 
     def _schedule_object_repair(self, state: PGState, pool,
                                 oid: str) -> None:
-        """A shard missed a write without an interval change: the
-        reference repairs the object through scrub, which this slice
-        does not port."""
-        raise NotImplementedError(
-            f"{state.pg}/{oid}: post-write repair needs scrub repair,"
-            " not ported yet (ROADMAP A4b)")
+        """Deduplicated async single-object repair after a partially
+        failed write fan-out."""
+        key = (state.pg, oid)
+        if key in self._pending_repairs or self._stopping:
+            return
+        self._pending_repairs.add(key)
+
+        async def repair() -> None:
+            try:
+                # give straggler sub-writes a moment to land: the slow
+                # peer may still apply, making the repair a no-op scan
+                await asyncio.sleep(1.0)
+                interval = state.interval_epoch
+                async with state.obj_lock(oid):
+                    if self._stopping or state.state != "active" or \
+                            state.interval_epoch != interval or \
+                            state.primary != self.osd_id:
+                        return  # peering owns repair across intervals
+                    run = {"objects": 0, "errors": 0, "repaired": 0}
+                    await self._scrub_object(state, pool, oid, run)
+                    if run["errors"]:
+                        log.info(
+                            "osd.%d: post-write repair of %s/%s:"
+                            " %d inconsistencies, %d repaired",
+                            self.osd_id, state.pg, oid,
+                            run["errors"], run["repaired"])
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("osd.%d: post-write repair of %s/%s"
+                              " failed", self.osd_id, state.pg, oid)
+            finally:
+                self._pending_repairs.discard(key)
+
+        asyncio.get_running_loop().create_task(repair())
 
     async def _trim_rollbacks(self, state: PGState, oid: str,
                               targets: List[Tuple[int, int]],
@@ -3079,9 +4448,10 @@ class OSDDaemon:
         overwrite."""
         if self._pg_is_clean(state, pool, oid):
             return
-        raise NotImplementedError(
-            f"{state.pg}/{oid} is degraded: inline recovery is not"
-            " ported yet (ROADMAP A4b)")
+        await self._recover_object(state, pool, oid,
+                                   self._acting_peer_shards(state, pool))
+        if not self._pg_is_clean(state, pool, oid):
+            raise UnfoundObject(oid)
 
     def _acting_peer_shards(self, state: PGState, pool
                             ) -> Dict[int, int]:

@@ -5,6 +5,9 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
+(`python3 chip_smoke.py --phase osd` builds the kernels and runs phases 3i
+and 3j alone, with their checks, and prints no result line.)
+
 Phases; any failure exits nonzero and prints no result line:
 
 1. Build the CUDA kernels from ceph_tpu_torch/csrc (GF, crc, scoring, the
@@ -196,6 +199,29 @@ Phases; any failure exits nonzero and prints no result line:
    Host-clock medians of the PUT's and reads' GiB/s, the traced write
    split into client, encode service and sub-writes, and (after the
    counters are read) its encode alone and the pinned staging in it.
+3j. Recovery on phase 3i's cluster, its counters zeroed before a and
+   before d: a. revive 3i's three victims (nothing to recover); b. kill an
+   OSD holding data shards, mark it down and out, wait for clean (its
+   shards decoded on gf_matmul_gen and re-encoded on gf_matmul_spec onto
+   the new acting members), then one more 64 MiB PUT while it is out;
+   c. revive it and mark it in (its missed shards recovered); these are
+   the path `recovery`.  Then a pool of phase 3e's MSR 4/3/6 profile over
+   OSDs, 8 objects of 4 MiB, and d. one more OSD killed, down and out: the
+   path `recovery_msr` (MSR chunks rebuilt from d helpers' fragments).
+   Checks: every object of the three pools read back exact; every shard
+   object on every store against the CPU encode_with_hinfo of its object
+   (bytes, and hinfo but for the RMW'd object); stores and pg logs against
+   the CPU twin driven through the same history; the GF kernels at the
+   paths' shapes against their plain versions; gf_matmul_gen launched at
+   least once per encode-service decode batch and at most once per
+   batched decode (plus, in d, once per MSR fragment and rebuild group),
+   gf_matmul_spec once per re-encode and per service batch of the PUT,
+   crc32c_blocks
+   twice per such batch, fewer decode dispatches in b than objects
+   rebuilt; MSR repair on every lost chunk from at least d fragments, no
+   fallback, and on primaries that ran no classic decode at most (d /
+   alpha + 0.1) bytes read per byte rebuilt.  Times to clean, bytes
+   rebuilt and their GiB/s, the tracer's recovery stage seconds.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -211,8 +237,8 @@ Phases; any failure exits nonzero and prints no result line:
    ((1, 8, 8 MiB) encode, (2048, 8, 4096) decode of 1 and 3 rows), each
    against its plain version, and the placement kernel at phase 3c's.
    Every kernels-line row carries its launches per path (codec, crushtool,
-   osdmap, cluster, codecs, store, store_cluster, compute, mon, osd) and
-   their sum; bloom_positions' row is timed at the tier's geometry and
+   osdmap, cluster, codecs, store, store_cluster, compute, mon, osd,
+   recovery, recovery_msr) and their sum; bloom_positions' row is timed at the tier's geometry and
    65536 hashes.
 
 The line before the last is {"kernels": [...]}; the last is
@@ -2681,6 +2707,15 @@ OSD_MON_CONFIG = {"mon_osd_min_down_reporters": 1}
 OSD_PHASE_TIMEOUT = 300.0
 PHASE_RESULTS: dict = {}    # what a later phase compares with
 
+# phase 3j: recovery on phase 3i's cluster.  Revive 3i's three victims; drain
+# one OSD holding data shards (kill, down, out), write one more 64 MiB PUT
+# while it is out; refill it (revive, in); then phase 3e's MSR 4/3/6 profile
+# over OSDs in a pool of 8 objects of 4 MiB, and one more OSD lost and out.
+RECOVERY_MSR_PROFILE = {"plugin": "ec_msr", "k": "4", "m": "3", "d": "6",
+                        "crush-failure-domain": "osd"}
+RECOVERY_MSR_OBJECTS = 8
+RECOVERY_MSR_SLACK = 0.1    # over d / alpha, bytes read per byte rebuilt
+
 
 def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     """Phase 3i: the port's OSD daemons and RADOS client on the card.  The
@@ -2691,7 +2726,9 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     the written bytes, every shard's hinfo against encode_with_hinfo on
     the CPU, and the same writes (each PG's in the card's order) through
     a device="cpu" twin cluster against every store's shard objects,
-    xattrs and logs.  Returns the launches and the numbers."""
+    xattrs and logs.  Then phase 3j on the same cluster (recovery_steps,
+    recovery_report), its twin driven through the same history.  Returns
+    the launches of the paths osd, recovery and recovery_msr."""
     import asyncio
 
     from ceph_tpu_torch.device import to_device
@@ -2724,6 +2761,8 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
         512 + 97 * i) for i in range(OSD_META_OBJECTS)}
     rmw_name, rmw_off = names(OSD_TRIALS - 1)[5], 1_000_003
     rmw_data = np.random.default_rng(SEED + 11).bytes(1 << 20)
+    rmw_want_bytes = bytearray(piece(5))
+    rmw_want_bytes[rmw_off:rmw_off + len(rmw_data)] = rmw_data
     range_off, range_len = 777_777, 1_234_567
 
     async def start(device):
@@ -2841,6 +2880,205 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                     + prof[key]
         return out
 
+    msr_objs = {f"msr.{i}": np.random.default_rng(SEED + 12 + i).bytes(
+        OSD_OBJECT) for i in range(RECOVERY_MSR_OBJECTS)}
+    tname = "traced.0"
+
+    def tallies(everyone):
+        """Per daemon object (a revived OSD is a new one): its perf
+        counters, its encode service's counts and its tracer's recovery
+        stage seconds."""
+        out = {}
+        for o in everyone:
+            t = {f"perf.{k}": v for k, v in o.perf.items()}
+            t.update({f"svc.{k}": v for k, v in service_counts(o).items()})
+            t.update({f"stage.{k}": h.total
+                      for k, h in o.tracer.stage_hist.items()
+                      if k.startswith("recover_")})
+            out[id(o)] = (o.osd_id, t)
+        return out
+
+    def since(base, everyone, per_osd=False):
+        """Every counter's growth since `base`, summed over the daemons
+        (or per OSD id)."""
+        out: dict = {}
+        for key, (osd_id, now) in tallies(everyone).items():
+            was = base.get(key, (osd_id, {}))[1]
+            tgt = out.setdefault(osd_id, {}) if per_osd else out
+            for k, v in now.items():
+                tgt[k] = tgt.get(k, 0) + v - was.get(k, 0)
+        return out
+
+    async def recovery_steps(mon, osds, stores, client, everyone, device,
+                             plan=None):
+        """Phase 3j on the cluster phase 3i left (its three victims dead
+        and down): a. revive them; b. drain one more (kill, down, out),
+        then the 64 MiB PUT while it is out; c. refill it (revive, in);
+        the MSR pool's writes; d. one more OSD killed, down and out.  Each
+        step ends clean.  With `plan` (the card run's victims and each
+        PG's order of the PUT's writes) it replays that history, for the
+        CPU twin; without, it counts the kernels on the paths `recovery`
+        (a to c) and `recovery_msr` (d) and times the steps."""
+        card_run = plan is None
+        plan = dict(plan or {})
+        addr = client.mon_addrs[0]
+        data_id = mon.osdmap.lookup_pool("rgw.data")
+        io = client.open_ioctx("rgw.data")
+        out: dict = {"seconds": {}, "stages_s": {}, "counts": {}}
+
+        async def revive(i):
+            osd = OSDDaemon(i, [addr], store=stores[i],
+                            config=dict(OSD_CONFIG), device=device)
+            await osd.start()
+            osds[i] = osd
+            everyone.append(osd)
+
+        async def command(prefix, i):
+            rc, msg = await client.mon_command({"prefix": prefix, "osd": i})
+            check(rc == 0, f"{prefix} {i}: {msg}")
+
+        async def clean():
+            """Every PG of every pool active and found on its live
+            primary, every live OSD at the mon's epoch."""
+            for _ in range(int(OSD_PHASE_TIMEOUT / 0.05)):
+                epoch = mon.osdmap.epoch
+                ok = all(o.osdmap is not None and o.osdmap.epoch >= epoch
+                         for o in osds.values())
+                for pool in mon.osdmap.pools.values():
+                    for ps in range(pool.pg_num if ok else 0):
+                        pg = PgId(pool.id, ps)
+                        _a, primary = mon.osdmap.pg_to_acting_osds(pg)
+                        st = osds[primary].pgs.get(pg) \
+                            if primary in osds else None
+                        ok = ok and st is not None and \
+                            st.state == "active" and not st.unfound
+                if ok:
+                    return
+                await asyncio.sleep(0.05)
+            fail("the cluster never went clean")
+
+        def window(name, base, step_s):
+            """One counted path's launches and counters."""
+            if card_run:
+                out["launches"][name] = {n: fn.launches
+                                         for n, fn in wrappers.items()}
+            out["counts"][name] = since(base, everyone)
+            out["per_osd"][name] = since(base, everyone, per_osd=True)
+            out["seconds"].update(step_s)
+
+        def acting_of(pool_id):
+            pool = mon.osdmap.pools[pool_id]
+            return {ps: mon.osdmap.pg_to_acting_osds(PgId(pool_id, ps))
+                    for ps in range(pool.pg_num)}
+
+        out["launches"], out["per_osd"] = {}, {}
+        if card_run:
+            for fn in wrappers.values():
+                fn.launches = 0
+        base = tallies(everyone)
+        steps: dict = {}
+
+        # a. revive 3i's victims: their PGs map back with nothing missing
+        t0 = time.perf_counter()
+        for v in sorted(set(range(OSD_OSDS)) - set(osds)):
+            await revive(v)
+        await clean()
+        steps["a_revive_to_clean"] = time.perf_counter() - t0
+        out["a_counts"] = since(base, everyone)
+
+        # b. drain: an OSD holding data shards (not a primary where one
+        # does), down and out; then the PUT while it is out
+        before = acting_of(data_id)
+        if card_run:
+            primaries = {p for _a, p in before.values()}
+            holders: dict = {}
+            for acting, _p in before.values():
+                for osd in acting[:K]:
+                    holders[osd] = holders.get(osd, 0) + 1
+            plan["b_victim"] = sorted(holders, key=lambda o: (
+                o in primaries, -holders[o], o))[0]
+        bv = plan["b_victim"]
+        out["b_objects_to_rebuild"] = sum(
+            bv in before[io.object_pg(n).ps][0]
+            for n in [*(x for t in range(OSD_TRIALS) for x in names(t)),
+                      tname])
+        b_base = tallies(everyone)
+        t0 = time.perf_counter()
+        await osds.pop(bv).kill()
+        await command("osd down", bv)
+        await command("osd out", bv)
+        await clean()
+        steps["b_drain_to_clean"] = time.perf_counter() - t0
+        out["b_counts"] = since(b_base, everyone)
+        t0 = time.perf_counter()
+        if card_run:
+            await put(io, OSD_TRIALS)
+        else:
+            for _ps, oids in sorted(plan["put_order"].items()):
+                for oid in oids:
+                    await io.write_full(oid, data_of(oid))
+        steps["b_put_while_out"] = time.perf_counter() - t0
+        await clean()
+        if card_run:
+            plan["put_order"] = {
+                ps: [e[0] for e in entries
+                     if e[0].startswith(f"put{OSD_TRIALS}.")]
+                for ps, entries in pg_logs(mon, stores, data_id).items()}
+
+        # c. refill: revive it, mark it in; its PGs map back and its
+        # missed shards (the PUT's) are recovered
+        t0 = time.perf_counter()
+        await revive(bv)
+        await command("osd in", bv)
+        await clean()
+        steps["c_refill_to_clean"] = time.perf_counter() - t0
+        window("recovery", base, steps)
+
+        # the MSR pool, written outside the counted paths
+        await client.create_ec_pool("msr.data", dict(RECOVERY_MSR_PROFILE),
+                                    pg_num=8)
+        msr_id = mon.osdmap.lookup_pool("msr.data")
+        await clean()
+        msr_io = client.open_ioctx("msr.data")
+        for name, data in msr_objs.items():
+            await msr_io.write_full(name, data)
+        await clean()
+
+        # d. one more OSD lost and out: MSR PGs rebuild its chunk from d
+        # helpers' fragments.  The victim keeps some MSR primary free of
+        # classic decodes (no RS PG it leads holds the victim), so that
+        # primary's bytes read per byte rebuilt are the repair's alone.
+        msr_acting = acting_of(msr_id)
+        if card_run:
+            rs_acting = acting_of(data_id)
+
+            def clean_primaries(v):
+                rs_led = {p for a, p in rs_acting.values() if v in a}
+                return sum(1 for a, p in msr_acting.values()
+                           if v in a and p != v and p not in rs_led)
+            plan["d_victim"] = max(
+                (o for o in range(OSD_OSDS) if o != bv),
+                key=lambda o: (clean_primaries(o), -o))
+        dv = plan["d_victim"]
+        if card_run:
+            for fn in wrappers.values():
+                fn.launches = 0
+        d_base = tallies(everyone)
+        t0 = time.perf_counter()
+        await osds.pop(dv).kill()
+        await command("osd down", dv)
+        await command("osd out", dv)
+        await clean()
+        window("recovery_msr", d_base,
+               {"d_msr_loss_to_clean": time.perf_counter() - t0})
+        out["msr_objects_to_rebuild"] = sum(
+            dv in msr_acting[msr_io.object_pg(n).ps][0] for n in msr_objs)
+        out["plan"] = plan
+        out["msr_id"] = msr_id
+        out["msr_sinfo_width"] = next(iter(osds.values()))._sinfo(
+            msr_id).get_stripe_width()
+        return out
+
     result: dict = {"phase": "osd", "osds": OSD_OSDS,
                     "hosts": OSD_OSDS // OSD_OSDS_PER_HOST,
                     "put_bytes": OSD_PUT, "object_bytes": OSD_OBJECT,
@@ -2889,7 +3127,6 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
             # one 4 MiB write_full traced end to end: the client's span,
             # the primary's op tree and the encode flush it rode
             client.trace_all = True
-            tname = "traced.0"
             t0 = time.perf_counter()
             await io.write_full(tname, piece(0))
             traced_s = time.perf_counter() - t0
@@ -2989,15 +3226,49 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                 "encode_service": svc, "batch_size_hist": hist,
                 "seconds": {"put": put_s, "read": read_s, **deg_s,
                             "rmw_1mib": rmw_s}})
-            return snap, meta_snap, logs
+            # phase 3j on this cluster
+            rec = await recovery_steps(mon, osds, stores, client,
+                                       list(everyone.values()), dev)
+            rec["reads_exact"] = await read_all(client, rec["msr_id"])
+            rec["final"] = final_state(mon, stores, rec["msr_id"])
+            return snap, meta_snap, logs, rec
         finally:
             await stop(mon, osds, client)
 
-    async def drive_twin(logs):
+    def rs_want(name):
+        return bytes(rmw_want_bytes) if name == rmw_name else \
+            bytes(piece(0) if name == tname else data_of(name))
+
+    async def read_all(client, msr_id):
+        """Every object of the three pools read back against its bytes."""
+        io = client.open_ioctx("rgw.data")
+        mio = client.open_ioctx("rgw.meta")
+        msr_io = client.open_ioctx("msr.data")
+        got = []
+        for name in [n for t in range(OSD_TRIALS + 1) for n in names(t)] \
+                + [tname]:
+            got.append(await io.read(name) == rs_want(name))
+        for name, data in meta.items():
+            got.append(await mio.read(name) == data)
+        for name, data in msr_objs.items():
+            got.append(await msr_io.read(name) == data)
+        return got
+
+    def final_state(mon, stores, msr_id):
+        data_id = mon.osdmap.lookup_pool("rgw.data")
+        meta_id = mon.osdmap.lookup_pool("rgw.meta")
+        return {"data": snapshot(stores, data_id),
+                "meta": snapshot(stores, meta_id),
+                "msr": snapshot(stores, msr_id),
+                "logs": {"data": pg_logs(mon, stores, data_id),
+                         "msr": pg_logs(mon, stores, msr_id)}}
+
+    async def drive_twin(logs, victims, rec_plan):
         """The same writes on a device="cpu" cluster, each PG's in the
         order its log took on the card (the parts in flight interleave
         there at the card's pace, and an object's version is its place
-        in that order)."""
+        in that order); then the traced write, the card's kills, and
+        phase 3j's history (its PUT in the card's order too)."""
         mon, osds, stores, client = await start("cpu")
         try:
             data_id = mon.osdmap.lookup_pool("rgw.data")
@@ -3016,15 +3287,27 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                         await io.write_full(oid, data_of(oid))
             for name, data in meta.items():
                 await mio.write_full(name, data)
-            return (snapshot(stores, data_id), snapshot(stores, meta_id),
-                    pg_logs(mon, stores, data_id))
+            out = (snapshot(stores, data_id), snapshot(stores, meta_id),
+                   pg_logs(mon, stores, data_id))
+            everyone = list(osds.values())
+            await io.write_full(tname, piece(0))
+            for v in victims:
+                await osds.pop(v).kill()
+                rc, msg = await client.mon_command(
+                    {"prefix": "osd down", "osd": v})
+                check(rc == 0, f"osd down {v}: {msg}")
+            await active(mon, osds, data_id)
+            rec = await recovery_steps(mon, osds, stores, client, everyone,
+                                       "cpu", plan=rec_plan)
+            return out + (final_state(mon, stores, rec["msr_id"]),)
         finally:
             await stop(mon, osds, client)
 
-    snap, meta_snap, logs = asyncio.run(
-        asyncio.wait_for(drive(), OSD_PHASE_TIMEOUT))
-    twin, twin_meta, twin_logs = asyncio.run(
-        asyncio.wait_for(drive_twin(logs), OSD_PHASE_TIMEOUT))
+    snap, meta_snap, logs, rec = asyncio.run(
+        asyncio.wait_for(drive(), 2 * OSD_PHASE_TIMEOUT))
+    twin, twin_meta, twin_logs, twin_final = asyncio.run(
+        asyncio.wait_for(drive_twin(logs, result["victims"], rec["plan"]),
+                         2 * OSD_PHASE_TIMEOUT))
 
     # every shard's hinfo against encode_with_hinfo on the CPU (the RMW'd
     # object's ledger is the twin's business: an overwrite clears it)
@@ -3084,7 +3367,200 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
           <= svc.get("decode_requests", 0),
           f"the OSD path's decode launches {launches} are not its encode"
           f" service's decode batches {svc}")
-    return launches
+    rec_launches = recovery_report(dev, card, rec, twin_final, rs_want,
+                                   rmw_name, msr_objs)
+    return {"osd": launches, **rec_launches}
+
+
+def recovery_report(dev, card: str, rec: dict, twin: dict, rs_want,
+                    rmw_name: str, msr_objs: dict) -> dict:
+    """Phase 3j's checks and line: reads, every shard object against the
+    CPU encode of its object (bytes and hinfo), the card's stores and pg
+    logs against the CPU twin's, the kernels at the paths' shapes against
+    their plain versions, and each path's launches against its counters.
+    Returns the launches of the paths `recovery` and `recovery_msr`."""
+    import torch
+
+    from ceph_tpu_torch.ec.registry import create_erasure_code
+    from ceph_tpu_torch.models import reed_solomon as rs
+    from ceph_tpu_torch.ops import gf_kernels
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.rados.embedded import HINFO_ATTR
+
+    final = rec["final"]
+    msr_k = int(RECOVERY_MSR_PROFILE["k"])
+    # every shard object on every store against the CPU encode of its
+    # object (the RMW'd object's ledger is cleared by its overwrite: its
+    # bytes here, its xattrs against the twin)
+    cpu = {"data": (create_erasure_code({**OSD_PROFILE, "device": "cpu"}),
+                    ec_util.StripeInfo(K, K * 65536), rs_want),
+           "msr": (create_erasure_code({**RECOVERY_MSR_PROFILE,
+                                        "device": "cpu"}),
+                   ec_util.StripeInfo(msr_k, rec["msr_sinfo_width"]),
+                   msr_objs.__getitem__)}
+    bad_shards, shards_checked, cache = [], 0, {}
+    for pool in ("data", "msr"):
+        codec, sinfo, want = cpu[pool]
+        for (osd_id, cid, name), (data, attrs) in final[pool].items():
+            shard = int(cid.rsplit("s", 1)[1].split("_")[0])
+            if (pool, name) not in cache:
+                obj = bytes(want(name))     # padded as the OSD pads it
+                obj += bytes(-len(obj) % sinfo.get_stripe_width())
+                shards, h, _c = ec_util.encode_with_hinfo(
+                    sinfo, codec, obj, range(codec.get_chunk_count()))
+                cache[(pool, name)] = (
+                    {i: bytes(v) for i, v in shards.items()}, h.to_dict())
+            exp, hinfo = cache[(pool, name)]
+            ok = bytes(data) == exp[shard]
+            if name != rmw_name:
+                ok = ok and json.loads(attrs[HINFO_ATTR]) == hinfo
+            if not ok:
+                bad_shards.append([osd_id, cid, name])
+            shards_checked += 1
+    diff = {part: sorted(k for k in set(final[part]) | set(twin[part])
+                         if final[part].get(k) != twin[part].get(k))
+            for part in ("data", "meta", "msr")}
+    same_as_twin = not any(diff.values()) and final["logs"] == twin["logs"]
+
+    # the kernels at the paths' shapes against their plain versions: a
+    # 4 MiB object's decode (8 stripes of 64 KiB units) and a group of 16
+    # sharing a survivor set, a 16-object wave's re-encode, and MSR's
+    # helper projection and (alpha x d) rebuild of four objects' chunks
+    rs_mat = rs.reed_sol_van_matrix(K, M)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+
+    def rand_dev(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    def err(a, b) -> int:
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    one_lost = rs.decode_matrix(rs_mat, K, [0], list(range(1, K + 1)))
+    msr = create_erasure_code({**RECOVERY_MSR_PROFILE, "device": str(dev)})
+    alpha, d = msr.get_sub_chunk_count(), msr.repair_degree()
+    width = rec["msr_sinfo_width"]
+    msr_chunk = width // msr_k * -(-OSD_OBJECT // width)
+    cases = {
+        "decode 1 lost (8, 8, 65536)": ("gen", one_lost,
+                                        rand_dev(8, K, 65536)),
+        "decode 1 lost (128, 8, 65536)": ("gen", one_lost,
+                                          rand_dev(128, K, 65536)),
+        "re-encode (128, 8, 65536)": ("spec", rs_mat,
+                                      rand_dev(128, K, 65536)),
+        "msr project (1, alpha, chunk/alpha)": (
+            "gen", msr.repair_vector(0)[None, :],
+            rand_dev(1, alpha, msr_chunk // alpha)),
+        "msr rebuild (1, d, 4 chunks/alpha)": (
+            "gen", msr.repair_matrix(0, tuple(range(1, d + 1))),
+            rand_dev(1, d, 4 * msr_chunk // alpha))}
+    kernel_errs = {}
+    for label, (kind, mat, x) in cases.items():
+        fn = getattr(gf_kernels, f"gf_matmul_{kind}")
+        plain = getattr(gf_kernels, f"gf_matmul_{kind}_plain")
+        kernel_errs[label] = err(fn(mat, x), plain(mat, x))
+
+    # each path's launches against its counters (every OSD's, the killed
+    # and revived daemons' too)
+    lr, lm = rec["launches"]["recovery"], rec["launches"]["recovery_msr"]
+    cr, cm = rec["counts"]["recovery"], rec["counts"]["recovery_msr"]
+
+    def c(counts, key):
+        return counts.get(key, 0)
+    hinfo_b = c(cr, "svc.encode_hinfo_batches")
+    launches_ok = {
+        # one launch per survivor set in each of the service's decode
+        # batches (a decode with every data shard at hand stays on the
+        # host and out of the batches); a wave's decodes can take more
+        # than one batch (an idle bucket flushes its first request alone)
+        "recovery_gen": 1 <= c(cr, "svc.decode_batches")
+        <= lr["gf_matmul_gen"] <= c(cr, "svc.decode_requests"),
+        # one re-encode a wave, one fused write a service batch
+        "recovery_spec": hinfo_b > 0 and lr["gf_matmul_spec"]
+        == c(cr, "perf.encode_dispatches") + hinfo_b,
+        "recovery_crc": lr["crc32c_blocks"] == 2 * hinfo_b,
+        "recovery_batched": 0 < c(rec["b_counts"], "perf.decode_dispatches")
+        < rec["b_objects_to_rebuild"],
+        # MSR: one projection a fragment (on its helper) and one rebuild
+        # a (lost, helper set) group, beside step d's RS decodes
+        "msr_gen": c(cm, "perf.repair_fragments")
+        + min(1, c(cm, "perf.repair_objects"))
+        + c(cm, "svc.decode_batches") <= lm["gf_matmul_gen"]
+        <= c(cm, "svc.decode_requests") + c(cm, "perf.repair_objects")
+        + c(cm, "perf.repair_fragments"),
+        "msr_spec": lm["gf_matmul_spec"] == c(cm, "perf.encode_dispatches"),
+        "msr_crc": lm["crc32c_blocks"] == 0}
+    # MSR: every rebuild from d fragments, and on the primaries that ran
+    # no classic decode in the step, bytes read <= (d / alpha + slack) x
+    # bytes rebuilt (tests/test_msr.py's check)
+    repaired = c(cm, "perf.repair_objects")
+    ratios = {osd: per["perf.recovery_bytes_read"]
+              / per["perf.recovery_bytes_repaired"]
+              for osd, per in rec["per_osd"]["recovery_msr"].items()
+              if per.get("perf.repair_objects", 0) > 0
+              and per.get("perf.decode_dispatches", 0) == 0
+              and per.get("perf.recovery_bytes_repaired", 0) > 0}
+    msr_ok = {
+        "repair_objects": 0 < repaired <= rec["msr_objects_to_rebuild"],
+        "fragments": c(cm, "perf.repair_fragments") >= d * repaired,
+        "no_fallback": c(cm, "perf.repair_fallbacks") == 0,
+        "bytes_read_per_byte_rebuilt": bool(ratios) and all(
+            r <= d / alpha + RECOVERY_MSR_SLACK for r in ratios.values())}
+
+    def stages(counts):
+        return {k[len("stage."):]: v for k, v in counts.items()
+                if k.startswith("stage.")}
+    secs = rec["seconds"]
+    to_clean = {"b": secs["b_drain_to_clean"],
+                "c": secs["c_refill_to_clean"],
+                "d": secs["d_msr_loss_to_clean"]}
+    rebuilt_b = c(rec["b_counts"], "perf.recovery_bytes_repaired")
+    rebuilt = {"b": rebuilt_b,
+               "c": c(cr, "perf.recovery_bytes_repaired") - rebuilt_b,
+               "d": c(cm, "perf.recovery_bytes_repaired")}
+    out = {"phase": "recovery", "card": card,
+           "plan": {k: v for k, v in rec["plan"].items()
+                    if k != "put_order"},
+           "seconds": secs, "seconds_to_clean": to_clean,
+           "bytes_rebuilt": rebuilt,
+           "gib_per_s_rebuilt": {k: rebuilt[k] / (1 << 30) / to_clean[k]
+                                 for k in to_clean},
+           "stage_seconds": {"recovery": stages(cr),
+                             "recovery_msr": stages(cm)},
+           "a_recovered_bytes": c(rec["a_counts"],
+                                  "perf.recovery_bytes_repaired"),
+           "b_objects_to_rebuild": rec["b_objects_to_rebuild"],
+           "msr_objects_to_rebuild": rec["msr_objects_to_rebuild"],
+           "counters": {path: {k: v for k, v in counts.items()
+                               if not k.startswith("stage.") and v}
+                        for path, counts in rec["counts"].items()},
+           "launches": rec["launches"], "launches_ok": launches_ok,
+           "msr": {**msr_ok, "alpha": alpha, "d": d,
+                   "ratios_on_clean_primaries": ratios},
+           "reads_exact": sum(rec["reads_exact"]),
+           "reads": len(rec["reads_exact"]),
+           "shards_vs_cpu_encode_checked": shards_checked,
+           "shards_vs_cpu_encode_bad": bad_shards[:5],
+           "same_as_cpu_twin": same_as_twin,
+           "twin_differs_at": {k: [list(x) for x in v[:3]]
+                               for k, v in diff.items()},
+           "kernel_vs_plain": kernel_errs}
+    print(json.dumps(out))
+    check(all(rec["reads_exact"]), "a read after recovery differs from the"
+          " written bytes")
+    check(out["a_recovered_bytes"] == 0, "the revived OSDs' PGs recovered"
+          " something, but they missed no write")
+    check(not bad_shards and shards_checked > 0, "a shard object differs"
+          " from the CPU encode of its object")
+    check(same_as_twin, "the card cluster's stores or pg logs after"
+          " recovery differ from the CPU twin's")
+    check(all(e == 0 for e in kernel_errs.values()), "a kernel disagrees"
+          " with its plain version at the recovery paths' shapes")
+    check(all(launches_ok.values()), "the recovery paths' launches do not"
+          f" match their counters: {launches_ok}")
+    check(all(msr_ok.values()), f"MSR repair checks failed: {msr_ok}")
+    return {"recovery": lr, "recovery_msr": lm}
 
 
 def main() -> None:
@@ -3141,6 +3617,19 @@ def main() -> None:
                                 .get("compress_score", "").splitlines()
                                 if "registers" in line or "spill" in line
                                 or "smem" in line]}))
+
+    wrappers = {"gf_matmul_spec": gf_kernels.gf_matmul_spec,
+                "gf_matmul_gen": gf_kernels.gf_matmul_gen,
+                "crc32c_blocks": crc_kernels.crc32c_blocks,
+                "crush_do_rule_batch": crush_kernels.crush_do_rule_batch,
+                "score_blocks": score_kernels.score_blocks_packed,
+                "gf_fold": fold_kernels.gf_fold,
+                "bloom_positions": bloom_kernels.bloom_positions}
+    if sys.argv[1:] == ["--phase", "osd"]:
+        # phases 3i and 3j alone, after the build: no result line
+        print(json.dumps({"phase_only": "osd", "launches": osd_phase(
+            torch, dev, card, wrappers)}))
+        return
 
     # -- 2. kernels against their plain versions ----------------------------
     rs_mat = rs.reed_sol_van_matrix(K, M)
@@ -3251,13 +3740,6 @@ def main() -> None:
     obj = np.random.default_rng(SEED).bytes(B * STRIPE)
     obj_arr = np.frombuffer(obj, dtype=np.uint8)
     n = K + M
-    wrappers = {"gf_matmul_spec": gf_kernels.gf_matmul_spec,
-                "gf_matmul_gen": gf_kernels.gf_matmul_gen,
-                "crc32c_blocks": crc_kernels.crc32c_blocks,
-                "crush_do_rule_batch": crush_kernels.crush_do_rule_batch,
-                "score_blocks": score_kernels.score_blocks_packed,
-                "gf_fold": fold_kernels.gf_fold,
-                "bloom_positions": bloom_kernels.bloom_positions}
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -3335,7 +3817,7 @@ def main() -> None:
     mon_state = mon_phase(torch, dev, card, wrappers)
 
     # -- 3i. the OSD daemons and the RADOS client ----------------------------
-    osd_launches = osd_phase(torch, dev, card, wrappers)
+    osd_launches = osd_phase(torch, dev, card, wrappers)   # and 3j
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
@@ -3344,7 +3826,7 @@ def main() -> None:
                "store": store_state["store"],
                "store_cluster": store_state["store_cluster"],
                "compute": compute_state["launches"],
-               "mon": mon_state["launches"], "osd": osd_launches}
+               "mon": mon_state["launches"], **osd_launches}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)

@@ -490,8 +490,16 @@ def test_health_walk_outlasting_the_lease_forces_an_election(kind):
         client = MonClient(q.mon_addrs, kind=kind)
         try:
             await _pool(client, "walk", pg_num=1024)
-            await q.wait_for_epoch(q.leader.osdmap.epoch)
+            # a loaded host can stall the shared loop past a lease while
+            # the pool commits, and the peons then elect: read the
+            # election epochs only from a settled quorum at the new map
+            # (no mon electing, so `q.leader` is set)
+            await q.wait_for_quorum()
+            await q.wait_for_epoch(max(m.osdmap.epoch
+                                       for m in q.mons.values()))
+            await q.wait_for_quorum()
             before = {r: m.elector.epoch for r, m in q.mons.items()}
+            assert not any(m.elector.electing for m in q.mons.values())
             rc, out = await client.command({"prefix": "health"},
                                            timeout=60)
             assert rc == 0 and out["status"] == "HEALTH_WARN"

@@ -89,18 +89,19 @@ async def _rc(coro):
 
 
 def both(workload, num_osds: int = 4, osds_per_host: int = 2,
-         timeout: float = 120) -> dict:
+         timeout: float = 120, **cluster_kw) -> dict:
     """Run `workload(cluster, kind)` on a JAX and on a port cluster;
     assert equal replies and equal stores; return each run's extras.
     (An OSD marked down by mistake would change the map epochs, and with
     them the versions the runs share: the harness's heartbeat grace is
-    past any stall of a loaded host.)"""
+    past any stall of a loaded host.)  `cluster_kw` goes to Cluster
+    (osd_config, mon_config)."""
     results = {}
     for kind in KINDS:
         async def main(kind=kind):
             cluster = Cluster(num_osds=num_osds, osds_per_host=osds_per_host,
                               kinds=[kind] * num_osds, mon_kind=kind,
-                              client_kind=kind)
+                              client_kind=kind, **cluster_kw)
             await cluster.start()
             try:
                 replies = await workload(cluster, kind)

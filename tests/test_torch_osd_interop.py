@@ -6,10 +6,10 @@ edges of the slice, and the port's OSD process entry point, on the CPU.
   in a `jerasure` 4+2 pool (the name both registries know), clients of
   both packages reading each other's bytes, healthy and degraded;
 - ops of the families the slice leaves for later answer EOPNOTSUPP
-  (omap, object classes, watch/notify, snapshot writes and reads);
-  peering that would need recovery, a post-write repair and a pg_num
-  increase raise NotImplementedError; an OSD with no CUDA and no
-  device named raises;
+  (omap, object classes, watch/notify, snapshot writes and reads); a
+  pg_num increase raises NotImplementedError, while recovery of a peer's
+  missing object and a post-write repair run; an OSD with no CUDA and
+  no device named raises;
 - four `python -m ceph_tpu_torch.osd --device cpu` processes under an
   in-loop port mon serve a port client's writes and reads.
 """
@@ -179,16 +179,15 @@ def test_later_families_answer_eopnotsupp():
                 assert reply.rc == tdaemon.EOPNOTSUPP
             finally:
                 await tio.shutdown()
-            # scrub over the tell surface
-            rc, out = await cluster.client.osd_command(0,
-                                                       {"prefix": "scrub"})
-            assert rc == tdaemon.EOPNOTSUPP
         finally:
             await cluster.stop()
     run(main())
 
 
-def test_recovery_repair_and_splits_raise():
+def test_pg_splits_raise():
+    """A pg_num increase still raises; the recovery of a peer's missing
+    object and the post-write repair, which raised before the recovery
+    slice, now run to their end."""
     async def main():
         cluster = Cluster(num_osds=4)
         await cluster.start()
@@ -207,13 +206,26 @@ def test_recovery_repair_and_splits_raise():
             assert state.peer_missing == {} or \
                 not any(state.peer_missing.values())
             await osd._recover_pg(state, pool, {})
-            # a peer missing an object: recovery is the next slice
-            state.peer_missing = {1: {"obj": (1, 1)}}
-            with pytest.raises(NotImplementedError, match="A4b"):
-                await osd._recover_pg(state, pool, {})
-            state.peer_missing = {}
-            with pytest.raises(NotImplementedError, match="A4b"):
-                osd._schedule_object_repair(state, pool, "obj")
+            # a peer missing the object: recovery pushes it back
+            peers = osd._acting_peer_shards(state, pool)
+            key = next(iter(peers))
+            _rc, _d, attrs = osd._read_shard(
+                pg, state.my_shard(osd.osd_id, pool.type), "obj", 0, 1)
+            version = osd._oi_version(attrs)
+            state.peer_missing = {key: {"obj": version}}
+            installs = cluster.osds[peers[key]].perf["recovery_installs"]
+            await osd._recover_pg(state, pool, peers)
+            assert not any(state.peer_missing.values())
+            assert osd.perf["recovery_bytes_repaired"] > 0
+            assert cluster.osds[peers[key]].perf["recovery_installs"] \
+                == installs
+            # the post-write repair is scheduled once and finishes
+            osd._schedule_object_repair(state, pool, "obj")
+            osd._schedule_object_repair(state, pool, "obj")
+            assert osd._pending_repairs == {(pg, "obj")}
+            await cluster._wait(lambda: not osd._pending_repairs, 10.0,
+                                "the post-write repair never finished")
+            assert await io.read("obj") == b"q" * 10_000
             # a pg_num increase would split PGs
             pool.pg_num += 8
             with pytest.raises(NotImplementedError, match="A4b"):

@@ -15,12 +15,16 @@ must be interchangeable with the JAX package's at the byte level:
    two port mons, both elect and commit; after the same commands every
    mon's encoded OSDMap at each epoch is byte-identical, within each
    quorum and across the two (the EC rule that create_rule adds included);
+   the JAX mons of those quorums, proposing over TCP, take two lock-order
+   edges the JAX package's static lock graph lacks (pinned, then taken out
+   of the session's runtime graph again);
 6. the port's native crc32c equals its numpy oracle and the JAX crc32c on
    seeded lengths 0-70,000 and on misaligned views.
 """
 
 import asyncio
 import inspect
+import os
 import random
 
 import numpy as np
@@ -346,12 +350,41 @@ async def _drive(kinds) -> dict:
     return {"maps": by_epoch, "health": health}
 
 
+#: lock-order edges a JAX mon takes when it proposes to peers over TCP (a
+#: port peer never shares the JAX package's in-process fast path): a send
+#: while the mutation and propose locks are held.  The JAX package's static
+#: lock graph lacks both (ROADMAP C6).
+TCP_QUORUM_EDGES = {("mon.mutation", "msg.send"), ("paxos.propose", "msg.send")}
+
+
 def test_mixed_quorums_commit_byte_identical_maps():
+    import ceph_tpu
+    from ceph_tpu.analysis.core import build_project
+    from ceph_tpu.analysis.lockgraph import build_lock_graph
+    from ceph_tpu.common import lockdep as jlockdep
+
+    # the JAX lockdep records every edge of the test session in one
+    # module-level graph, which tests/test_static_analysis.py reads back:
+    # the edges this test's TCP quorums record are pinned here and taken
+    # out again, so what that test reads does not depend on which files
+    # a worker ran before it
+    saved = {k: set(v) for k, v in jlockdep._edges.items()}
     results = {}
-    for label, kinds in (("2jax+1torch", ("jax", "jax", "torch")),
-                         ("1jax+2torch", ("jax", "torch", "torch")),
-                         ("torch-led", ("torch", "jax", "torch"))):
-        results[label] = asyncio.run(asyncio.wait_for(_drive(kinds), 90))
+    try:
+        for label, kinds in (("2jax+1torch", ("jax", "jax", "torch")),
+                             ("1jax+2torch", ("jax", "torch", "torch")),
+                             ("torch-led", ("torch", "jax", "torch"))):
+            results[label] = asyncio.run(asyncio.wait_for(_drive(kinds),
+                                                          90))
+        recorded = {(a, b) for a, bs in jlockdep._edges.items() for b in bs}
+    finally:
+        jlockdep._edges.clear()
+        jlockdep._edges.update(saved)
+    if jlockdep.enabled:
+        adj, _ = build_lock_graph(build_project(
+            [os.path.dirname(os.path.abspath(ceph_tpu.__file__))]))
+        assert TCP_QUORUM_EDGES <= recorded, recorded
+        assert not any(b in adj.get(a, set()) for a, b in TCP_QUORUM_EDGES)
     base = results["2jax+1torch"]
     for label, res in results.items():
         for epoch, maps in res["maps"].items():

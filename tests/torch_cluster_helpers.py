@@ -8,9 +8,11 @@ JAX package ceph_tpu), so one cluster can hold OSDs of both; `mon_kind` and
 OSDs run on the CPU.  With `num_mons` > 1 the mons form a quorum
 (kill_mon drops one off the network); `client_secret` and
 `client_secure` key the client as the JAX harness does (the daemons take
-theirs in `osd_config` / `mon_config`).  The harness keeps to the slice
-the port has: kill_osd drops a daemon off the network without a clean
-shutdown, and nothing revives it.
+theirs in `osd_config` / `mon_config`).  kill_osd drops a daemon off the
+network without a clean shutdown; revive_osd boots a fresh daemon of
+either package on the MemStore that survived it (tests/cluster_helpers.py's
+MemStore contract); mark_down, mark_out, mark_in and mark_lost are the
+mon's `osd down|out|in|lost` commands.
 """
 
 from __future__ import annotations
@@ -24,10 +26,9 @@ import torch
 from torch_mon_helpers import pkg
 
 # tests/cluster_helpers.py's timings, but a heartbeat grace no stall of a
-# loaded test host reaches: without recovery, an OSD marked down by
-# mistake while a write is in flight would leave a shard missing it and
-# its PG unable to peer.  Tests kill an OSD and mark it down through the
-# mon (mark_down).
+# loaded test host reaches: an OSD marked down by mistake would change the
+# map epochs, and with them the versions a JAX and a port run must share.
+# Tests kill an OSD and mark it down through the mon (mark_down).
 FAST_CONFIG = {
     "osd_heartbeat_interval": 0.3,
     "osd_heartbeat_grace": 60.0,
@@ -104,14 +105,18 @@ class Cluster:
             store.mkfs()
             store.mount()
             self.stores[osd_id] = store
-            cls = pkg(kind, "osd.daemon").OSDDaemon
-            extra = {"device": "cpu"} if kind == "torch" else {}
-            osd = cls(osd_id, self.mon_addrs, store=store,
-                      config=dict(self.osd_config), **extra)
-            self.osds[osd_id] = osd
-            await osd.start()
+            await self._boot_osd(osd_id)
         self.client = self.new_client(self.client_kind)
         await self.client.connect()
+
+    async def _boot_osd(self, osd_id: int) -> None:
+        kind = self.kinds[osd_id]
+        cls = pkg(kind, "osd.daemon").OSDDaemon
+        extra = {"device": "cpu"} if kind == "torch" else {}
+        osd = cls(osd_id, self.mon_addrs, store=self.stores[osd_id],
+                  config=dict(self.osd_config), **extra)
+        self.osds[osd_id] = osd
+        await osd.start()
 
     def new_client(self, kind: str, **kw):
         """An unconnected RadosClient of package `kind` on these mons
@@ -160,16 +165,44 @@ class Cluster:
         shutdown (its MemStore stays readable in `stores`)."""
         await self.osds.pop(osd_id).kill()
 
+    async def revive_osd(self, osd_id: int,
+                         kind: Optional[str] = None) -> None:
+        """Boot a fresh daemon at the dead rank on the MemStore that
+        survived the kill (nothing was lost: no remount).  `kind` picks
+        the new daemon's package (default: the dead one's)."""
+        assert osd_id not in self.osds
+        if kind is not None:
+            self.kinds[osd_id] = kind
+        await self._boot_osd(osd_id)
+
+    async def _osd_command(self, prefix: str, osd_id: int, **extra):
+        rc, out = await self.client.mon_command(
+            {"prefix": prefix, "osd": osd_id, **extra})
+        assert rc == 0, (prefix, osd_id, out)
+
     async def mark_down(self, osd_id: int) -> None:
         """Tell the mon the OSD is down (no heartbeat grace to wait)."""
-        rc, out = await self.client.mon_command(
-            {"prefix": "osd down", "osd": osd_id})
-        assert rc == 0, out
+        await self._osd_command("osd down", osd_id)
+
+    async def mark_out(self, osd_id: int) -> None:
+        await self._osd_command("osd out", osd_id)
+
+    async def mark_in(self, osd_id: int) -> None:
+        await self._osd_command("osd in", osd_id)
+
+    async def mark_lost(self, osd_id: int) -> None:
+        await self._osd_command("osd lost", osd_id,
+                                yes_i_really_mean_it=True)
 
     async def wait_for_osd_down(self, osd_id: int,
                                 timeout: float = 30.0) -> None:
         await self._wait(lambda: self.mon.osdmap.is_down(osd_id),
                          timeout, f"osd.{osd_id} never marked down")
+
+    async def wait_for_osd_up(self, osd_id: int,
+                              timeout: float = 30.0) -> None:
+        await self._wait(lambda: self.mon.osdmap.is_up(osd_id),
+                         timeout, f"osd.{osd_id} never marked up")
 
     async def wait_for_clean(self, timeout: float = 30.0) -> None:
         """Every PG of every pool active on its primary, every live
