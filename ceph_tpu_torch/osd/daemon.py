@@ -1,6 +1,6 @@
 """OSD daemon: the data-plane node (port of the client write, read,
-degraded-read, recovery, backfill and scrub slice of
-ceph_tpu/osd/daemon.py).
+degraded-read, recovery, backfill, scrub, PG split, coded-compute and
+coded-inference slice of ceph_tpu/osd/daemon.py).
 
 Reference parity: ceph-osd (the reference's src/osd/OSD.cc,
 PrimaryLogPG.cc, ECBackend.cc, ReplicatedBackend.cc) re-designed on an
@@ -21,6 +21,16 @@ asyncio event loop:
   ECBackend.h:249), then activates and drains queued ops;
 - reads gather the first k shards (hedged, osd/hedge.py) and decode
   through the encode service when a data shard is lost;
+- pg_num growth splits local PGs (PG::split_into PG.cc:578): objects
+  rehashed on the host move to their child PG's collection, the
+  parent's log and missing set are partitioned, and a child's first
+  peering sweeps every up OSD for split state;
+- scans (MOSDCompute) run through the compute engine
+  (osd/compute.py): linear kernels fan one MOSDSubCompute per acting
+  member, each OSD folds its local shards and the primary decodes the
+  first k results in the result domain; nonlinear kernels and the
+  exact inference path take the full-decode fallback; Fisher-fused
+  model serving rides the inference engine (osd/inference.py);
 - OSD<->OSD heartbeats (OSD.cc:5235 handle_osd_ping) with failure
   reports to the mon after the local grace (OSD.cc:5889 send_failures).
 
@@ -31,15 +41,21 @@ service batches concurrent writes into one fused GF + crc32c call
 (gf_matmul_spec, crc32c_blocks), degraded reads and recovery decode on
 gf_matmul_gen (one launch per survivor set of a wave), a recovery wave
 re-encodes in one gf_matmul_spec launch, and MSR repair rebuilds each
-(lost, helper set) group in one gf_matmul_gen product.  Scrub's digests
-and the hinfo checks are the host's native crc32c.  Placement is per PG
-on the host; everything else is host control-plane.
+(lost, helper set) group in one gf_matmul_gen product.  A sub-compute
+folds the OSD's local shards of a wave with one gf_fold launch per
+length group, the primary's result-domain decode of a wave with a data
+shard's result missing is one gf_matmul_gen launch per survivor set at
+lane width, the fallback's compress_score scores on score_blocks and
+the inference shard forwards run on the same device.  Scrub's digests
+and the hinfo checks are the host's native crc32c.  Placement, and the
+split's rehash of objects, are per PG on the host; everything else is
+host control-plane.
 
-Not in this slice (ROADMAP A4b): PG splits, snapshots, omap, object
-classes and watch/notify, the compute and inference engines, the admin
-socket.  Their client ops answer EOPNOTSUPP; a pg_num increase raises
-NotImplementedError.  A recovery decode that raises is not retried on a
-host twin: the object stays missing and the next interval retries it.
+Not in this slice (ROADMAP A4b): snapshots, omap, object classes and
+watch/notify, the admin socket.  Their client ops answer EOPNOTSUPP.  A
+decode that raises is not retried on a host twin or object by object: a
+recovery leaves the object missing for the next interval to retry, and a
+scan's result-domain decode answers EIO for its wave's objects.
 """
 
 from __future__ import annotations
@@ -70,10 +86,14 @@ from ceph_tpu_torch.msg.messages import (
     MOSDBoot,
     MOSDCommand,
     MOSDCommandReply,
+    MOSDCompute,
+    MOSDComputeReply,
     MOSDFailure,
     MOSDMapMsg,
     MOSDOp,
     MOSDOpReply,
+    MOSDSubCompute,
+    MOSDSubComputeReply,
     MOSDSubRead,
     MOSDSubReadReply,
     MOSDSubWrite,
@@ -139,8 +159,9 @@ _MUTATING_CLIENT_OPS = frozenset({
     "write_full", "write", "append", "remove", "setxattr", "rmxattr",
     "omap_set", "omap_rm", "call"})
 
-# client ops of the families this slice does not port (ROADMAP A4b):
-# they answer EOPNOTSUPP
+# client ops of the families not ported yet (omap, object classes and
+# watch/notify, ROADMAP A4b): they answer EOPNOTSUPP; scans arrive as
+# MOSDCompute, not as MOSDOp ops
 _LATER_CLIENT_OPS = frozenset({
     "omap_set", "omap_rm", "omap_get", "call", "watch", "notify"})
 
@@ -434,9 +455,13 @@ class OSDDaemon:
                                         config=self.config)
         self.osdmap: Optional[OSDMap] = None
         self.pgs: Dict[PgId, PGState] = {}
-        # pg_num per pool as of the last map processed: growth would
-        # split PGs, which this slice does not do (_check_pool_splits)
+        # pg_num per pool as of the last map processed: growth triggers
+        # local PG splitting (PG::split_into role)
         self._pool_pg_nums: Dict[int, int] = {}
+        # children minted by a split: their first peering sweeps all up
+        # OSDs (the data lives on the PARENT's members, which the
+        # child's acting mapping knows nothing about)
+        self._split_children: Set[PgId] = set()
         self._codecs: Dict[int, Any] = {}
         self._tid = 0
         self._futures: Dict[int, asyncio.Future] = {}
@@ -483,6 +508,17 @@ class OSDDaemon:
         # switches CEPH_TPU_HEDGE=0 / osd_hedge_enable=false
         self.hedge = HedgeTracker(who=f"osd.{osd_id}",
                                   config=self.config)
+        # coded compute: the MOSDCompute scan engine (osd/compute.py)
+        # — linear kernels run ON the coded shards (gf_fold on this
+        # daemon's device) with first-k result-domain decode;
+        # nonlinear kernels take the full-decode fallback.  Scheduled
+        # under its own `compute` mClock class + the tenant admission
+        # gate.
+        from ceph_tpu_torch.osd.compute import ComputeEngine
+        from ceph_tpu_torch.osd.inference import InferenceEngine
+
+        self.compute = ComputeEngine(self)
+        self.inference = InferenceEngine(self)
         self._promote_tasks: Set[asyncio.Task] = set()
         # post-write repairs scheduled and not yet finished, (pg, oid)
         self._pending_repairs: Set[Tuple[PgId, str]] = set()
@@ -606,6 +642,7 @@ class OSDDaemon:
         if self._own_store:
             self.store.mkfs()
             self.store.mount()
+        self._load_split_meta()
         addr = await self.msgr.bind(host, port)
         for _attempt in range(2 * len(self.mon_addrs)):
             try:
@@ -635,6 +672,9 @@ class OSDDaemon:
     def _prewarm_device(self) -> None:
         from ceph_tpu_torch.ops import _build
 
+        # every kernel library, gf_fold's included: the first
+        # sub-compute's fold must not build inside the primary's
+        # osd_sub_op_timeout either
         _build.load()
         torch.empty(1, device=self.device)
 
@@ -703,6 +743,11 @@ class OSDDaemon:
             "statfs": (
                 lambda cmd: self._cmd_statfs(),
                 "store usage + per-pool object/byte breakdown"),
+            "inference_status": (
+                lambda cmd: self.inference.perf_dump(),
+                "coded inference serving: query/approx/fallback"
+                " counters, substituted streams, and the estimated"
+                " relative-error histogram"),
         }
 
     def _cmd_perf_dump(self) -> Dict[str, Any]:
@@ -726,6 +771,12 @@ class OSDDaemon:
         # (the prometheus flattener turns `peers` into peer-labeled
         # rows)
         out["hedge"] = self.hedge.perf()
+        # coded-compute engine: pushdown-vs-fallback split + result
+        # bytes moved (the scan observability surface)
+        out["compute"] = self.compute.perf()
+        # coded inference serving: approx-vs-exact split + the
+        # est_error histogram (flattens to ceph_osd_inference_* rows)
+        out["inference"] = self.inference.perf_dump()
         # per-tenant QoS: scheduler queue/grant state + admission
         # decisions (`tenants` flattens to tenant-labeled rows)
         out["qos"] = self._qos_perf()
@@ -1059,11 +1110,16 @@ class OSDDaemon:
             await self._handle_ping(conn, msg)
         elif isinstance(msg, MOSDOp):
             await self._handle_client_op(conn, msg)
+        elif isinstance(msg, MOSDCompute):
+            await self._handle_compute_op(conn, msg)
         elif isinstance(msg, MOSDSubWrite):
             await self._handle_sub_write(conn, msg)
         elif isinstance(msg, MOSDSubRead):
             await self._handle_sub_read(conn, msg)
-        elif isinstance(msg, (MOSDSubWriteReply, MOSDSubReadReply)):
+        elif isinstance(msg, MOSDSubCompute):
+            await self._handle_sub_compute(conn, msg)
+        elif isinstance(msg, (MOSDSubWriteReply, MOSDSubReadReply,
+                              MOSDSubComputeReply)):
             self._resolve(msg.tid, msg)
         elif isinstance(msg, MPGQuery):
             await self._handle_pg_query(conn, msg)
@@ -1264,16 +1320,165 @@ class OSDDaemon:
             self.mon_addr,
             MGetMap(since_epoch=self.osdmap.epoch, subscribe=False)))
 
+    _META_CID = "osd_meta"
+
+    def _load_split_meta(self) -> None:
+        """Split bookkeeping survives restarts: a durable OSD that was
+        down across a pg_num increase must still redistribute its
+        on-disk objects when it boots into the grown map."""
+        try:
+            omap = self.store.omap_get(self._META_CID,
+                                       ObjectId("split_state"))
+            doc = json.loads(omap["v"])
+            self._pool_pg_nums = {int(k): v
+                                  for k, v in doc["pg_nums"].items()}
+            self._split_children = {PgId(p, ps)
+                                    for p, ps in doc["children"]}
+        except (KeyError, ValueError):
+            pass
+
+    def _save_split_meta(self, t: Optional[Transaction] = None) -> None:
+        own = t is None
+        if own:
+            t = Transaction()
+        if not self.store.collection_exists(self._META_CID):
+            t.create_collection(self._META_CID)
+        t.omap_setkeys(self._META_CID, ObjectId("split_state"), {
+            "v": json.dumps({
+                "pg_nums": self._pool_pg_nums,
+                "children": sorted([p.pool, p.ps]
+                                   for p in self._split_children),
+            }).encode()})
+        if own:
+            self.store.queue_transaction(t)
+
     def _check_pool_splits(self) -> None:
-        """pg_num growth would split PGs (PG::split_into role), which
-        this slice does not port: an increase raises."""
+        """pg_num growth observed: redistribute local PG state.  Safe
+        across multi-epoch jumps — stable-mod placement depends only on
+        the FINAL pg_num, so folding several growth steps into one
+        redistribution lands objects exactly where stepwise splitting
+        would."""
+        changed = False
         for pool in self.osdmap.pools.values():
             old = self._pool_pg_nums.get(pool.id)
+            if old != pool.pg_num:
+                changed = True
             self._pool_pg_nums[pool.id] = pool.pg_num
-            if old is not None and pool.pg_num > old:
-                raise NotImplementedError(
-                    f"pool {pool.id} pg_num {old} -> {pool.pg_num}: PG"
-                    " splits are not ported yet (ROADMAP A4b)")
+            if old is None or pool.pg_num <= old:
+                continue
+            try:
+                self._split_pool_pgs(pool, old, pool.pg_num)
+            except Exception:
+                log.exception("osd.%d: split of pool %d (%d->%d)"
+                              " failed", self.osd_id, pool.id, old,
+                              pool.pg_num)
+        if changed:
+            self._save_split_meta()
+
+    @staticmethod
+    def _head_name(name: str) -> str:
+        """Companion object -> owning head (rollback generations and
+        snap clones split WITH their head)."""
+        if name.startswith(RB_PREFIX):
+            name = name[len(RB_PREFIX):]
+        return name.split(SNAP_SEP, 1)[0]
+
+    def _split_pool_pgs(self, pool, old_num: int, new_num: int) -> None:
+        """PG::split_into (PG.cc:578) re-designed for this store: move
+        each object (with its companions) whose stable-mod placement
+        under new_num leaves its parent into the child's shard
+        collection, and partition the parent's PG log/missing by
+        object the same way.  Children inherit the parent's
+        last_update/log_tail, so auth-log election at the child's
+        first peering prefers members holding split state."""
+        from ceph_tpu_torch.ops.rjenkins import ceph_str_hash_rjenkins
+        from ceph_tpu_torch.osd.osdmap import _calc_mask, ceph_stable_mod
+        from ceph_tpu_torch.osd.pg_log import PGInfo
+
+        # total-order barrier: the split both READS pgmeta from the
+        # store and re-stages it, so any client txn still in the
+        # group-commit window must land first — and because this
+        # function never awaits, nothing can slip into the window
+        # while it runs
+        self.committer.flush_sync()
+        mask = _calc_mask(new_num)
+        if pool.type == TYPE_ERASURE:
+            shard_list = list(
+                range(self._codec(pool.id).get_chunk_count()))
+        else:
+            shard_list = [-1]
+
+        def child_ps_of(head: str) -> int:
+            return ceph_stable_mod(
+                ceph_str_hash_rjenkins(head.encode()), new_num, mask)
+
+        for ps in range(old_num):
+            parent = PgId(pool.id, ps)
+            for shard in shard_list:
+                cid = self._cid(parent, shard)
+                if not self.store.collection_exists(cid):
+                    continue
+                plog = PGLog.load(self.store, cid)
+                moves: Dict[int, List[str]] = {}
+                for o in self.store.list_objects(cid):
+                    name = str(o)
+                    if name == PGMETA_OID:
+                        continue
+                    cps = child_ps_of(self._head_name(name))
+                    if cps != ps:
+                        moves.setdefault(cps, []).append(name)
+                child_entries: Dict[int, List[dict]] = {}
+                keep_entries = []
+                for e in plog.entries:
+                    cps = child_ps_of(self._head_name(e.get("oid", "")))
+                    if cps == ps:
+                        keep_entries.append(e)
+                    else:
+                        child_entries.setdefault(cps, []).append(e)
+                child_missing: Dict[int, Dict[str, tuple]] = {}
+                keep_missing = {}
+                for oid, v in plog.missing.items():
+                    cps = child_ps_of(self._head_name(oid))
+                    if cps == ps:
+                        keep_missing[oid] = v
+                    else:
+                        child_missing.setdefault(cps, {})[oid] = v
+                touched = (set(moves) | set(child_entries)
+                           | set(child_missing))
+                if not touched:
+                    continue
+                t = Transaction()
+                for cps in touched:
+                    ccid = self._cid(PgId(pool.id, cps), shard)
+                    if not self.store.collection_exists(ccid):
+                        t.create_collection(ccid)
+                    for name in moves.get(cps, []):
+                        t.collection_move_rename(
+                            cid, ObjectId(name), ccid, ObjectId(name))
+                    clog = PGLog(
+                        PGInfo(last_update=plog.info.last_update,
+                               log_tail=plog.info.log_tail),
+                        child_entries.get(cps, []),
+                        child_missing.get(cps, {}))
+                    clog.stage(t, ccid)
+                plog.entries = keep_entries
+                plog.missing = keep_missing
+                plog.stage(t, cid)
+                self.store.queue_transaction(t)
+                log.info("osd.%d: split %s shard %s: %d objects to %d"
+                         " children", self.osd_id, parent, shard,
+                         sum(len(v) for v in moves.values()),
+                         len(touched))
+            # parent's cached log is stale after the partition
+            ps_state = self.pgs.get(parent)
+            if ps_state is not None:
+                ps_state.log = None
+        for cps in range(old_num, new_num):
+            child = PgId(pool.id, cps)
+            self._split_children.add(child)
+            cstate = self.pgs.get(child)
+            if cstate is not None:
+                cstate.log = None
 
     def _post_map_epoch(self, prev_up: Set[int]) -> None:
         """Per-epoch bookkeeping after the local map advanced."""
@@ -1962,6 +2167,18 @@ class OSDDaemon:
                 peers[shard_key] = (info, reply.entries, peer_missing,
                                     reply.info.get("objects", []))
                 peer_shards[shard_key] = osd
+            if pg in self._split_children:
+                # split child: its data was minted on the PARENT's
+                # members, which this acting mapping knows nothing
+                # about.  One exhaustive (up-OSDs x shards) info/log
+                # sweep lets the auth election see the split state;
+                # per-object recovery already probes strays.  (The
+                # reference instead instantiates children directly on
+                # the parent's OSDs; this sweep is the asyncio-shaped
+                # equivalent, paid only at the first post-split
+                # peering.)
+                await self._sweep_split_strays(state, pool, peers,
+                                               peer_shards)
             # pre-merge heads: needed for the backfill decision below
             pre_lu = {k: v[0].last_update for k, v in peers.items()}
             # 2. elect authoritative log (max last_update, then longest)
@@ -2026,6 +2243,11 @@ class OSDDaemon:
             plog.info.last_epoch_started = self._epoch()
             state.state = "active"
             state.active_event.set()
+            # a split child that peered once has adopted its state
+            # from the parent's members; later peerings are normal
+            if pg in self._split_children:
+                self._split_children.discard(pg)
+                self._save_split_meta()
             if state.unfound:
                 self._clog("WRN", f"pg {pg} active with unfound"
                                   " objects (sources down?)")
@@ -2047,6 +2269,69 @@ class OSDDaemon:
                     self._retry_peering(state))
         finally:
             state.peering_task = None
+
+    async def _sweep_split_strays(self, state: PGState, pool,
+                                  peers: Dict[int, tuple],
+                                  peer_shards: Dict[int, int]) -> None:
+        """Collect split-child state from OUTSIDE the acting mapping:
+        every up OSD is asked for every shard collection of this pg.
+        Hits join the auth-log election under synthetic keys (never
+        push/recovery targets — those stay acting-only; the per-object
+        gather finds the stray payloads on its own)."""
+        from ceph_tpu_torch.osd.pg_log import PGInfo
+
+        pg = state.pg
+        if pool.type == TYPE_ERASURE:
+            shard_list = list(
+                range(self._codec(pool.id).get_chunk_count()))
+        else:
+            shard_list = [-1]
+        # my own non-acting shard collections (an ex-parent member's
+        # parent-shard index need not match its child acting slot)
+        my_shard = state.my_shard(self.osd_id, pool.type)
+        for shard in shard_list:
+            if shard == my_shard:
+                continue
+            cid = self._cid(pg, shard)
+            if not self.store.collection_exists(cid):
+                continue
+            lplog = PGLog.load(self.store, cid)
+            if lplog.info.last_update > ZERO:
+                key = -(10_000 + self.osd_id * 64 + shard + 2)
+                peers[key] = (lplog.info, list(lplog.entries),
+                              dict(lplog.missing),
+                              self._list_shard_objects(pg, shard))
+        # (osd, shard) pairs already covered: the acting loop asked
+        # each acting member for ITS OWN slot only — an acting member
+        # may still hold split state under a DIFFERENT shard index
+        # (its parent slot), so acting OSDs are swept for the others
+        covered = {(osd, sk if sk >= -1 else -1)
+                   for sk, osd in peer_shards.items()}
+        covered |= {(self.osd_id, shard) for shard in shard_list}
+
+        async def ask(osd: int, shard: int):
+            tid = self._next_tid()
+            reply = await self._request(
+                osd, MPGQuery(tid, pg, state.interval_epoch,
+                              self.osd_id, shard=shard), tid)
+            return osd, shard, reply
+
+        jobs = [ask(osd, shard)
+                for osd in self.osdmap.get_up_osds()
+                for shard in shard_list
+                if (osd, shard) not in covered]
+        results = await asyncio.gather(*jobs) if jobs else []
+        for osd, shard, reply in results:
+            if reply is None or reply.pg != pg:
+                continue
+            info = PGInfo.from_dict(reply.info)
+            if info.last_update <= ZERO:
+                continue  # nothing split onto this OSD
+            key = -(10_000 + osd * 64 + shard + 2)
+            peers[key] = (info, reply.entries,
+                          {k: ev(v) for k, v in
+                           reply.info.get("missing", {}).items()},
+                          reply.info.get("objects", []))
 
     def _schedule_unfound_retry(self, state: PGState, pool) -> None:
         """Re-run recovery for an active PG that still carries missing
@@ -3853,6 +4138,104 @@ class OSDDaemon:
             qos_phase=qos_phase if cached is None else ""))
 
     # -- coded compute (MOSDCompute, osd/compute.py) -----------------------
+
+    async def _handle_compute_op(self, conn: Connection,
+                                 msg: MOSDCompute) -> None:
+        """Client scan op: admission gate first (an over-limit
+        tenant's scan is delayed/shed before it consumes anything),
+        then the engine fans out.  The dedicated `compute` mClock
+        class is charged at the EVAL stage (eval_local_shards), not
+        around the whole op — a wave parked on remote sub-computes
+        must not occupy in-flight op slots while it waits."""
+        op_id = self.op_tracker.create(
+            f"compute({msg.client} {msg.kernel} n={len(msg.oids)})")
+        span = self.tracer.start(
+            f"compute_op {msg.kernel} n{len(msg.oids)}")
+        token = tracing.current_span.set(span) if span else None
+        try:
+            if self.osdmap is None:
+                await conn.send(MOSDComputeReply(msg.tid, EAGAIN))
+                return
+            self.op_tracker.mark(op_id, "started")
+            # admission cost on the client-op scale (1.0 ~ one small
+            # op): a wave scales sublinearly — per-object work is a
+            # lane-width kernel eval, not a payload move
+            cost = 1.0 + len(msg.oids) / 256.0
+            tenant = getattr(msg, "tenant", "") or ""
+            admitted = True
+            if tenant and self._qos_tenants_enabled:
+                decision = self.admission.try_admit(tenant, cost)
+                if decision is None:
+                    decision = await self.admission.admit(tenant,
+                                                          cost)
+                if decision == SHED:
+                    admitted = False
+            try:
+                if not admitted:
+                    rc, results, out = EBUSY, {}, {}
+                else:
+                    rc, results, out = await self.compute.execute(msg)
+            except asyncio.CancelledError:
+                raise
+            except sched_mod.QueueFull:
+                rc, results, out = EBUSY, {}, {}
+            except Exception:
+                log.exception("osd.%d: compute op %r failed",
+                              self.osd_id, msg)
+                rc, results, out = EIO, {}, {}
+            await conn.send(MOSDComputeReply(
+                msg.tid, rc, results, out,
+                replay_epoch=self._epoch() if rc == EAGAIN else 0))
+        finally:
+            op = self.op_tracker.finish(op_id)
+            if token is not None:
+                tracing.current_span.reset(token)
+            self._finish_op_span(span, op)
+
+    async def _handle_sub_compute(self, conn: Connection,
+                                  msg: MOSDSubCompute) -> None:
+        """Shard side of the pushdown: evaluate the kernel over every
+        local shard named by the wave — ONE batched plan-cached
+        dispatch — and return (rc, version, result) per item.  Only
+        kernel results (R bytes each) go back over the wire."""
+        from ceph_tpu_torch import compute as compute_mod
+        from ceph_tpu_torch.compute import ComputeError
+        from ceph_tpu_torch.compute import kernels as compute_kernels
+
+        async def body() -> None:
+            kern = compute_mod.get_kernel(msg.kernel)
+            # per-kernel capability gate (not blanket linear-only):
+            # approx_capable kernels run per-shard too, with the
+            # primary doing a result-domain approximate combine
+            if kern is None or not (kern.linear or
+                                    kern.approx_capable):
+                await conn.send(MOSDSubComputeReply(msg.tid, EINVAL))
+                return
+            try:
+                args = compute_kernels.parse_args(msg.args)
+            except ComputeError as e:
+                await conn.send(MOSDSubComputeReply(msg.tid, e.rc))
+                return
+            items = [(PgId(pool, ps), shard, oid)
+                     for pool, ps, shard, oid in msg.items]
+            try:
+                results = await self.compute.eval_local_shards(
+                    items, kern, args)
+            except sched_mod.QueueFull:
+                # compute-class overflow: explicit refusal — the
+                # primary's hedged gather treats it as a failed
+                # flight and recruits a spare
+                await conn.send(MOSDSubComputeReply(msg.tid, EBUSY))
+                return
+            await conn.send(MOSDSubComputeReply(msg.tid, 0, results))
+
+        if msg.trace is not None:
+            async with self.tracer.span(
+                    f"sub_compute {msg.kernel} x{len(msg.items)}",
+                    context=msg.trace):
+                await body()
+            return
+        await body()
 
     async def _execute_ops(self, state: PGState, pool, msg: MOSDOp,
                            conn: Optional[Connection] = None

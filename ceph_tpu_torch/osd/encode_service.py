@@ -166,7 +166,11 @@ class EncodeService:
         self._usable_cache: Dict[int, bool] = {}
         self.counters = {"requests": 0, "batched": 0, "inline": 0,
                          "shed": 0, "batches": 0,
-                         "dispatch_errors": 0}
+                         "dispatch_errors": 0,
+                         # sheds by request kind: each runs the inline
+                         # path (one fused encode or one decode launch)
+                         "shed_encode_hinfo": 0, "shed_encode": 0,
+                         "shed_decode": 0}
 
     # -- public API (the daemon's awaited entry points) -------------------
 
@@ -179,7 +183,7 @@ class EncodeService:
         self.counters["requests"] += 1
         q = self._bucket_for("encode_hinfo", sinfo, codec)
         if q is None or not self._admit(q, len(data)):
-            self.counters["inline" if q is None else "shed"] += 1
+            self._count_unbatched(q, "encode_hinfo")
             # intentionally-inline path (kill switch, no batchable
             # tier, or backpressure shed).  The span names the stage —
             # inline codec work must be attributable in the
@@ -198,7 +202,7 @@ class EncodeService:
         self.counters["requests"] += 1
         q = self._bucket_for("encode", sinfo, codec)
         if q is None or not self._admit(q, len(data)):
-            self.counters["inline" if q is None else "shed"] += 1
+            self._count_unbatched(q, "encode")
             with tracing.child_span_sync("encode_inline"):
                 return ec_util.encode(sinfo, codec, _buf(data), want)
         return await self._enqueue(q, (data, want), len(data))
@@ -217,7 +221,7 @@ class EncodeService:
         q = None if all_data else self._bucket_for("decode", sinfo,
                                                    codec)
         if q is None or not self._admit(q, nbytes):
-            self.counters["inline" if q is None else "shed"] += 1
+            self._count_unbatched(q, "decode")
             with tracing.child_span_sync("decode_inline"):
                 return ec_util.decode(sinfo, codec, to_decode)
         return await self._enqueue(q, dict(to_decode), nbytes)
@@ -265,6 +269,14 @@ class EncodeService:
         }
 
     # -- internals --------------------------------------------------------
+
+    def _count_unbatched(self, q: Optional[_Bucket], kind: str) -> None:
+        """An inline request: no batchable tier (q None), or shed."""
+        if q is None:
+            self.counters["inline"] += 1
+        else:
+            self.counters["shed"] += 1
+            self.counters[f"shed_{kind}"] += 1
 
     def _usable(self, codec) -> bool:
         """Whether this codec can ride the fused batched tier."""

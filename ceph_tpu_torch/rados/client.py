@@ -1,5 +1,6 @@
 """Networked RADOS client (Objecter + librados roles; port of the
-write, read, xattr and listing slice of ceph_tpu/rados/client.py).
+write, read, xattr, listing, coded-compute and inference slice of
+ceph_tpu/rados/client.py).
 
 Reference parity: Objecter (the reference's src/osdc/Objecter.cc) —
 placement computed client-side with the same CRUSH/OSDMap math the OSDs
@@ -8,10 +9,14 @@ epoch and resent when the map changes or the primary bounces them
 (EAGAIN / replay_epoch), lossy connections simply re-established —
 and librados::IoCtx (librados_cxx.cc:1247) as the user-facing surface.
 
-Placement runs per PG on the host; the client does no device work.  Not
-in this slice (ROADMAP A4b): snapshots, omap, object classes
-(`execute`), watch/notify, and the coded-compute and inference calls
-(`compute`, `store_model`, `infer`); they come with their OSD halves.
+Placement runs per PG on the host.  Scans (`compute`) and model serving
+(`store_model`, `load_model`, `infer`) run on the OSDs, which fold the
+shards where they live; the client does device work only in the
+read-then-compute legs of the kill switches (CEPH_TPU_COMPUTE=0,
+CEPH_TPU_INFERENCE=0), where a nonlinear kernel evaluates on the
+client's `device` (CUDA unless the caller names another).  Not in this
+slice (ROADMAP A4b): snapshots, omap, object classes (`execute`),
+watch/notify.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from ceph_tpu_torch.msg.messages import (
     MMonCommandReply,
     MOSDCommand,
     MOSDCommandReply,
+    MOSDCompute,
+    MOSDComputeReply,
     MOSDMapMsg,
     MOSDOp,
     MOSDOpReply,
@@ -155,7 +162,7 @@ class RadosClient:
     def __init__(self, mon_addr, name: Optional[str] = None,
                  op_timeout: float = 10.0, max_retries: int = 30,
                  secret: Optional[str] = None, secure: bool = False,
-                 config: Optional[dict] = None):
+                 config: Optional[dict] = None, device=None):
         # mon_addr: one address, a comma-separated list, or a list —
         # the client hunts across them on failure (MonClient hunting)
         if isinstance(mon_addr, str):
@@ -188,6 +195,9 @@ class RadosClient:
         self.tracer = Tracer(name)
         self.trace_all = bool((config or {}).get("client_trace_all"))
         self.osdmap: Optional[OSDMap] = None
+        # where the kill-switch legs evaluate a kernel (resolved when
+        # one runs: CUDA unless the caller names another device)
+        self.device = device
         self.op_timeout = op_timeout
         self.max_retries = max_retries
         # random tid base: a RESTARTED daemon client reusing a fixed
@@ -247,7 +257,7 @@ class RadosClient:
                     event.set()
                 self._map_waiters.clear()
         elif isinstance(msg, (MAuthReply, MOSDOpReply, MMonCommandReply,
-                              MOSDCommandReply)):
+                              MOSDCommandReply, MOSDComputeReply)):
             fut = self._futures.pop(msg.tid, None)
             if fut is not None and not fut.done():
                 fut.set_result(msg)
@@ -709,6 +719,278 @@ class IoCtx:
         reply = await self._submit(oid, [OSDOp("append", data=data)])
         if reply.rc != 0:
             raise RadosError(reply.rc, f"append {oid!r}")
+
+    # -- coded compute (scan/aggregate/score pushdown) ---------------------
+
+    async def compute(self, kernel: str, oids: List[str],
+                      args: Optional[Dict[str, Any]] = None,
+                      wave: int = 1024
+                      ) -> Tuple[Dict[str, bytes], Dict[str, int]]:
+        """Run a registered compute kernel over many objects WHERE
+        THEY LIVE (MOSDCompute, ceph_tpu_torch/compute): one SET-valued op
+        per primary per wave, only kernel results come back.  Returns
+        ({oid: result bytes}, {oid: rc}) — partial results survive
+        per-object errors, the scan-shaped contract.
+
+        Kill switch CEPH_TPU_COMPUTE=0 falls back to client-side
+        read-then-compute with the same kernel reference
+        implementations — bit-identical results, every payload byte
+        over the wire (the parity leg the tests drive)."""
+        from ceph_tpu_torch import compute as compute_mod
+
+        if not compute_mod.env_enabled():
+            return await self._compute_client_side(kernel, oids, args)
+        import json as _json
+
+        client = self.client
+        args_raw = _json.dumps(args, sort_keys=True) if args else ""
+        results: Dict[str, bytes] = {}
+        errors: Dict[str, int] = {}
+        pending = list(dict.fromkeys(oids))
+        for attempt in range(client.max_retries):
+            if not pending:
+                break
+            osdmap = client.osdmap
+            by_primary: Dict[str, List[str]] = {}
+            next_pending: List[str] = []
+            for oid in pending:
+                pg = self.object_pg(oid)
+                primary = client._primary_cached(osdmap, pg)
+                addr = osdmap.osd_addrs.get(primary) \
+                    if primary >= 0 and osdmap.is_up(primary) else None
+                if addr is None:
+                    next_pending.append(oid)
+                    continue
+                by_primary.setdefault(addr, []).append(oid)
+            sem = asyncio.Semaphore(8)
+
+            async def one_wave(addr: str, part: List[str]) -> None:
+                async with sem:
+                    tid = client._next_tid()
+                    fut: asyncio.Future = \
+                        asyncio.get_running_loop().create_future()
+                    client._futures[tid] = fut
+                    try:
+                        await client.msgr.send_to(addr, MOSDCompute(
+                            tid, client.msgr.entity_name,
+                            self.pool_id, part, kernel, args_raw,
+                            osdmap.epoch,
+                            tenant=self.tenant
+                            or CURRENT_TENANT.get()))
+                        # a scan wave legitimately outlives a single
+                        # op's budget: scale the wait with the wave
+                        reply = await asyncio.wait_for(
+                            fut, client.op_timeout
+                            + len(part) / 100.0)
+                    except (ConnectionError, OSError,
+                            asyncio.TimeoutError):
+                        next_pending.extend(part)
+                        await client.refresh_map()
+                        return
+                    finally:
+                        client._futures.pop(tid, None)
+                    if reply.rc == EAGAIN:
+                        next_pending.extend(part)
+                        return
+                    if reply.rc != 0:
+                        for oid in part:
+                            errors[oid] = reply.rc
+                        return
+                    for oid in part:
+                        rc, data = reply.results.get(oid, (EAGAIN,
+                                                           b""))
+                        if rc == 0:
+                            results[oid] = data if isinstance(
+                                data, bytes) else bytes(data)
+                        elif rc == EAGAIN:
+                            next_pending.append(oid)
+                        else:
+                            errors[oid] = rc
+
+            # waves fly concurrently (bounded): the scan is one
+            # logical op — it must not serialize on primary count or
+            # wave count
+            await asyncio.gather(*(
+                one_wave(addr, batch[lo:lo + wave])
+                for addr, batch in by_primary.items()
+                for lo in range(0, len(batch), wave)))
+            if next_pending:
+                await client.wait_for_new_map(0.5)
+                await asyncio.sleep(0.05 + full_jitter(0.2, 0))
+            pending = next_pending
+        for oid in pending:
+            errors.setdefault(oid, EAGAIN)
+        return results, errors
+
+    async def _compute_client_side(self, kernel: str,
+                                   oids: List[str],
+                                   args: Optional[Dict[str, Any]]
+                                   ) -> Tuple[Dict[str, bytes],
+                                              Dict[str, int]]:
+        """CEPH_TPU_COMPUTE=0: read every object and evaluate the
+        kernel locally — the bit-exact parity oracle for the pushdown
+        path (and its bytes-moved foil in the bench).  A nonlinear
+        kernel evaluates on the client's device."""
+        from ceph_tpu_torch import compute as compute_mod
+        from ceph_tpu_torch.device import resolve_device
+        from ceph_tpu_torch.osd.osdmap import TYPE_ERASURE
+
+        kern = compute_mod.get_kernel(kernel)
+        if kern is None:
+            raise RadosError(-22, f"unknown kernel {kernel!r}")
+        kargs = args or {}
+        try:
+            kern.validate_args(kargs)
+        except compute_mod.ComputeError as e:
+            raise RadosError(e.rc, str(e))
+        device = resolve_device(self.client.device)
+        pool = self.pool
+        k, chunk = 1, 0
+        if pool.type == TYPE_ERASURE:
+            # default osd_pool_erasure_code_stripe_unit (the linear
+            # kernels' striping parameter; clusters overriding it
+            # must scan with CEPH_TPU_COMPUTE=1)
+            k, chunk = self._ec_geometry()
+        results: Dict[str, bytes] = {}
+        errors: Dict[str, int] = {}
+        sem = asyncio.Semaphore(16)
+
+        async def one(oid: str) -> None:
+            async with sem:
+                try:
+                    data = await self.read(oid)
+                except ObjectNotFound:
+                    errors[oid] = ENOENT
+                    return
+                except RadosError as e:
+                    errors[oid] = e.rc
+                    return
+            try:
+                results[oid] = kern.reference(data, kargs, k, chunk,
+                                              device=device)
+            except compute_mod.ComputeError as e:
+                errors[oid] = e.rc
+
+        await asyncio.gather(*(one(oid)
+                               for oid in dict.fromkeys(oids)))
+        return results, errors
+
+    def _ec_geometry(self) -> Tuple[int, int]:
+        """(k, chunk size) of this EC pool's stripe at the default
+        osd_pool_erasure_code_stripe_unit of 4096, whatever unit the
+        profile sets.  The codec gives the geometry alone: it encodes
+        nothing, so it is built on the CPU."""
+        from ceph_tpu_torch.ec.registry import create_erasure_code
+
+        profile = self.client.osdmap.erasure_code_profiles[
+            self.pool.erasure_code_profile]
+        codec = create_erasure_code({**profile, "device": "cpu"})
+        k = codec.get_data_chunk_count()
+        return k, codec.get_chunk_size(k * 4096)
+
+    # -- coded inference serving (Fisher-fused approximate scoring) --------
+
+    async def store_model(self, name: str, kind: str, params,
+                          m: int = 1, fisher_info=None
+                          ) -> Dict[str, Any]:
+        """Shard + Fisher-fuse a model into THIS EC pool's stripe
+        geometry (ceph_tpu_torch/inference/registry): the pool's k data
+        chunks carry the k_model = k_pool - m data parameter shards
+        plus the m fused shards, and the manifest object carries the
+        calibrated spec.  Returns the spec."""
+        from ceph_tpu_torch.inference import registry as inf_registry
+        from ceph_tpu_torch.osd.osdmap import TYPE_ERASURE
+
+        pool = self.pool
+        if pool.type != TYPE_ERASURE:
+            raise RadosError(-22, "store_model needs an EC pool")
+        k_pool, chunk = self._ec_geometry()
+        if not 0 < m < k_pool:
+            raise RadosError(-22, f"bad fused-shard count m={m}")
+        spec, blobs = inf_registry.build(
+            name, kind, params, k_pool - m, m, chunk,
+            fisher_info=fisher_info)
+        for oid, blob in blobs.items():
+            await self.write_full(oid, blob)
+        return spec
+
+    async def load_model(self, name: str) -> Dict[str, Any]:
+        """Read + cache a stored model's manifest (the spec rides
+        every query's args, so the cache makes a query one round
+        trip, not two)."""
+        cache = getattr(self, "_model_cache", None)
+        if cache is None:
+            cache = self._model_cache = {}
+        spec = cache.get(name)
+        if spec is None:
+            import json as _json
+
+            from ceph_tpu_torch.inference import registry as inf_registry
+
+            spec = _json.loads(
+                await self.read(inf_registry.manifest_oid(name)))
+            cache[name] = spec
+        return spec
+
+    async def infer(self, name, queries, exact: bool = False,
+                    budget: Optional[float] = None
+                    ) -> Dict[str, Any]:
+        """Score a query batch against a stored model THROUGH the
+        code (MOSDCompute `infer`): per-shard forward passes run on
+        the OSDs holding the serving streams, the primary combines
+        the first sufficient arrival set (Fisher-averaged when fused
+        shards substitute for stragglers), and the per-query error
+        budget — `osd_inference_error_budget` when None — gates every
+        approximate result.  exact=True demands the bit-exact
+        full-decode path.  Returns the decoded result dict:
+        scores (nq x out float32), mode, est_error, substituted.
+
+        Kill switch CEPH_TPU_INFERENCE=0 falls back to client-side
+        read-then-infer with the same host reference forward —
+        bit-identical result bytes, every parameter byte over the
+        wire (the parity leg tests/test_torch_inference_live.py
+        drives)."""
+        from ceph_tpu_torch import inference as inf_mod
+        from ceph_tpu_torch.inference import kernels as inf_kernels
+        from ceph_tpu_torch.inference import model as inf_model
+
+        spec = name if isinstance(name, dict) \
+            else await self.load_model(name)
+        try:
+            inf_model.validate_spec(spec)
+        except ValueError as e:
+            raise RadosError(-22, str(e))
+        if not inf_mod.env_enabled():
+            return await self._infer_client_side(spec, queries)
+        args: Dict[str, Any] = {
+            "model": spec,
+            "q": inf_kernels.encode_queries(queries),
+        }
+        if exact:
+            args["exact"] = True
+        if budget is not None:
+            args["budget"] = float(budget)
+        oid = spec["params_oid"]
+        results, errors = await self.compute(
+            inf_mod.INFER_KERNEL, [oid], args)
+        if oid not in results:
+            raise RadosError(errors.get(oid, EAGAIN),
+                             f"infer {spec.get('name')!r}")
+        return inf_kernels.decode_result(results[oid])
+
+    async def _infer_client_side(self, spec: Dict[str, Any],
+                                 queries) -> Dict[str, Any]:
+        """CEPH_TPU_INFERENCE=0: read the whole params object and run
+        the host reference forward — the same exact_forward + blob
+        the engine's exact fallback uses, so the result bytes are
+        bit-identical to exact=True serving."""
+        from ceph_tpu_torch.inference import kernels as inf_kernels
+        from ceph_tpu_torch.inference import model as inf_model
+
+        data = await self.read(spec["params_oid"])
+        scores = inf_model.exact_forward(spec, data, queries)
+        return inf_kernels.decode_result(
+            inf_kernels.result_blob(scores, "exact", 0.0, 0))
 
     # -- xattrs ------------------------------------------------------------
 

@@ -5,8 +5,8 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
-(`python3 chip_smoke.py --phase osd` builds the kernels and runs phases 3i
-and 3j alone, with their checks, and prints no result line.)
+(`python3 chip_smoke.py --phase osd` builds the kernels and runs phases 3i,
+3j and 3k alone, with their checks, and prints no result line.)
 
 Phases; any failure exits nonzero and prints no result line:
 
@@ -51,7 +51,7 @@ Phases; any failure exits nonzero and prints no result line:
    4), on odd input counts (1, 31, 33, 2^20 + 17; rebalance vector), on
    the same map with a seeded weight per OSD (many distinct reciprocals;
    2^18 inputs), and also on a 64-OSD map with a CHOOSE_FIRSTN osd rule,
-   on a map with an empty host bucket and on 24 seeded random
+   on a map with an empty host bucket and on 16 seeded random
    hierarchies of 2-4 levels with random rules and weights (firstn and
    indep, leaf and not, stable 0 and 1, vary_r 0-3, descend_once 0 and
    1, numrep other than result_max); and against the host mapper on 256
@@ -66,7 +66,7 @@ Phases; any failure exits nonzero and prints no result line:
    size-3 pool of 2^18 PGs (rule 0) and an EC 8+3 pool of 2^14 PGs (rule
    1), all OSDs in and again with a seeded 5% out and 2% down.  On each map
    OSDMapMapping(m) and osdmaptool.run([map file, "--test-map-pgs"]), each
-   with the placement kernel's launch counter zeroed just before it; 1024
+   with the placement kernel's launch counter zeroed just before it; 256
    seeded PGs per pool against the host path m.pg_to_up_acting_osds, the
    tool's pg count and min/max/avg lines against the mapping's; each
    pool's launch again, held against the plain version and timed beside
@@ -96,11 +96,11 @@ Phases; any failure exits nonzero and prints no result line:
    enough iterations for 1 s or more); LRC k=4 m=2 l=3, SHEC k=4 m=3 c=2,
    CLAY k=4 m=2 d=5 and k=8 m=4 d=11, ec_msr k=4 m=3 d=6 and k=5 m=5 d=9
    (tiled: a 25 x 25 parity matrix) on 16 MiB objects, chunks against the
-   CPU twin, every single erasure and 3 seeded larger sets decoded, CLAY's
+   CPU twin, every single erasure and 2 seeded larger sets decoded, CLAY's
    sub-chunk repair and MSR's repair(lost, fragments) of three chunks;
    non_regression --create and --check for nine profiles, archived chunks
    against the CPU twin's; a config-3 pool and an LRC k=4 m=2 l=3 pool on
-   the 24-OSD cluster, 2 x 16 MiB objects each written, read healthy,
+   the 24-OSD cluster, a 16 MiB object each written, read healthy,
    with one and with two OSDs down, stores against a
    LocalCluster(device="cpu").  Times are host-clock medians of 3, with
    the launches per call; the launch counters are zeroed just before the
@@ -118,8 +118,8 @@ Phases; any failure exits nonzero and prints no result line:
    card's store a crash() and WAL replay, a remount and a flipped byte
    (IOError, csum_read_failures 1); write and read GiB/s of a 16 MiB object
    (random, text; compression off and snappy; host clock, median of 3); a
-   LocalCluster(24 OSDs, 12 hosts, store_path) with EC 8+3 over hosts, two
-   64 MiB objects written, read healthy and with 1 and 3 data shards' OSDs
+   LocalCluster(24 OSDs, 12 hosts, store_path) with EC 8+3 over hosts, one
+   64 MiB object written, read healthy and with 1 and 3 data shards' OSDs
    down, deep-scrubbed, every store mounted again and read, all stores
    against a LocalCluster(store_path, device="cpu"); score_blocks called
    in turns at (1, 65536), (256, 65536) and (33, 513), three rounds, each
@@ -222,6 +222,40 @@ Phases; any failure exits nonzero and prints no result line:
    fallback, and on primaries that ran no classic decode at most (d /
    alpha + 0.1) bytes read per byte rebuilt.  Times to clean, bytes
    rebuilt and their GiB/s, the tracer's recovery stage seconds.
+3k. PG splits and coded compute and inference through the OSDs, on phase
+   3j's cluster and its CPU twin (the same history), counts zeroed before
+   a and before b: a. `osd pool set rgw.data pg_num 32` (from 8) with
+   every object at rest, wait for clean, every object read back, one more
+   4 MiB object written into a child PG (path `split`); b. phase 3g's four
+   seeded 64 MiB objects written into rgw.data and scanned with them and
+   every 4 MiB object there through `IoCtx.compute` (gf_fold three times,
+   timed, and gf_fingerprint), then compress_score, count, sum, filter
+   and dot_score on 3g's objects (the fallback); c. 3g's linear scorer and
+   MLP stored with `store_model` in rgw.models (EC 8+3 at the default
+   stripe unit, 2 PGs, made in 3j) and 64 queries sent exact and at the 0.05
+   budget; b's linear scans and c's queries again with one and with three
+   data shards' OSDs killed and marked down (path `osd_compute`).  Checks:
+   the reads exact; every store's shard objects, xattrs, pg-log entries
+   and `osd_meta` against the twin's; no object missing a shard after the
+   split that was not missing one before it (ROADMAP C7), none short of k
+   shards when healthy; every scan answer against
+   kernel.reference on the written bytes (64 KiB units), gf_fold's and
+   the nonlinear ones against phase 3g's library answers, all against the
+   twin's; no sub-read bytes in a linear scan; rc 0 for every object but
+   those short of k shards with OSDs down, which answer EAGAIN as the JAX
+   OSDs do and must be among those C7 left missing a shard before the
+   split; exact answers within INFER_RTOL of model.exact_forward and
+   equal to the twin's, served ones within the budget or refused where
+   the twin refuses, EAGAIN exactly where fewer than the model's k
+   serving streams' holders are up (ROADMAP C9), and served from the
+   shards when healthy; pushed-down PG waves <= gf_fold <= the length groups the
+   OSDs folded, 1 <= gf_matmul_gen <= the result-domain survivor-set
+   groups missing a data shard plus the service's decode requests,
+   gf_matmul_spec and crc32c_blocks per the service's batches and the
+   re-encodes, score_blocks on the compress_score fallback.  Times: the
+   split's seconds to clean, the scan's GiB/s of shard bytes beside 3g's,
+   the tracer's compute-eval, compute-decode and sub-compute span seconds
+   of a scan, queries/s beside 3g's.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -238,8 +272,8 @@ Phases; any failure exits nonzero and prints no result line:
    against its plain version, and the placement kernel at phase 3c's.
    Every kernels-line row carries its launches per path (codec, crushtool,
    osdmap, cluster, codecs, store, store_cluster, compute, mon, osd,
-   recovery, recovery_msr) and their sum; bloom_positions' row is timed at the tier's geometry and
-   65536 hashes.
+   recovery, recovery_msr, split, osd_compute) and their sum;
+   bloom_positions' row is timed at the tier's geometry and 65536 hashes.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.  The card's name and power limit, as
@@ -261,7 +295,7 @@ CHUNK = 512 << 10
 B = 64                      # stripes of the 256 MiB object
 STRIPE = K * CHUNK          # 4 MiB
 SEED = 20261016
-RANDOM_CRUSH_MAPS = 24      # seeded random hierarchies of phase 3b
+RANDOM_CRUSH_MAPS = 16      # seeded random hierarchies of phase 3b
 ODD_COUNTS = (1, 31, 33, (1 << 20) + 17)   # CRUSH inputs of phase 3b
 EC_PROFILE = {"plugin": "jerasure", "technique": "reed_sol_van",
               "k": str(K), "m": str(M), "crush-failure-domain": "host"}
@@ -271,7 +305,7 @@ EC_PROFILE = {"plugin": "jerasure", "technique": "reed_sol_van",
 # against the host path
 OSDMAP_REP_PGS = 1 << 18
 OSDMAP_EC_PGS = 1 << 14
-OSDMAP_SAMPLES = 1024
+OSDMAP_SAMPLES = 256
 OUT_SHARE, DOWN_SHARE = 0.05, 0.02
 # phase 3d: BASELINE config 5's object, 64 MiB into EC 8+3 over hosts, on
 # 24 OSDs in 12 hosts
@@ -374,6 +408,8 @@ def crush_phase(torch, dev, card: str) -> dict:
     # the 10,000-OSD map: kernel_shapes holds every rule and weight vector
     # against the plain version on all 2^20 inputs, and times it (phase 4
     # prints the times); the plain version takes 1-5 s here (H100)
+    part_t0 = time.perf_counter()
+    part_s = {}
     shapes = ks.crush_shapes(dev)
     cases, worst, max_err = [], 0, 0
     for sh in shapes:
@@ -427,6 +463,7 @@ def crush_phase(torch, dev, card: str) -> dict:
                         "host_samples": tail.numel(),
                         "mismatches_vs_host": host_bad})
 
+    part_s["big_map"] = time.perf_counter() - part_t0
     # small maps: 64 OSDs with CHOOSE_FIRSTN osd, an empty host bucket, and
     # seeded random hierarchies with random tunables, so that every branch
     # of the kernel runs (stable 0, vary_r 0 and > 1, descend_once 0,
@@ -474,7 +511,9 @@ def crush_phase(torch, dev, card: str) -> dict:
                           "plain_inputs": xs_in.numel(),
                           "mismatches_vs_plain": mism, "host_samples": 64,
                           "mismatches_vs_host": host_bad})
-    print(json.dumps({"phase": "crush_vs_plain_and_host", "cases": cases}))
+    part_s["all_cases"] = time.perf_counter() - part_t0
+    print(json.dumps({"phase": "crush_vs_plain_and_host", "cases": cases,
+                      "seconds": part_s}))
     check(worst == max_err == 0, "the placement kernel disagrees with its"
           " plain version or the host mapper")
 
@@ -851,7 +890,7 @@ CODEC_PROFILES = {
     "ec_msr k=4 m=3 d=6": {"plugin": "ec_msr", "k": "4", "m": "3", "d": "6"},
     "ec_msr k=5 m=5 d=9": {"plugin": "ec_msr", "k": "5", "m": "5", "d": "9"},
 }
-CODEC_SAMPLED_SETS = 3      # seeded multi-erasure sets per profile
+CODEC_SAMPLED_SETS = 2      # seeded multi-erasure sets per profile
 NR_PROFILES = (
     ("jerasure", ["k=4", "m=2", "technique=reed_sol_van"]),
     ("isa", ["k=8", "m=3"]),
@@ -866,7 +905,7 @@ NR_PROFILES = (
 CODEC_CLUSTER_POOLS = {"config3": CONFIG3, "lrc": LRC_423}
 TILED_SHAPE = (25, 70)      # past one launch's MAX_R rows and MAX_K inputs
 TILED_BYTES = 1 << 14
-CODEC_CLUSTER_OBJECTS = 2   # per pool: four 16 MiB objects in all
+CODEC_CLUSTER_OBJECTS = 1   # per pool: two 16 MiB objects in all
 
 
 def codecs_phase(torch, dev, card: str, wrappers: dict) -> dict:
@@ -1259,7 +1298,7 @@ def codecs_phase(torch, dev, card: str, wrappers: dict) -> dict:
         med = {key: statistics.median(v) for key, v in times.items()}
         steps["store_and_rest_s"] = (med["write_full"] - steps["encode_s"]
                                      - steps["hinfo_crc_s"])
-        scrub = io_.deep_scrub(f"{pool}-1")
+        scrub = io_.deep_scrub(f"{pool}-{CODEC_CLUSTER_OBJECTS - 1}")
         pools.append({"pool": pool, "chunks": n,
                       "stripe_chunk": sinfo.get_chunk_size(),
                       "stripes_per_object": CODEC_OBJECT
@@ -1303,7 +1342,7 @@ STORE_ALGS = ("snappy", "lz4", "zlib", "none")
 STORE_KINDS = ("zeros", "text", "random", "pattern")
 SCORE_SHAPES = ((1, 1), (256, 3), (256, 511), (64, 512), (33, 513),
                 (16, 4097), (1, 65536), (256, 65536), (2, 64 * 4096 + 17))
-STORE_CLUSTER_OBJECTS = 2
+STORE_CLUSTER_OBJECTS = 1
 # score_blocks called in turns at these shapes (its workspace reused)
 SCORE_REPEAT_SHAPES = ((1, 65536), (256, 65536), (33, 513))
 SCORE_REPEAT_ROUNDS = 3
@@ -1644,6 +1683,7 @@ def store_phase(torch, dev, card: str, wrappers: dict) -> dict:
             "scrub": scrub, "remount_reads_exact": remount_exact,
             "same_as_cpu_cluster": same, "launches": cluster_launches,
             "seconds": ctimes, "median_s": med,
+            "seconds_in_phase_so_far": time.perf_counter() - phase_t0,
             "gib_per_s": {k: gib / v for k, v in med.items()},
             "card": card}))
         check(all(exact) and remount_exact,
@@ -1753,6 +1793,31 @@ BLOOM_NBITS = (8, 6236, 1048573, (1 << 31) - 1)
 # the magic-reciprocal remainder (IMAD.HI, two shifts, an add, a subtract,
 # an IMAD)
 BLOOM_OPS_PER_POSITION = 3 * 9 * 3 + 1 + 6
+
+
+def scan_objects(size: int) -> dict:
+    """Phase 3g's seeded scan objects of `size` bytes, the last of them
+    float32 vectors (phase 3k writes them into the OSDs' pool)."""
+    rng = np.random.default_rng(SEED + 7)
+    objs = {f"scan-{i}": rng.bytes(size) for i in range(SCAN_OBJECTS - 1)}
+    objs[f"scan-{SCAN_OBJECTS - 1}"] = rng.standard_normal(
+        size // 4).astype("<f4").tobytes()
+    return objs
+
+
+def nonlinear_cases() -> list:
+    """(kernel, object, args) of the nonlinear kernels phases 3g and 3k
+    evaluate on the scan objects."""
+    floats = f"scan-{SCAN_OBJECTS - 1}"
+    query = np.random.default_rng(SEED).standard_normal(16).tolist()
+    return [
+        ("compress_score", "scan-0", {}),
+        ("compress_score", floats, {"block": 65536}),
+        ("count", floats, {"record": 8, "cmp": "lt", "value": 1 << 62}),
+        ("sum", floats, {"record": 8, "off": 0, "len": 4}),
+        ("filter", floats, {"record": 4, "cmp": "gt", "value": 0x40800000,
+                            "limit": 64}),
+        ("dot_score", floats, {"dim": 16, "query": query})]
 
 
 def zipf_indices(theta: float, n: int, count: int,
@@ -1872,11 +1937,7 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
     # -- 2. the main path: writes, the scan, decodes, kernels, models, tier --
     for fn in wrappers.values():
         fn.launches = 0
-    rng = np.random.default_rng(SEED + 7)
-    objs = {f"scan-{i}": rng.bytes(CLUSTER_OBJECT)
-            for i in range(SCAN_OBJECTS - 1)}
-    objs[f"scan-{SCAN_OBJECTS - 1}"] = rng.standard_normal(
-        CLUSTER_OBJECT // 4).astype("<f4").tobytes()
+    objs = scan_objects(CLUSTER_OBJECT)
     cluster = LocalCluster(num_osds=CLUSTER_OSDS,
                            osds_per_host=CLUSTER_OSDS_PER_HOST, device=dev)
     cluster.create_erasure_pool("ecpool", EC_PROFILE)
@@ -1928,19 +1989,10 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
 
     # nonlinear kernels on the objects read back
     back = {name: io.read(name) for name in objs}
-    floats = f"scan-{SCAN_OBJECTS - 1}"
-    query = np.random.default_rng(SEED).standard_normal(16).tolist()
-    nonlinear_cases = [
-        ("compress_score", "scan-0", {}),
-        ("compress_score", floats, {"block": 65536}),
-        ("count", floats, {"record": 8, "cmp": "lt", "value": 1 << 62}),
-        ("sum", floats, {"record": 8, "off": 0, "len": 4}),
-        ("filter", floats, {"record": 4, "cmp": "gt", "value": 0x40800000,
-                            "limit": 64}),
-        ("dot_score", floats, {"dim": 16, "query": query})]
+    cases = nonlinear_cases()
     nonlinear = [compute.get_kernel(kn).eval_object(back[obj], args,
                                                     device=dev)
-                 for kn, obj, args in nonlinear_cases]
+                 for kn, obj, args in cases]
     score_launches = wrappers["score_blocks"].launches
 
     # models stored through the registry into the pool, queried from the
@@ -1996,7 +2048,7 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
             "gf_matmul_gen_launches": got["gen_launches"]}
     nonlinear_ok = [got == compute.get_kernel(kn).eval_object(
         back[obj], args, device="cpu")
-        for got, (kn, obj, args) in zip(nonlinear, nonlinear_cases)]
+        for got, (kn, obj, args) in zip(nonlinear, cases)]
     reads_ok = all(back[name] == data for name, data in objs.items())
 
     infer = {}
@@ -2055,7 +2107,7 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
               "rows": rows, "lanes": lanes, "scan": scan_ok,
               "reads_exact": reads_ok,
               "nonlinear_vs_cpu_twin": dict(zip(
-                  [f"{kn} {obj}" for kn, obj, _a in nonlinear_cases],
+                  [f"{kn} {obj}" for kn, obj, _a in cases],
                   nonlinear_ok)),
               "nonlinear_results": [r.decode()[:200] for r in nonlinear],
               "score_blocks_launches": score_launches,
@@ -2217,6 +2269,14 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
         check(profile_ok, f"positions_for at {batch} hashes: the CUDA"
               f" work of its calls was {per_call}, not one copy in, the"
               f" bloom kernel and one copy out")
+    # what phase 3k holds its OSD scan and queries against
+    PHASE_RESULTS["compute"] = {
+        "answers": {kname: {name: ans for (name, lost), ans
+                            in zip(maps_order, got["answers"])
+                            if lost == "data"}
+                    for kname, got in scan.items()},
+        "nonlinear": nonlinear, "scan_gib_per_s": steps["scan_gib_per_s"],
+        "inference_qps": qps}
     print(json.dumps({"phase": "compute_times", "scan_steps": steps,
                       "shard_gib": shard_gib, "inference_qps": qps,
                       "gf_fold": fold_times,
@@ -2716,6 +2776,26 @@ RECOVERY_MSR_PROFILE = {"plugin": "ec_msr", "k": "4", "m": "3", "d": "6",
 RECOVERY_MSR_OBJECTS = 8
 RECOVERY_MSR_SLACK = 0.1    # over d / alpha, bytes read per byte rebuilt
 
+# phase 3k: on the same cluster, rgw.data grows from 8 to 32 PGs with every
+# object at rest (then one more 4 MiB object goes into a child PG); phase
+# 3g's four 64 MiB scan objects go into rgw.data and its two models into
+# rgw.models, and the OSDs scan and serve them healthy, with one and with
+# three data shards' OSDs down (marked down, not out: the PGs serve degraded)
+SPLIT_PG_NUM = 32
+OSD_SCAN_OBJECT = CLUSTER_OBJECT
+OSD_MODELS = MODELS
+OSD_SCAN_REPEATS = 3        # healthy gf_fold scans timed on the card
+LINEAR_KERNELS = ("gf_fold", "gf_fingerprint")
+EAGAIN_RC = -11
+# the models' pool (made in 3j, beside msr.data): rgw.data's EC 8+3 at the
+# default stripe unit, where the client's 4096-byte model layout matches the
+# OSDs' (on rgw.data every query would take the exact path: ROADMAP C8); two
+# PGs hold the two models
+MODEL_POOL = "rgw.models"
+MODEL_POOL_PROFILE = {k: v for k, v in OSD_PROFILE.items()
+                      if k != "stripe_unit"}
+MODEL_POOL_PGS = 2
+
 
 def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     """Phase 3i: the port's OSD daemons and RADOS client on the card.  The
@@ -2726,9 +2806,10 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     the written bytes, every shard's hinfo against encode_with_hinfo on
     the CPU, and the same writes (each PG's in the card's order) through
     a device="cpu" twin cluster against every store's shard objects,
-    xattrs and logs.  Then phase 3j on the same cluster (recovery_steps,
-    recovery_report), its twin driven through the same history.  Returns
-    the launches of the paths osd, recovery and recovery_msr."""
+    xattrs and logs.  Then phases 3j (recovery_steps, recovery_report) and
+    3k (split_compute_steps, osd_compute_report) on the same cluster, its
+    twin driven through the same history.  Returns the launches of the
+    paths osd, recovery, recovery_msr, split and osd_compute."""
     import asyncio
 
     from ceph_tpu_torch.device import to_device
@@ -2742,7 +2823,7 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     from ceph_tpu_torch.common import tracing
     from ceph_tpu_torch.os import ObjectId
     from ceph_tpu_torch.osd.pg_log import PGMETA_OID
-    from ceph_tpu_torch.rados.client import RadosClient
+    from ceph_tpu_torch.rados.client import RadosClient, RadosError
     from ceph_tpu_torch.rados.embedded import HINFO_ATTR, shard_collection
 
     phase_t0 = time.perf_counter()
@@ -2884,14 +2965,38 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
         OSD_OBJECT) for i in range(RECOVERY_MSR_OBJECTS)}
     tname = "traced.0"
 
+    async def wait_clean(mon, osds):
+        """Every PG of every pool active and found on its live primary,
+        every live OSD at the mon's epoch."""
+        for _ in range(int(OSD_PHASE_TIMEOUT / 0.05)):
+            epoch = mon.osdmap.epoch
+            ok = all(o.osdmap is not None and o.osdmap.epoch >= epoch
+                     for o in osds.values())
+            for pool in mon.osdmap.pools.values():
+                for ps in range(pool.pg_num if ok else 0):
+                    pg = PgId(pool.id, ps)
+                    _a, primary = mon.osdmap.pg_to_acting_osds(pg)
+                    st = osds[primary].pgs.get(pg) \
+                        if primary in osds else None
+                    ok = ok and st is not None and \
+                        st.state == "active" and not st.unfound
+            if ok:
+                return
+            await asyncio.sleep(0.05)
+        fail("the cluster never went clean")
+
     def tallies(everyone):
         """Per daemon object (a revived OSD is a new one): its perf
-        counters, its encode service's counts and its tracer's recovery
-        stage seconds."""
+        counters, its encode service's counts, its compute and inference
+        engines' counters and its tracer's recovery stage seconds."""
         out = {}
         for o in everyone:
             t = {f"perf.{k}": v for k, v in o.perf.items()}
             t.update({f"svc.{k}": v for k, v in service_counts(o).items()})
+            t.update({f"compute.{k}": v
+                      for k, v in o.compute.counters.items()})
+            t.update({f"inference.{k}": v
+                      for k, v in o.inference.counters.items()})
             t.update({f"stage.{k}": h.total
                       for k, h in o.tracer.stage_hist.items()
                       if k.startswith("recover_")})
@@ -2938,24 +3043,7 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
             check(rc == 0, f"{prefix} {i}: {msg}")
 
         async def clean():
-            """Every PG of every pool active and found on its live
-            primary, every live OSD at the mon's epoch."""
-            for _ in range(int(OSD_PHASE_TIMEOUT / 0.05)):
-                epoch = mon.osdmap.epoch
-                ok = all(o.osdmap is not None and o.osdmap.epoch >= epoch
-                         for o in osds.values())
-                for pool in mon.osdmap.pools.values():
-                    for ps in range(pool.pg_num if ok else 0):
-                        pg = PgId(pool.id, ps)
-                        _a, primary = mon.osdmap.pg_to_acting_osds(pg)
-                        st = osds[primary].pgs.get(pg) \
-                            if primary in osds else None
-                        ok = ok and st is not None and \
-                            st.state == "active" and not st.unfound
-                if ok:
-                    return
-                await asyncio.sleep(0.05)
-            fail("the cluster never went clean")
+            await wait_clean(mon, osds)
 
         def window(name, base, step_s):
             """One counted path's launches and counters."""
@@ -3034,10 +3122,13 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
         steps["c_refill_to_clean"] = time.perf_counter() - t0
         window("recovery", base, steps)
 
-        # the MSR pool, written outside the counted paths
+        # the MSR pool, written outside the counted paths, and phase 3k's
+        # models' pool, made here while a map epoch maps fewer PGs
         await client.create_ec_pool("msr.data", dict(RECOVERY_MSR_PROFILE),
                                     pg_num=8)
         msr_id = mon.osdmap.lookup_pool("msr.data")
+        await client.create_ec_pool(MODEL_POOL, dict(MODEL_POOL_PROFILE),
+                                    pg_num=MODEL_POOL_PGS)
         await clean()
         msr_io = client.open_ioctx("msr.data")
         for name, data in msr_objs.items():
@@ -3077,6 +3168,284 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
         out["msr_id"] = msr_id
         out["msr_sinfo_width"] = next(iter(osds.values()))._sinfo(
             msr_id).get_stripe_width()
+        return out
+
+    scan_objs = scan_objects(OSD_SCAN_OBJECT)
+
+    def osd_meta(stores):
+        """Each store's split bookkeeping (its `osd_meta` collection)."""
+        return {osd_id: store.omap_get("osd_meta", ObjectId("split_state"))
+                for osd_id, store in sorted(stores.items())
+                if store.collection_exists("osd_meta")}
+
+    def spans_since(everyone, marks):
+        """The spans each daemon retained since `marks` (its count of
+        retained spans then)."""
+        out = []
+        for o in everyone:
+            new = o.tracer.counters["spans_retained"] - marks.get(id(o), 0)
+            if new > 0:
+                out.extend(o.tracer.dump()[-new:])
+        return out
+
+    async def split_compute_steps(mon, osds, stores, client, everyone,
+                                  device, plan=None):
+        """Phase 3k on the cluster phase 3j left: a. rgw.data grows from 8
+        to 32 PGs with every object at rest, every object is read back and
+        one more 4 MiB object goes into a child PG; b. phase 3g's scan
+        objects written, scanned with the linear kernels through the OSDs
+        (and the nonlinear ones, which take the fallback); c. its two
+        models stored and queried, exact and at the budget; then b's
+        linear scans and c's queries again with one and with three data
+        shards' OSDs down.  With `plan` (the card run's victims) it
+        replays that history, for the CPU twin; without, it counts the
+        kernels on the paths `split` (a) and `osd_compute` (b and c) and
+        times them."""
+        from ceph_tpu_torch.inference import registry
+
+        card_run = plan is None
+        plan = dict(plan or {})
+        data_id = mon.osdmap.lookup_pool("rgw.data")
+        io = client.open_ioctx("rgw.data")
+        out: dict = {"seconds": {}, "launches": {}, "counts": {},
+                     "answers": {}, "errors": {}, "subread_bytes": {},
+                     "infer": {}, "specs": {}, "params": {},
+                     "short_of_k": {}}
+
+        def zero():
+            if card_run:
+                for fn in wrappers.values():
+                    fn.launches = 0
+
+        def window(name, base):
+            if card_run:
+                out["launches"][name] = {n: fn.launches
+                                         for n, fn in wrappers.items()}
+            out["counts"][name] = since(base, everyone)
+
+        async def caught_up():
+            while client.osdmap.epoch < mon.osdmap.epoch:
+                await client.wait_for_new_map(1.0)
+
+        steps_t0 = time.perf_counter()
+        steps: dict = {}
+
+        def step(name, t0):
+            steps[name] = time.perf_counter() - t0
+            return time.perf_counter()
+
+        def shards_at_slots(name):
+            """(shards held at their slots by the live acting members,
+            those members)."""
+            pg = io.object_pg(name)
+            acting, _p = mon.osdmap.pg_to_acting_osds(pg)
+            have = members = 0
+            for slot, osd in enumerate(acting):
+                if osd in osds:
+                    members += 1
+                    try:
+                        stores[osd].stat(shard_collection(pg, slot),
+                                         ObjectId(name))
+                        have += 1
+                    except (KeyError, IOError):
+                        pass
+            return have, members
+
+        def missing_a_shard(oids):
+            found = []
+            for name in oids:
+                have, members = shards_at_slots(name)
+                if have < members:
+                    found.append(name)
+            return found
+
+        def short_of_k(oids):
+            return [n for n in oids if shards_at_slots(n)[0] < K]
+
+        # a. the split
+        rs_names = [n for t in range(OSD_TRIALS + 1) for n in names(t)] \
+            + [tname]
+        # healthy, before the split: the objects whose shard at some slot
+        # is missing (reference fault C7, ROADMAP: 3j's out remap moved
+        # a member's slot and left that slot's shards unrebuilt).  Only
+        # these may later fall short of k; the split must add none.
+        out["missing_before_split"] = missing_a_shard(rs_names)
+        zero()
+        base = tallies(everyone)
+        old_pg_num = mon.osdmap.pools[data_id].pg_num
+        t0 = time.perf_counter()
+        rc, msg = await client.mon_command(
+            {"prefix": "osd pool set", "name": "rgw.data", "var": "pg_num",
+             "val": SPLIT_PG_NUM})
+        check(rc == 0, f"osd pool set rgw.data pg_num: {msg}")
+        await wait_clean(mon, osds)
+        out["seconds"]["split_to_clean"] = time.perf_counter() - t0
+        await caught_up()
+        reads = [await io.read(n) == rs_want(n) for n in rs_names]
+        split_name = next(f"split.{i}" for i in range(1 << 16)
+                          if io.object_pg(f"split.{i}").ps >= old_pg_num)
+        await io.write_full(split_name, piece(1))
+        reads.append(await io.read(split_name) == piece(1))
+        t1 = step("a_split_reads_write", t0)
+        window("split", base)
+        out.update(split_reads_exact=reads, split_name=split_name,
+                   old_pg_num=old_pg_num,
+                   missing_after_split=missing_a_shard(rs_names
+                                                       + [split_name]))
+
+        models_id = mon.osdmap.lookup_pool(MODEL_POOL)
+        mio = client.open_ioctx(MODEL_POOL)
+        short_client = RadosClient(client.mon_addrs, max_retries=2)
+        await short_client.connect()
+
+        # b. the scans through the OSDs
+        zero()
+        base = tallies(everyone)
+        for name, data in scan_objs.items():
+            await io.write_full(name, data)
+        t1 = step("b_scan_object_writes", t1)
+        targets = rs_names + [split_name] + list(scan_objs)
+
+        def subread_bytes():
+            return sum(o.perf["subread_bytes"] for o in everyone)
+
+        async def scan(label, kname, oids, args=None, short=()):
+            """One compute call over `oids`; the objects in `short` go
+            in a second call, through a client that retries an EAGAIN
+            twice, not the default 30 times."""
+            before = subread_bytes()
+            t0 = time.perf_counter()
+            res, err = await io.compute(
+                kname, [o for o in oids if o not in short], args)
+            secs = time.perf_counter() - t0
+            if short:
+                res2, err2 = await short_client.open_ioctx(
+                    "rgw.data").compute(kname, list(short), args)
+                res, err = {**res, **res2}, {**err, **err2}
+            out["answers"][label] = {o: bytes(r)
+                                     for o, r in sorted(res.items())}
+            out["errors"][label] = err
+            out["subread_bytes"][label] = subread_bytes() - before
+            return secs
+
+        def below_k(spec):
+            """Fewer than the model's k serving streams' holders up in
+            its PG: the engine answers EAGAIN there (ROADMAP C9)."""
+            acting, _p = mon.osdmap.pg_to_acting_osds(
+                mio.object_pg(spec["params_oid"]))
+            k, m = int(spec["k"]), int(spec["m"])
+            return sum(o in osds and mon.osdmap.is_up(o)
+                       for o in acting[:k + m]) < k
+
+        async def serve(label, kind, spec, q):
+            t0 = time.perf_counter()
+            ex = await mio.infer(spec, q, exact=True)
+            exact_s = time.perf_counter() - t0
+            refusal = below_k(spec)
+            t0 = time.perf_counter()
+            # an expected EAGAIN goes through the client that retries
+            # twice; any error's rc is held against the prediction
+            served, rc = None, 0
+            try:
+                served = await (short_client.open_ioctx(MODEL_POOL)
+                                if refusal else mio).infer(
+                    spec, q, budget=MODEL_BUDGET)
+            except RadosError as e:
+                rc = e.rc
+            out["infer"][f"{kind} {label}"] = {
+                "exact": ex["scores"].tobytes(), "exact_mode": ex["mode"],
+                "below_k": refusal, "rc": rc,
+                "exact_s": exact_s, "served_s": time.perf_counter() - t0,
+                **({"mode": served["mode"],
+                    "est_error": served["est_error"],
+                    "substituted": served["substituted"],
+                    "scores": served["scores"].tobytes()}
+                   if served is not None else {"mode": None})}
+
+        out["short_of_k"]["data"] = short_of_k(targets)
+        healthy_s = []
+        t1 = step("b_short_of_k", t1)
+        for _rep in range(OSD_SCAN_REPEATS if card_run else 1):
+            marks = {id(o): o.tracer.counters["spans_retained"]
+                     for o in everyone}
+            healthy_s.append(await scan("data gf_fold", "gf_fold", targets))
+        spans = spans_since(everyone, marks)
+        out["scan_span_seconds"] = {
+            stage: sum(sp["duration_us"] for sp in spans
+                       if sp["name"].startswith(stage)) / 1e6
+            for stage in ("compute_op", "compute eval", "compute decode",
+                          "subcompute")}
+        out["scan_span_counts"] = {
+            stage: sum(sp["name"].startswith(stage) for sp in spans)
+            for stage in out["scan_span_seconds"]}
+        out["seconds"]["scan_gf_fold"] = healthy_s
+        out["seconds"]["scan_gf_fingerprint"] = await scan(
+            "data gf_fingerprint", "gf_fingerprint", targets)
+        for i, (kn, obj, args) in enumerate(nonlinear_cases()):
+            await scan(f"nonlinear {i}", kn, [obj], args)
+        t1 = step("b_scans", t1)
+
+        # c. the models, stored through the client and served by the OSDs
+        models = {}
+        for kind, dim, mout, hidden in OSD_MODELS:
+            spec = await mio.store_model(
+                f"m-{kind}", kind, registry.make_model(
+                    kind, dim, mout, seed=SEED, hidden=hidden), m=MODEL_M)
+            q = np.random.default_rng(SEED + dim).standard_normal(
+                (MODEL_QUERIES, dim)).astype(np.float32)
+            models[kind] = (spec, q)
+            out["specs"][kind] = spec
+            if card_run:
+                out["params"][kind] = await mio.read(spec["params_oid"])
+            await serve("data", kind, spec, q)
+        t1 = step("c_models", t1)
+
+        # b and c with one, then three data shards' OSDs down
+        if card_run:
+            acting = {pg: mon.osdmap.pg_to_acting_osds(pg)
+                      for pg in {io.object_pg(n) for n in targets}}
+            primaries = {p for _a, p in acting.values()}
+            holders: dict = {}
+            for a, _p in acting.values():
+                for osd in a[:K]:
+                    if osd in osds:
+                        holders[osd] = holders.get(osd, 0) + 1
+            plan["k3_victims"] = sorted(holders, key=lambda o: (
+                o in primaries, -holders[o], o))[:3]
+        victims = plan["k3_victims"]
+        for label, kill in (("1_lost", victims[:1]),
+                            ("3_lost", victims[1:3])):
+            for v in kill:
+                await osds.pop(v).kill()
+                rc, msg = await client.mon_command(
+                    {"prefix": "osd down", "osd": v})
+                check(rc == 0, f"osd down {v}: {msg}")
+            t1 = step(f"{label}_kill", t1)
+            await active(mon, osds, data_id)
+            await caught_up()
+            t1 = step(f"{label}_active", t1)
+            out["short_of_k"][label] = short_of_k(targets)
+            for kname in LINEAR_KERNELS:
+                out["seconds"][f"scan_{kname}_{label}"] = await scan(
+                    f"{label} {kname}", kname, targets,
+                    short=out["short_of_k"][label])
+            t1 = step(f"{label}_scans", t1)
+            for kind, (spec, q) in models.items():
+                await serve(label, kind, spec, q)
+            t1 = step(f"{label}_queries", t1)
+        await short_client.shutdown()
+        window("osd_compute", base)
+        out["plan"] = plan
+        out["targets"] = targets
+        out["sinfo_chunk"] = next(iter(osds.values()))._sinfo(
+            data_id).get_chunk_size()
+        out["final"] = final_state(mon, stores,
+                                   mon.osdmap.lookup_pool("msr.data"))
+        out["final"]["osd_meta"] = osd_meta(stores)
+        out["final"]["models"] = snapshot(stores, models_id)
+        step("snapshot", t1)
+        steps["total"] = time.perf_counter() - steps_t0
+        out["step_seconds"] = steps
         return out
 
     result: dict = {"phase": "osd", "osds": OSD_OSDS,
@@ -3226,12 +3595,15 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                 "encode_service": svc, "batch_size_hist": hist,
                 "seconds": {"put": put_s, "read": read_s, **deg_s,
                             "rmw_1mib": rmw_s}})
-            # phase 3j on this cluster
-            rec = await recovery_steps(mon, osds, stores, client,
-                                       list(everyone.values()), dev)
+            # phases 3j and 3k on this cluster
+            every = list(everyone.values())
+            rec = await recovery_steps(mon, osds, stores, client, every,
+                                       dev)
             rec["reads_exact"] = await read_all(client, rec["msr_id"])
             rec["final"] = final_state(mon, stores, rec["msr_id"])
-            return snap, meta_snap, logs, rec
+            k3 = await split_compute_steps(mon, osds, stores, client,
+                                           every, dev)
+            return snap, meta_snap, logs, rec, k3
         finally:
             await stop(mon, osds, client)
 
@@ -3263,12 +3635,12 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                 "logs": {"data": pg_logs(mon, stores, data_id),
                          "msr": pg_logs(mon, stores, msr_id)}}
 
-    async def drive_twin(logs, victims, rec_plan):
+    async def drive_twin(logs, victims, rec_plan, k3_plan):
         """The same writes on a device="cpu" cluster, each PG's in the
         order its log took on the card (the parts in flight interleave
         there at the card's pace, and an object's version is its place
-        in that order); then the traced write, the card's kills, and
-        phase 3j's history (its PUT in the card's order too)."""
+        in that order); then the traced write, the card's kills, phase
+        3j's history (its PUT in the card's order too) and phase 3k's."""
         mon, osds, stores, client = await start("cpu")
         try:
             data_id = mon.osdmap.lookup_pool("rgw.data")
@@ -3299,15 +3671,19 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
             await active(mon, osds, data_id)
             rec = await recovery_steps(mon, osds, stores, client, everyone,
                                        "cpu", plan=rec_plan)
-            return out + (final_state(mon, stores, rec["msr_id"]),)
+            final = final_state(mon, stores, rec["msr_id"])
+            k3 = await split_compute_steps(mon, osds, stores, client,
+                                           everyone, "cpu", plan=k3_plan)
+            return out + (final, k3)
         finally:
             await stop(mon, osds, client)
 
-    snap, meta_snap, logs, rec = asyncio.run(
-        asyncio.wait_for(drive(), 2 * OSD_PHASE_TIMEOUT))
-    twin, twin_meta, twin_logs, twin_final = asyncio.run(
-        asyncio.wait_for(drive_twin(logs, result["victims"], rec["plan"]),
-                         2 * OSD_PHASE_TIMEOUT))
+    snap, meta_snap, logs, rec, k3 = asyncio.run(
+        asyncio.wait_for(drive(), 3 * OSD_PHASE_TIMEOUT))
+    twin, twin_meta, twin_logs, twin_final, twin_k3 = asyncio.run(
+        asyncio.wait_for(drive_twin(logs, result["victims"], rec["plan"],
+                                    k3["plan"]),
+                         3 * OSD_PHASE_TIMEOUT))
 
     # every shard's hinfo against encode_with_hinfo on the CPU (the RMW'd
     # object's ledger is the twin's business: an overwrite clears it)
@@ -3369,7 +3745,13 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
           f" service's decode batches {svc}")
     rec_launches = recovery_report(dev, card, rec, twin_final, rs_want,
                                    rmw_name, msr_objs)
-    return {"osd": launches, **rec_launches}
+
+    def k3_want(name):
+        if name in scan_objs:
+            return scan_objs[name]
+        return bytes(piece(1)) if name == k3["split_name"] else rs_want(name)
+    k3_launches = osd_compute_report(dev, card, k3, twin_k3, k3_want)
+    return {"osd": launches, **rec_launches, **k3_launches}
 
 
 def recovery_report(dev, card: str, rec: dict, twin: dict, rs_want,
@@ -3563,6 +3945,233 @@ def recovery_report(dev, card: str, rec: dict, twin: dict, rs_want,
     return {"recovery": lr, "recovery_msr": lm}
 
 
+def osd_compute_report(dev, card: str, k3: dict, twin: dict,
+                       want) -> dict:
+    """Phase 3k's checks and lines: the split's reads, every store (the
+    `osd_meta` split bookkeeping included) and pg log against the CPU
+    twin's; every scan answer against kernel.reference on the bytes the
+    smoke wrote, against phase 3g's library answer and against the twin's
+    scan; the served queries against model.exact_forward, the budget and
+    the twin; each path's launches against the engines' and the encode
+    service's counters.  Returns the launches of the paths `split` and
+    `osd_compute`."""
+    from ceph_tpu_torch import compute
+    from ceph_tpu_torch.inference import model
+
+    report_t0 = time.perf_counter()
+    final, tfinal = k3["final"], twin["final"]
+    diff = {part: sorted(k for k in set(final[part]) | set(tfinal[part])
+                         if final[part].get(k) != tfinal[part].get(k))
+            for part in ("data", "meta", "msr", "models")}
+    same_as_twin = {
+        "stores": not any(diff.values()),
+        "pg_logs": final["logs"] == tfinal["logs"],
+        "osd_meta": final["osd_meta"] == tfinal["osd_meta"]
+        and bool(final["osd_meta"]),
+        "answers": k3["answers"] == twin["answers"]
+        and k3["errors"] == twin["errors"]}
+
+    # every answer against the host reference on the written bytes
+    chunk = k3["sinfo_chunk"]
+    library = PHASE_RESULTS.get("compute") \
+        if OSD_SCAN_OBJECT == CLUSTER_OBJECT else None
+    answers_ok, vs_library = {}, {}
+    refs = {}
+    # an object short of k shards answers EAGAIN, as the JAX OSDs answer
+    # it; only an object that C7 left missing a shard before the split,
+    # and that still misses one after it, may fall short (checked below),
+    # every other object answers its value
+    short = k3["short_of_k"]
+    before, after = (set(k3["missing_before_split"]),
+                     set(k3["missing_after_split"]))
+    c7 = before & after
+    c7_ok = {
+        "split_adds_no_missing_shard": after <= before,
+        "none_short_when_healthy": not short["data"],
+        **{f"short_at_{stage}_were_missing_before": set(names) <= c7
+           for stage, names in short.items()}}
+    for kname in LINEAR_KERNELS:
+        kern = compute.get_kernel(kname)
+        # 3i's trials repeat the same 16 pieces: one reference a content
+        by_bytes: dict = {}
+        refs[kname] = {}
+        for name in k3["targets"]:
+            data = want(name)
+            if data not in by_bytes:
+                by_bytes[data] = kern.reference(data, {}, k=K, chunk=chunk)
+            refs[kname][name] = by_bytes[data]
+        for label, got in k3["answers"].items():
+            if label.endswith(f" {kname}"):
+                stage = label.split()[0]
+                answers_ok[label] = got == {
+                    name: ans for name, ans in refs[kname].items()
+                    if name not in short[stage]}
+    if library is not None:
+        # gf_fold XORs every 32-byte lane of the object, whatever its
+        # striping; 3g striped at 4 KiB units, rgw.data at 64 KiB
+        vs_library["gf_fold"] = all(
+            k3["answers"]["data gf_fold"][name] == ans
+            for name, ans in library["answers"]["gf_fold"].items())
+    for i, (kn, obj, args) in enumerate(nonlinear_cases()):
+        got = k3["answers"][f"nonlinear {i}"].get(obj)
+        # on the card: the CPU twin's answers are the same function on
+        # the CPU, held above
+        answers_ok[f"nonlinear {i} {kn}"] = got == compute.get_kernel(
+            kn).reference(want(obj), args, k=K, chunk=chunk, device=dev)
+        if library is not None:
+            vs_library[f"{kn} {obj}"] = got == library["nonlinear"][i]
+    errors = {label: {name: rc for name, rc in err.items()
+                      if not (rc == EAGAIN_RC and name in c7
+                              and name in short.get(label.split()[0], ()))}
+              for label, err in k3["errors"].items()}
+    errors = {label: err for label, err in errors.items() if err}
+    linear_subreads = {label: n for label, n in k3["subread_bytes"].items()
+                       if label.split()[-1] in LINEAR_KERNELS}
+
+    # the served queries
+    infer_ok, infer_line = {}, {}
+    for label, got in k3["infer"].items():
+        kind, stage = label.split()
+        spec = k3["specs"][kind]
+        dim = int(spec["dim"])
+        q = np.random.default_rng(SEED + dim).standard_normal(
+            (MODEL_QUERIES, dim)).astype(np.float32)
+        exact = np.frombuffer(got["exact"], "<f4").reshape(MODEL_QUERIES, -1)
+        want_exact = model.exact_forward(spec, k3["params"][kind], q)
+        rel_exact = float(np.linalg.norm(exact - want_exact)
+                          / np.linalg.norm(want_exact))
+        rel_served = None
+        if got["rc"] == 0:
+            served = np.frombuffer(got["scores"], "<f4").reshape(
+                exact.shape)
+            rel_served = float(np.linalg.norm(served - exact)
+                               / np.linalg.norm(exact))
+        tw = twin["infer"][label]
+        # the exact path is a refusal of the budget; EAGAIN (fewer than k
+        # serving streams' holders up) a refusal of the query
+        refused = got["mode"] == "exact"
+        infer_line[label] = {
+            "mode": got["mode"], "twin_mode": tw["mode"], "rc": got["rc"],
+            "below_k": got["below_k"],
+            "est_error": got.get("est_error"), "rel_error": rel_served,
+            "substituted": got.get("substituted"),
+            "exact_rel_error": rel_exact,
+            "qps_exact": MODEL_QUERIES / got["exact_s"],
+            "qps_served": MODEL_QUERIES / got["served_s"]}
+        infer_ok[label] = {
+            "exact": got["exact_mode"] == "exact"
+            and rel_exact <= INFER_RTOL,
+            "exact_same_as_twin": got["exact"] == tw["exact"],
+            "eagain_where_below_k": got["rc"] == (
+                EAGAIN_RC if got["below_k"] else 0),
+            "refused_where_twin_refuses": (got["rc"], refused)
+            == (tw["rc"], tw["mode"] == "exact"),
+            "within_budget": got["rc"] != 0 or refused or (
+                got["est_error"] <= MODEL_BUDGET
+                and rel_served <= MODEL_BUDGET),
+            # healthy, the models' pool serves every query from the
+            # shards
+            "served_healthy": stage != "data"
+            or (got["rc"] == 0 and not refused)}
+
+    # each path's launches against its counters
+    sl, sc = k3["launches"]["split"], k3["counts"]["split"]
+    ol, oc = k3["launches"]["osd_compute"], k3["counts"]["osd_compute"]
+
+    def c(counts, key):
+        return counts.get(key, 0)
+    def writes(counts):
+        """Fused whole-object encodes: the service's batches and the
+        writes it shed to the inline path (too many bytes queued: the
+        64 MiB objects), one GF and two crc launches each."""
+        return c(counts, "svc.encode_hinfo_batches") \
+            + c(counts, "svc.shed_encode_hinfo")
+    launches_ok = {
+        # the split's writes and its children's recovery (re-encodes and
+        # decodes through the encode service), as in phase 3j
+        "split_spec": writes(sc) > 0
+        and sl["gf_matmul_spec"] == c(sc, "perf.encode_dispatches")
+        + writes(sc),
+        "split_crc": sl["crc32c_blocks"] == 2 * writes(sc),
+        "split_gen": c(sc, "svc.decode_batches") <= sl["gf_matmul_gen"]
+        <= c(sc, "svc.decode_requests") + c(sc, "svc.shed_decode"),
+        # one fold launch at least per pushed-down PG wave, at most one
+        # per length group of every sub-compute's local shards
+        "osd_compute_fold": 1 <= c(oc, "compute.pushdown_waves")
+        <= ol["gf_fold"] <= c(oc, "compute.fold_groups"),
+        # a data shard's result lost: result-domain decodes at lane width,
+        # at most one launch per survivor-set group missing a data shard,
+        # beside the exact path's degraded reads through the encode service
+        # (batched or shed)
+        "osd_compute_gen": 1 <= c(oc, "compute.result_decode_groups")
+        and 1 <= ol["gf_matmul_gen"]
+        <= c(oc, "compute.result_decode_groups")
+        + c(oc, "svc.decode_requests") + c(oc, "svc.shed_decode"),
+        "osd_compute_spec": writes(oc) > 0
+        and ol["gf_matmul_spec"] == c(oc, "perf.encode_dispatches")
+        + writes(oc),
+        "osd_compute_crc": ol["crc32c_blocks"] == 2 * writes(oc),
+        "osd_compute_score": ol["score_blocks"] >= 1}
+
+    secs = k3["seconds"]
+    scan_s = statistics.median(secs["scan_gf_fold"])
+    shard_bytes = sum(len(want(name)) for name in k3["targets"]) \
+        * (K + M) / K
+    out = {"phase": "split_and_osd_compute", "card": card,
+           "step_seconds": k3["step_seconds"],
+           "twin_step_seconds": twin["step_seconds"],
+           "plan": k3["plan"], "split_pg_num": [k3["old_pg_num"],
+                                                SPLIT_PG_NUM],
+           "split_seconds_to_clean": secs["split_to_clean"],
+           "split_name": k3["split_name"],
+           "split_reads_exact": sum(k3["split_reads_exact"]),
+           "split_reads": len(k3["split_reads_exact"]),
+           "scanned_objects": len(k3["targets"]),
+           "missing_a_shard_before_split_c7": k3["missing_before_split"],
+           "missing_a_shard_after_split": k3["missing_after_split"],
+           "short_of_k": short, "c7_checks": c7_ok,
+           "scan_shard_gib": shard_bytes / (1 << 30),
+           "scan_seconds": {k: v for k, v in secs.items()
+                            if k.startswith("scan_")},
+           "osd_scan_gib_per_s": shard_bytes / (1 << 30) / scan_s,
+           "library_scan_gib_per_s": (library or {}).get("scan_gib_per_s"),
+           "scan_span_seconds": k3["scan_span_seconds"],
+           "scan_span_counts": k3["scan_span_counts"],
+           "inference": infer_line,
+           "library_inference_qps": (library or {}).get("inference_qps"),
+           "answers_vs_reference": answers_ok,
+           "answers_vs_library": vs_library,
+           "scan_errors": errors, "linear_subread_bytes": linear_subreads,
+           "same_as_cpu_twin": same_as_twin,
+           "twin_differs_at": {k: [list(x) for x in v[:3]]
+                               for k, v in diff.items()},
+           "counters": {path: {k: v for k, v in counts.items() if v}
+                        for path, counts in k3["counts"].items()},
+           "launches": k3["launches"], "launches_ok": launches_ok,
+           "report_seconds": time.perf_counter() - report_t0}
+    print(json.dumps(out))
+    check(all(k3["split_reads_exact"]), "a read after the split differs"
+          " from the written bytes")
+    check(all(same_as_twin.values()), "the card cluster's stores, pg logs,"
+          f" osd_meta or scan answers differ from the CPU twin's:"
+          f" {same_as_twin}")
+    check(all(c7_ok.values()), "an object fell short of a shard that C7"
+          f" had not left missing before the split: {c7_ok}")
+    check(not errors, "a scanned object did not answer rc 0 (or EAGAIN,"
+          f" where C7 left it short of k shards): {errors}")
+    check(not any(linear_subreads.values()), "a linear scan moved sub-read"
+          f" bytes: {linear_subreads}")
+    check(all(answers_ok.values()), "a scan answer differs from"
+          f" kernel.reference: {answers_ok}")
+    check(all(vs_library.values()), "an OSD scan answer differs from phase"
+          f" 3g's library answer: {vs_library}")
+    check(all(all(v.values()) for v in infer_ok.values()),
+          f"a served query failed its checks: {infer_ok}")
+    check(all(launches_ok.values()), "the split or OSD compute paths'"
+          f" launches do not match their counters: {launches_ok}")
+    return {"split": sl, "osd_compute": ol}
+
+
 def main() -> None:
     import torch
 
@@ -3594,6 +4203,12 @@ def main() -> None:
                       "cuda": torch.version.cuda}))
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
+    run_t0 = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        """The command's seconds so far, at the end of a phase."""
+        print(json.dumps({"phase_done": phase,
+                          "command_seconds": time.perf_counter() - run_t0}))
 
     # -- 1. build ------------------------------------------------------------
     _build.load()
@@ -3626,7 +4241,7 @@ def main() -> None:
                 "gf_fold": fold_kernels.gf_fold,
                 "bloom_positions": bloom_kernels.bloom_positions}
     if sys.argv[1:] == ["--phase", "osd"]:
-        # phases 3i and 3j alone, after the build: no result line
+        # phases 3i, 3j and 3k alone, after the build: no result line
         print(json.dumps({"phase_only": "osd", "launches": osd_phase(
             torch, dev, card, wrappers)}))
         return
@@ -3795,29 +4410,39 @@ def main() -> None:
                                               "crc32c_blocks")),
           f"a kernel of the main path never launched: {launches}")
 
+    mark("3")
+
     # -- 3b. CRUSH placement ------------------------------------------------
     crush_state = crush_phase(torch, dev, card)
+    mark("3b")
 
     # -- 3c. live PG placement: OSDMapMapping and osdmaptool ----------------
     osdmap_state = osdmap_phase(torch, dev, card)
+    mark("3c")
 
     # -- 3d. the embedded cluster -------------------------------------------
     cluster_launches = cluster_phase(torch, dev, card, wrappers)
+    mark("3d")
 
     # -- 3e. the erasure-code plugin family ---------------------------------
     codecs_launches = codecs_phase(torch, dev, card, wrappers)
+    mark("3e")
 
     # -- 3f. the persistent store -------------------------------------------
     store_state = store_phase(torch, dev, card, wrappers)
+    mark("3f")
 
     # -- 3g. coded compute, coded inference and the read tier ---------------
     compute_state = compute_phase(torch, dev, card, wrappers)
+    mark("3g")
 
     # -- 3h. the monitors and a map subscriber ------------------------------
     mon_state = mon_phase(torch, dev, card, wrappers)
+    mark("3h")
 
     # -- 3i. the OSD daemons and the RADOS client ----------------------------
-    osd_launches = osd_phase(torch, dev, card, wrappers)   # and 3j
+    osd_launches = osd_phase(torch, dev, card, wrappers)   # and 3j, 3k
+    mark("3i-3k")
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},

@@ -214,12 +214,17 @@ def test_port_imports_neither_jax_nor_ceph_tpu():
         "bad = sorted(n for n in sys.modules if n in ('jax', 'ceph_tpu')\n"
         "             or n.startswith(('jax.', 'ceph_tpu.')))\n"
         "assert not bad, bad\n"
+        "print(' '.join(names))\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 15
+    # the OSD's compute and inference engines among them
+    assert {"ceph_tpu_torch.osd.compute", "ceph_tpu_torch.osd.inference",
+            "ceph_tpu_torch.osd.daemon", "ceph_tpu_torch.rados.client"} \
+        <= set(proc.stdout.split())
 
 
 def _import_roots(path: Path):
@@ -242,3 +247,5 @@ def test_port_imports_neither_jax_nor_ceph_tpu_at_any_depth():
            if root in ("jax", "jaxlib", "ceph_tpu")]
     assert not bad, bad
     assert len(files) > 40
+    assert {ROOT / "ceph_tpu_torch" / "osd" / name
+            for name in ("compute.py", "inference.py")} <= set(files)

@@ -53,20 +53,14 @@ def rand(seed: int, n: int) -> bytes:
         0, 256, n, dtype=np.uint8).tobytes()
 
 
-#: the JAX OSD's split bookkeeping (pg_num per pool, for PG splits, which
-#: the port does not have yet): the one collection only it writes
-SPLIT_META_CID = "osd_meta"
-
-
 def snapshot(cluster) -> dict:
     """{osd: {collection: {object: (bytes, xattrs, omap)}}} of every
-    store, the killed OSDs' included (not the JAX split bookkeeping)."""
+    store, the killed OSDs' included, the split bookkeeping (`osd_meta`:
+    pg_num per pool and the split children) among them."""
     out = {}
     for osd_id, store in sorted(cluster.stores.items()):
         colls = {}
         for cid in store.list_collections():
-            if cid == SPLIT_META_CID:
-                continue
             objs = {}
             for oid in store.list_objects(cid):
                 objs[str(oid)] = (store.read(cid, oid),

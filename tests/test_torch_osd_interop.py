@@ -6,10 +6,10 @@ edges of the slice, and the port's OSD process entry point, on the CPU.
   in a `jerasure` 4+2 pool (the name both registries know), clients of
   both packages reading each other's bytes, healthy and degraded;
 - ops of the families the slice leaves for later answer EOPNOTSUPP
-  (omap, object classes, watch/notify, snapshot writes and reads); a
-  pg_num increase raises NotImplementedError, while recovery of a peer's
-  missing object and a post-write repair run; an OSD with no CUDA and
-  no device named raises;
+  (omap, object classes, watch/notify, snapshot writes and reads);
+  recovery of a peer's missing object and a post-write repair run, and
+  a pg_num increase after them splits the port OSDs' PGs; an OSD with
+  no CUDA and no device named raises;
 - four `python -m ceph_tpu_torch.osd --device cpu` processes under an
   in-loop port mon serve a port client's writes and reads.
 """
@@ -184,10 +184,12 @@ def test_later_families_answer_eopnotsupp():
     run(main())
 
 
-def test_pg_splits_raise():
-    """A pg_num increase still raises; the recovery of a peer's missing
-    object and the post-write repair, which raised before the recovery
-    slice, now run to their end."""
+def test_pg_split_after_recovery_and_repair():
+    """The recovery of a peer's missing object and the post-write repair
+    run to their end; then a pg_num increase splits the port OSDs' PGs
+    (it raised before the split slice): every OSD records the new pg_num
+    in its `osd_meta` collection and the object reads back through its
+    new placement."""
     async def main():
         cluster = Cluster(num_osds=4)
         await cluster.start()
@@ -226,12 +228,19 @@ def test_pg_splits_raise():
             await cluster._wait(lambda: not osd._pending_repairs, 10.0,
                                 "the post-write repair never finished")
             assert await io.read("obj") == b"q" * 10_000
-            # a pg_num increase would split PGs
-            pool.pg_num += 8
-            with pytest.raises(NotImplementedError, match="A4b"):
-                osd._check_pool_splits()
-            pool.pg_num -= 8
-            osd._check_pool_splits()
+            # a pg_num increase splits PGs
+            rc, out = await cluster.client.mon_command(
+                {"prefix": "osd pool set", "name": "ec", "var": "pg_num",
+                 "val": 16})
+            assert rc == 0, out
+            await cluster.client.wait_for_new_map()
+            await cluster.wait_for_clean(timeout=60.0)
+            for o in cluster.osds.values():
+                assert o._pool_pg_nums[pg.pool] == 16
+                meta = json.loads(o.store.omap_get(
+                    "osd_meta", tdaemon.ObjectId("split_state"))["v"])
+                assert meta["pg_nums"][str(pg.pool)] == 16
+            assert await io.read("obj") == b"q" * 10_000
         finally:
             await cluster.stop()
     run(main())

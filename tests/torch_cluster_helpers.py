@@ -5,7 +5,7 @@ asyncio loop, with a RadosClient.
 `kinds` names each OSD's package ("torch" for ceph_tpu_torch, "jax" for the
 JAX package ceph_tpu), so one cluster can hold OSDs of both; `mon_kind` and
 `client_kind` pick the mons' and the client's package the same way.  Port
-OSDs run on the CPU.  With `num_mons` > 1 the mons form a quorum
+OSDs, and a port client's read-then-compute legs, run on the CPU.  With `num_mons` > 1 the mons form a quorum
 (kill_mon drops one off the network); `client_secret` and
 `client_secure` key the client as the JAX harness does (the daemons take
 theirs in `osd_config` / `mon_config`).  kill_osd drops a daemon off the
@@ -123,6 +123,9 @@ class Cluster:
         (keyed like the harness's client unless `kw` says otherwise)."""
         kw.setdefault("secret", self.client_secret)
         kw.setdefault("secure", self.client_secure)
+        if kind == "torch":
+            # the kill-switch legs' kernels run on the CPU here
+            kw.setdefault("device", "cpu")
         return pkg(kind, "rados.client").RadosClient(self.mon_addrs, **kw)
 
     async def stop(self) -> None:
