@@ -178,6 +178,10 @@ register("CEPH_TPU_LOCKDEP", "0", "startup",
 register("CEPH_TPU_DEBUG", None, "startup",
          "daemon debug logging")
 
+# -- the S3 gateway -----------------------------------------------------
+register("CEPH_TPU_RGW_TRACE_SAMPLE", "1.0", "process",
+         "S3 frontend ingress-span sample rate")
+
 # -- the OSD data path --------------------------------------------------
 register("CEPH_TPU_HEDGE", "1", "process",
          "hedged shard reads; 0 = single-attempt gathers")

@@ -51,8 +51,10 @@ and the hinfo checks are the host's native crc32c.  Placement, and the
 split's rehash of objects, are per PG on the host; everything else is
 host control-plane.
 
-Not in this slice (ROADMAP A4b): snapshots, omap, object classes and
-watch/notify, the admin socket.  Their client ops answer EOPNOTSUPP.  A
+Omap, object classes and watch/notify are served as in the reference
+(omap on replicated pools only; EC pools answer EOPNOTSUPP).  Not in
+this slice (ROADMAP A7, A8): snapshots and the admin socket; snap
+writes and snap reads answer EOPNOTSUPP before any op runs.  A
 decode that raises is not retried on a host twin or object by object: a
 recovery leaves the object missing for the next interval to retry, and a
 scan's result-domain decode answers EIO for its wave's objects.
@@ -101,6 +103,8 @@ from ceph_tpu_torch.msg.messages import (
     MPGLogMsg,
     MPGQuery,
     MPing,
+    MWatchNotify,
+    MWatchNotifyAck,
     PING,
     PING_REPLY,
     ShardOp,
@@ -158,12 +162,6 @@ DEFAULTS = {
 _MUTATING_CLIENT_OPS = frozenset({
     "write_full", "write", "append", "remove", "setxattr", "rmxattr",
     "omap_set", "omap_rm", "call"})
-
-# client ops of the families not ported yet (omap, object classes and
-# watch/notify, ROADMAP A4b): they answer EOPNOTSUPP; scans arrive as
-# MOSDCompute, not as MOSDOp ops
-_LATER_CLIENT_OPS = frozenset({
-    "omap_set", "omap_rm", "omap_get", "call", "watch", "notify"})
 
 # rollback-generation shard object (ECBackend keeps the previous shard
 # generation until a write commits everywhere, so a partial overwrite
@@ -520,8 +518,17 @@ class OSDDaemon:
         self.compute = ComputeEngine(self)
         self.inference = InferenceEngine(self)
         self._promote_tasks: Set[asyncio.Task] = set()
+        # watch/notify: (pool, oid) -> {(client, cookie): Connection}
+        self.watchers: Dict[Tuple[int, str],
+                            Dict[Tuple[str, int], Connection]] = {}
+        self._notify_seq = 0
+        self._pending_notifies: Dict[int, Dict[str, Any]] = {}
         # post-write repairs scheduled and not yet finished, (pg, oid)
         self._pending_repairs: Set[Tuple[PgId, str]] = set()
+        # object classes (ClassHandler::open_all role)
+        from ceph_tpu_torch.cls import default_handler
+
+        self.class_handler = default_handler()
         # completed-op replay cache (osd_reqid_t dedup): a client
         # resend after a lost reply gets the STORED reply instead of
         # re-executing a non-idempotent op.  Keyed (client, tid);
@@ -1121,6 +1128,8 @@ class OSDDaemon:
         elif isinstance(msg, (MOSDSubWriteReply, MOSDSubReadReply,
                               MOSDSubComputeReply)):
             self._resolve(msg.tid, msg)
+        elif isinstance(msg, MWatchNotifyAck):
+            self._handle_notify_ack(conn, msg)
         elif isinstance(msg, MPGQuery):
             await self._handle_pg_query(conn, msg)
         elif isinstance(msg, MPGLogMsg):
@@ -4291,9 +4300,29 @@ class OSDDaemon:
                                                    msg.oid)
             elif op.op == "pgls":
                 rc, out = self._op_pgls(state, pool)
-            elif op.op in _LATER_CLIENT_OPS:
-                # omap, object classes, watch/notify (ROADMAP A4b)
-                rc = EOPNOTSUPP
+            elif op.op == "omap_set":
+                rc = await self._op_omap_write(state, pool, msg.oid,
+                                               "omap_set", op.data,
+                                               state_admit_epoch)
+            elif op.op == "omap_rm":
+                rc = await self._op_omap_write(state, pool, msg.oid,
+                                               "omap_rm", op.data,
+                                               state_admit_epoch)
+            elif op.op == "omap_get":
+                rc, data = await self._op_omap_get(state, pool,
+                                                   msg.oid)
+            elif op.op == "watch":
+                rc = self._op_watch(state, pool, msg, conn,
+                                    op.args.get("cookie", 0),
+                                    op.args.get("unwatch", False))
+            elif op.op == "notify":
+                rc, out = await self._op_notify(state, pool, msg.oid,
+                                                op.data)
+            elif op.op == "call":
+                rc, data = await self._op_call(
+                    state, pool, msg.oid, op.args.get("cls", ""),
+                    op.args.get("method", ""), op.data,
+                    state_admit_epoch)
             else:
                 rc = EINVAL
             if rc < 0:
@@ -5281,6 +5310,175 @@ class OSDDaemon:
         return 0, {}
 
     # -- watch / notify (linger op surface, Objecter linger role) ----------
+
+    async def _op_omap_write(self, state: PGState, pool, oid: str,
+                             kind: str, payload: bytes,
+                             admit_epoch: Optional[int]) -> int:
+        """omap set/rm — REPLICATED pools only, like the reference
+        (EC pools reject omap: PrimaryLogPG EOPNOTSUPP).  Snapshots are
+        not ported (ROADMAP A7): a snap-context write answers
+        EOPNOTSUPP in _execute_ops before reaching here, so there is no
+        write snap context and no make_writeable clone."""
+        if pool.type == TYPE_ERASURE:
+            return EOPNOTSUPP
+        async with state.obj_lock(oid):
+            await self._wait_for_degraded(state, pool, oid)
+            oi, _ss = await self._head_info(state, pool, oid)
+            size = oi.get("size", 0) \
+                if oi is not None and not oi.get("whiteout") else 0
+            entry = self._next_entry(state, pool, oid, "modify", size)
+            oi_raw = json.dumps({"size": size,
+                                 "version": entry["version"]}).encode()
+            ops = [ShardOp("create"),
+                   ShardOp(kind, data=payload),
+                   ShardOp("setattr", name=OI_ATTR, value=oi_raw)]
+            return await self._submit_shard_writes(state, pool, oid,
+                                                   {-1: ops}, entry,
+                                                   admit_epoch)
+
+    async def _op_omap_get(self, state: PGState, pool, oid: str
+                           ) -> Tuple[int, bytes]:
+        if pool.type == TYPE_ERASURE:
+            return EOPNOTSUPP, b""
+        # existence/whiteout gate first: stores differ on whether a
+        # never-created object's omap read errors, and a
+        # snapshot-deleted (whiteout) head must read as gone
+        oi, _ss = await self._head_info(state, pool, oid)
+        if oi is None or oi.get("whiteout"):
+            return ENOENT, b""
+        # omap is identical on every replica; serve locally when clean,
+        # else from any up replica via a want_omap sub-read
+        if self._pg_is_clean(state, pool, oid):
+            cid = self._cid(state.pg, -1)
+            try:
+                omap = self.store.omap_get(cid, ObjectId(oid))
+            except (KeyError, IOError):
+                return ENOENT, b""
+            return 0, encode_kv_map(omap)
+        for idx, osd in enumerate(state.acting):
+            if osd == CRUSH_ITEM_NONE or not self.osdmap.is_up(osd) \
+                    or osd == self.osd_id:
+                continue
+            tid = self._next_tid()
+            reply = await self._request(
+                osd, MOSDSubRead(tid, state.pg, -1, oid, 0, 1,
+                                 want_omap=True), tid)
+            if reply is not None and reply.rc == 0:
+                return 0, encode_kv_map(reply.omap)
+        return EAGAIN, b""
+
+    # -- watch / notify (linger op surface, Objecter linger role) ----------
+
+    def _op_watch(self, state: PGState, pool, msg: MOSDOp,
+                  conn: Optional[Connection], cookie: int,
+                  unwatch: bool) -> int:
+        """Register/unregister this connection as a watcher of the
+        object.  Watch state is primary-local and in-memory — clients
+        re-register on map changes (the Objecter linger resend role)."""
+        key = (pool.id, msg.oid)
+        table = self.watchers.setdefault(key, {})
+        if unwatch:
+            table.pop((msg.client, cookie), None)
+            if not table:
+                self.watchers.pop(key, None)
+            return 0
+        if conn is None:
+            return EINVAL
+        table[(msg.client, cookie)] = conn
+        return 0
+
+    async def _op_call(self, state: PGState, pool, oid: str,
+                       cls: str, method: str, data: bytes,
+                       admit_epoch: int) -> Tuple[int, bytes]:
+        """`exec` op: run a registered object-class method
+        (ClassHandler::ClassMethod::exec, PrimaryLogPG::do_osd_ops
+        CEPH_OSD_OP_CALL).  Concurrent calls on one object serialize
+        on a per-object cls lock, so read-modify-write methods
+        (numops, lock) are atomic against each other; each inner op
+        additionally takes the normal object lock on its own.  A WR
+        method's writes go down the pool's own write path, so on an
+        EC pool they encode through the encode service.
+
+        Snapshots are not ported (ROADMAP A7): a call never runs at a
+        snap (snap reads answer EOPNOTSUPP in _execute_ops), so the
+        reference's read_only/EROFS case and the method context's snap
+        context do not exist here."""
+        from ceph_tpu_torch.cls import ClsError, MethodContext
+
+        # method input stays the wire decode's zero-copy view: class
+        # methods parse through cls.as_text (str() decodes any
+        # buffer) or take bytes() themselves where they genuinely
+        # need to own the payload
+        entry = self.class_handler.lookup(cls, method)
+        if entry is None:
+            return EINVAL, b""
+        fn, flags = entry
+        ctx = MethodContext(self, state, pool, oid, admit_epoch, flags)
+        async with state.obj_lock(f"_cls_\x00{oid}"):
+            try:
+                return 0, await fn(ctx, data)
+            except ClsError as e:
+                return e.rc, b""
+            except UnfoundObject:
+                raise
+            except Exception:
+                log.exception("osd.%d: cls %s.%s on %r failed",
+                              self.osd_id, cls, method, oid)
+                return EIO, b""
+
+    async def _op_notify(self, state: PGState, pool, oid: str,
+                         payload: bytes
+                         ) -> Tuple[int, Dict[str, Any]]:
+        """Fan the notify out to every live watcher and wait for acks
+        (watch_notify timeout discipline)."""
+        key = (pool.id, oid)
+        table = dict(self.watchers.get(key, {}))
+        live = {k: c for k, c in table.items() if not c.closed}
+        self._notify_seq += 1
+        notify_id = self._notify_seq
+        if not live:
+            return 0, {"acked": [], "missed": []}
+        event = asyncio.Event()
+        pending = {"want": set(live), "acks": set(), "event": event}
+        self._pending_notifies[notify_id] = pending
+        try:
+            for (client, cookie), wconn in live.items():
+                try:
+                    await wconn.send(MWatchNotify(
+                        notify_id, pool.id, oid, payload, cookie))
+                except (ConnectionError, OSError):
+                    pending["want"].discard((client, cookie))
+            # acks may have landed during the sends (each send is a
+            # yield point), and failed sends shrink the want set — only
+            # wait if someone is still outstanding
+            if pending["want"] - pending["acks"]:
+                try:
+                    await asyncio.wait_for(
+                        event.wait(),
+                        float(self.config.get("osd_notify_timeout",
+                                              5.0)))
+                except asyncio.TimeoutError:
+                    pass
+            # watchers are identified by (client, cookie): cookies are
+            # per-client counters and collide across clients
+            acked = sorted([cl, c] for cl, c in pending["acks"])
+            missed = sorted([cl, c] for cl, c in
+                            pending["want"] - pending["acks"])
+            return 0, {"acked": acked, "missed": missed}
+        finally:
+            self._pending_notifies.pop(notify_id, None)
+
+    def _handle_notify_ack(self, conn: Connection,
+                           msg: MWatchNotifyAck) -> None:
+        pending = self._pending_notifies.get(msg.notify_id)
+        if pending is None:
+            return
+        for who in list(pending["want"]):
+            if who[1] == msg.cookie and \
+                    who[0] == conn.peer_name:
+                pending["acks"].add(who)
+        if pending["acks"] >= pending["want"]:
+            pending["event"].set()
 
     def _op_pgls(self, state: PGState, pool
                  ) -> Tuple[int, Dict[str, Any]]:

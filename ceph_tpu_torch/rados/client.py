@@ -1,6 +1,6 @@
 """Networked RADOS client (Objecter + librados roles; port of the
-write, read, xattr, listing, coded-compute and inference slice of
-ceph_tpu/rados/client.py).
+write, read, xattr, omap, object-class, watch/notify, listing,
+coded-compute and inference slice of ceph_tpu/rados/client.py).
 
 Reference parity: Objecter (the reference's src/osdc/Objecter.cc) —
 placement computed client-side with the same CRUSH/OSDMap math the OSDs
@@ -14,9 +14,10 @@ Placement runs per PG on the host.  Scans (`compute`) and model serving
 shards where they live; the client does device work only in the
 read-then-compute legs of the kill switches (CEPH_TPU_COMPUTE=0,
 CEPH_TPU_INFERENCE=0), where a nonlinear kernel evaluates on the
-client's `device` (CUDA unless the caller names another).  Not in this
-slice (ROADMAP A4b): snapshots, omap, object classes (`execute`),
-watch/notify.
+client's `device` (CUDA unless the caller names another).  Omap,
+object classes (`execute`) and watch/notify are served by the OSDs as
+in the reference; a watch's keepalive task ends with `shutdown`.  Not
+in this slice (ROADMAP A7): snapshots.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import contextvars
+import logging
 from typing import Any, Dict, List, Optional, Tuple
 
 from ceph_tpu_torch.common import flags
@@ -41,11 +43,18 @@ from ceph_tpu_torch.msg.messages import (
     MOSDMapMsg,
     MOSDOp,
     MOSDOpReply,
+    MWatchNotify,
+    MWatchNotifyAck,
     Message,
     OSDOp,
+    decode_kv_map,
+    encode_kv_map,
+    encode_str_list,
 )
 from ceph_tpu_torch.ops.rjenkins import ceph_str_hash_rjenkins
 from ceph_tpu_torch.osd.osdmap import OSDMap, PgId
+
+log = logging.getLogger(__name__)
 
 EAGAIN = -11
 ENOENT = -2
@@ -212,6 +221,30 @@ class RadosClient:
         self._futures: Dict[int, asyncio.Future] = {}
         self._map_waiters: List[asyncio.Event] = []
         self._placement_cache: Dict[Tuple[int, PgId], int] = {}
+        # (pool, oid, cookie) -> (ioctx, callback); re-registered with
+        # the primary on every map change (linger resend role)
+        self._watches: Dict[Tuple[int, str, int], tuple] = {}
+        self._watch_cookie = 0
+        self._watch_keepalive: Optional[asyncio.Task] = None
+
+    def _next_watch_cookie(self) -> int:
+        self._watch_cookie += 1
+        return self._watch_cookie
+
+    def _ensure_watch_keepalive(self) -> None:
+        """Watches must survive silent TCP drops, not just map
+        changes: periodically re-register every live watch (the
+        registration is idempotent on the primary)."""
+        if self._watch_keepalive is None or \
+                self._watch_keepalive.done():
+            self._watch_keepalive = \
+                asyncio.get_running_loop().create_task(
+                    self._watch_keepalive_loop())
+
+    async def _watch_keepalive_loop(self) -> None:
+        while self._watches:
+            await asyncio.sleep(3.0)
+            await self._reregister_watches()
 
     @property
     def mon_addr(self) -> str:
@@ -246,6 +279,15 @@ class RadosClient:
         raise TimeoutError(f"no osdmap from any mon ({last!r})")
 
     async def shutdown(self) -> None:
+        # the keepalive is the client's own task, not the messenger's:
+        # cancel it and wait for it to end, so no watch outlives the
+        # client (the messenger's shutdown cancels the re-registrations
+        # it spawned on map changes)
+        task, self._watch_keepalive = self._watch_keepalive, None
+        if task is not None:
+            task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await task
         await self.msgr.shutdown()
 
     # -- dispatch ----------------------------------------------------------
@@ -256,6 +298,26 @@ class RadosClient:
                 for event in self._map_waiters:
                     event.set()
                 self._map_waiters.clear()
+                if self._watches:
+                    # primaries may have moved: re-register watches
+                    self.msgr._spawn(self._reregister_watches())
+        elif isinstance(msg, MWatchNotify):
+            # run the callback, then ack so the notifier unblocks
+            for (pool, oid, cookie), (ioctx, cb) in \
+                    list(self._watches.items()):
+                if pool == msg.pool and oid == msg.oid and \
+                        cookie == msg.cookie:
+                    try:
+                        res = cb(msg.payload)
+                        if asyncio.iscoroutine(res):
+                            await res
+                    except Exception:
+                        log.exception("watch callback failed")
+            try:
+                await conn.send(MWatchNotifyAck(msg.notify_id,
+                                                msg.cookie))
+            except (ConnectionError, OSError):
+                pass
         elif isinstance(msg, (MAuthReply, MOSDOpReply, MMonCommandReply,
                               MOSDCommandReply, MOSDComputeReply)):
             fut = self._futures.pop(msg.tid, None)
@@ -291,6 +353,15 @@ class RadosClient:
             # inc-only publish we could not apply: pull a fresh map
             self.msgr._spawn(self.refresh_map())
         return advanced
+
+    async def _reregister_watches(self) -> None:
+        for (pool, oid, cookie), (ioctx, _cb) in \
+                list(self._watches.items()):
+            try:
+                await ioctx._submit(
+                    oid, [OSDOp("watch", args={"cookie": cookie})])
+            except Exception:
+                pass  # next map change retries
 
     def _next_tid(self) -> int:
         self._tid += 1
@@ -992,6 +1063,23 @@ class IoCtx:
         return inf_kernels.decode_result(
             inf_kernels.result_blob(scores, "exact", 0.0, 0))
 
+    # -- object classes ----------------------------------------------------
+
+    async def execute(self, oid: str, cls: str, method: str,
+                      data: bytes = b"") -> bytes:
+        """Run an object-class method server-side (rados_exec role).
+        Returns the method's output bytes; errors raise RadosError
+        with the method's rc."""
+        reply = await self._submit(
+            oid, [OSDOp("call", data=data,
+                        args={"cls": cls, "method": method})])
+        if reply.rc == ENOENT:
+            raise ObjectNotFound(reply.rc, oid)
+        if reply.rc != 0:
+            raise RadosError(reply.rc, f"exec {cls}.{method} on {oid!r}")
+        data = reply.data
+        return data if isinstance(data, bytes) else bytes(data)
+
     # -- xattrs ------------------------------------------------------------
 
     async def setxattr(self, oid: str, name: str, value: bytes) -> None:
@@ -1019,6 +1107,63 @@ class IoCtx:
             raise RadosError(reply.rc, f"getxattrs {oid!r}")
         return {k: v.encode("latin-1")
                 for k, v in reply.out.get("xattrs", {}).items()}
+
+    # -- omap (replicated pools only, like the reference) ------------------
+
+    async def omap_set(self, oid: str,
+                       kv: Dict[str, bytes]) -> None:
+        reply = await self._submit(
+            oid, [OSDOp("omap_set", data=encode_kv_map(kv))])
+        if reply.rc != 0:
+            raise RadosError(reply.rc, f"omap_set {oid!r}")
+
+    async def omap_rm_keys(self, oid: str, keys: List[str]) -> None:
+        reply = await self._submit(
+            oid, [OSDOp("omap_rm", data=encode_str_list(keys))])
+        if reply.rc != 0:
+            raise RadosError(reply.rc, f"omap_rm {oid!r}")
+
+    async def omap_get(self, oid: str) -> Dict[str, bytes]:
+        reply = await self._submit(oid, [OSDOp("omap_get")])
+        if reply.rc == ENOENT:
+            raise ObjectNotFound(reply.rc, oid)
+        if reply.rc != 0:
+            raise RadosError(reply.rc, f"omap_get {oid!r}")
+        return decode_kv_map(reply.data) if reply.data else {}
+
+    # -- watch / notify ----------------------------------------------------
+
+    async def watch(self, oid: str, callback) -> int:
+        """Register a watch; callback(payload: bytes) fires on every
+        notify.  Returns the watch cookie (linger op role — the client
+        re-registers automatically when the map changes)."""
+        cookie = self.client._next_watch_cookie()
+        self.client._watches[(self.pool_id, oid, cookie)] = \
+            (self, callback)
+        reply = await self._submit(
+            oid, [OSDOp("watch", args={"cookie": cookie})])
+        if reply.rc != 0:
+            self.client._watches.pop((self.pool_id, oid, cookie), None)
+            raise RadosError(reply.rc, f"watch {oid!r}")
+        self.client._ensure_watch_keepalive()
+        return cookie
+
+    async def unwatch(self, oid: str, cookie: int) -> None:
+        self.client._watches.pop((self.pool_id, oid, cookie), None)
+        reply = await self._submit(
+            oid, [OSDOp("watch", args={"cookie": cookie,
+                                       "unwatch": True})])
+        if reply.rc != 0:
+            raise RadosError(reply.rc, f"unwatch {oid!r}")
+
+    async def notify(self, oid: str,
+                     payload: bytes = b"") -> Dict[str, Any]:
+        """Fire a notify; returns {"acked": [...], "missed": [...]}."""
+        reply = await self._submit(
+            oid, [OSDOp("notify", data=payload)])
+        if reply.rc != 0:
+            raise RadosError(reply.rc, f"notify {oid!r}")
+        return reply.out
 
     async def list_objects(self) -> List[str]:
         """pgls across every PG of the pool (ListObjects role)."""

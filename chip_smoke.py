@@ -6,7 +6,8 @@ Run from the repository root:
     python3 chip_smoke.py
 
 (`python3 chip_smoke.py --phase osd` builds the kernels and runs phases 3i,
-3j and 3k alone, with their checks, and prints no result line.)
+3j and 3k alone, with their checks, and prints no result line;
+`--phase rgw` does the same for phase 3l.)
 
 Phases; any failure exits nonzero and prints no result line:
 
@@ -256,6 +257,31 @@ Phases; any failure exits nonzero and prints no result line:
    split's seconds to clean, the scan's GiB/s of shard bytes beside 3g's,
    the tracer's compute-eval, compute-decode and sub-compute span seconds
    of a scan, queries/s beside 3g's.
+3l. BASELINE config 5 through the S3 gateway (path `rgw`): a fresh cluster
+   of 3i's shape on the card, the port's S3Frontend on loopback over a
+   port RGWLite (rgw.data EC 8+3, rgw.meta replicated), its counts zeroed
+   once the pools are active.  Over HTTP, each request signed by
+   sign_request (SigV4): a bucket; the 64 MiB multipart PUT as four 16
+   MiB parts in flight together (one connection each), 3 trials of their
+   own keys, the first warming; every object GET whole, one by a range,
+   the listing; a 9 MB atomic PUT, its GET, its DELETE; 16 object-ACL
+   flips (bucket-index updates).  Outside HTTP: numops add through
+   IoCtx.execute on rgw.meta and on rgw.data (omap on an EC pool:
+   EOPNOTSUPP), hello record_hello on rgw.data (a class write down the EC
+   path), and a watch/notify round trip between two RADOS clients.  Then
+   one non-primary OSD holding data shards killed and marked down, and
+   every object read again.  Checks: every GET and the ranged GET against
+   the written bytes, the listing's keys and sizes; the card's shard
+   objects, xattrs, meta-pool omap and pg logs of both pools against a
+   device="cpu" twin that replays the card's RADOS mutations (recorded at
+   the gateway's IoCtxs) in each PG's log order; the kernels at the
+   path's shapes against their plain versions; gf_matmul_spec = the
+   encode service's whole-object batches and sheds plus its RMW batches,
+   crc32c_blocks = twice the whole-object ones, 1 <= gf_matmul_gen within
+   the service's decode batches and requests, all in the degraded GETs,
+   and no launch in the ACL flips.  Times: the S3 PUT, GET healthy and
+   with one OSD down in GiB/s beside 3i's PUT below RGW, the ranged GET,
+   numops add on each pool and the notify round trip in ms.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -272,7 +298,7 @@ Phases; any failure exits nonzero and prints no result line:
    against its plain version, and the placement kernel at phase 3c's.
    Every kernels-line row carries its launches per path (codec, crushtool,
    osdmap, cluster, codecs, store, store_cluster, compute, mon, osd,
-   recovery, recovery_msr, split, osd_compute) and their sum;
+   recovery, recovery_msr, split, osd_compute, rgw) and their sum;
    bloom_positions' row is timed at the tier's geometry and 65536 hashes.
 
 The line before the last is {"kernels": [...]}; the last is
@@ -2215,16 +2241,17 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
     for batch in (1024, 65536):
         h = np.random.default_rng(batch).integers(
             0, 1 << 32, batch, dtype=np.uint64).astype(np.uint32)
-        # CUDA work per positions_for call, from torch.profiler: five calls,
-        # the device events in start order cut at each host-to-device copy
-        # (a call's first); the first cut is dropped, since a session's
-        # first events can go missing, and every other must be one copy
-        # in, the bloom kernel, one copy out
+        # CUDA work per positions_for call, from torch.profiler: eight
+        # calls, the device events in start order cut at each host-to-device
+        # copy (a call's first); the first cut is dropped, since a session's
+        # first events can go missing (one call lost its first events and
+        # the next call whole in one run of five), and every other must be
+        # one copy in, the bloom kernel, one copy out
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CUDA],
                      acc_events=True) as prof:
-            for _ in range(5):
+            for _ in range(8):
                 hitset.positions_for(h, nbits, nhash, device=dev)
             sync()
         on_card = sorted(
@@ -2797,6 +2824,121 @@ MODEL_POOL_PROFILE = {k: v for k, v in OSD_PROFILE.items()
 MODEL_POOL_PGS = 2
 
 
+async def osd_cluster_start(device):
+    """Phase 3i's cluster (config 5's shape): one mon and 12 MemStore OSDs
+    on `device`, 3 to a host, in this loop; rgw.meta replicated size 3 and
+    rgw.data EC 8+3 at 64 KiB units, 8 PGs each; a RADOS client."""
+    from ceph_tpu_torch.mon import MonDaemon
+    from ceph_tpu_torch.os.memstore import MemStore
+    from ceph_tpu_torch.osd.daemon import OSDDaemon
+    from ceph_tpu_torch.rados.client import RadosClient
+
+    mon = MonDaemon(OSD_OSDS, osds_per_host=OSD_OSDS_PER_HOST,
+                    config=dict(OSD_MON_CONFIG))
+    addr = await mon.start()
+    osds, stores = {}, {}
+    for i in range(OSD_OSDS):
+        store = MemStore()
+        store.mkfs()
+        store.mount()
+        stores[i] = store
+        osds[i] = OSDDaemon(i, [addr], store=store,
+                            config=dict(OSD_CONFIG), device=device)
+        await osds[i].start()
+    client = RadosClient([addr])
+    await client.connect()
+    await client.create_replicated_pool("rgw.meta", size=3, pg_num=8)
+    await client.create_ec_pool("rgw.data", dict(OSD_PROFILE), pg_num=8)
+    return mon, osds, stores, client
+
+
+async def osd_cluster_stop(mon, osds, client):
+    await client.shutdown()
+    for osd in osds.values():
+        await osd.stop()
+    await mon.shutdown()
+
+
+async def pool_active(mon, osds, pool_id):
+    """Every PG of the pool active on its live primary."""
+    import asyncio
+
+    from ceph_tpu_torch.osd.osdmap import PgId
+
+    for _ in range(600):
+        ok = True
+        for ps in range(mon.osdmap.pools[pool_id].pg_num):
+            pg = PgId(pool_id, ps)
+            _a, primary = mon.osdmap.pg_to_acting_osds(pg)
+            st = osds[primary].pgs.get(pg) if primary in osds else None
+            ok = ok and st is not None and st.state == "active" and \
+                osds[primary].osdmap.epoch >= mon.osdmap.epoch
+        if ok:
+            return
+        await asyncio.sleep(0.05)
+    fail(f"pool {pool_id} never went active")
+
+
+def pg_logs(mon, stores, pool_id):
+    """Each PG's log entries (oid, op, version) in order, from its
+    primary's store: the order the concurrent writes took."""
+    from ceph_tpu_torch.os import ObjectId
+    from ceph_tpu_torch.osd.osdmap import TYPE_ERASURE, PgId
+    from ceph_tpu_torch.osd.pg_log import PGMETA_OID
+    from ceph_tpu_torch.rados.embedded import shard_collection
+
+    pool = mon.osdmap.pools[pool_id]
+    out = {}
+    for ps in range(pool.pg_num):
+        pg = PgId(pool_id, ps)
+        acting, primary = mon.osdmap.pg_to_acting_osds(pg)
+        shard = acting.index(primary) if pool.type == TYPE_ERASURE else -1
+        omap = stores[primary].omap_get(shard_collection(pg, shard),
+                                        ObjectId(PGMETA_OID))
+        out[ps] = [(e["oid"], e["op"], e["version"])
+                   for e in json.loads(omap["log"])]
+    return out
+
+
+def snapshot(stores, pool_id, omap: bool = False):
+    """Every shard object's bytes and xattrs (and, with `omap`, its omap),
+    per OSD (the pg-meta omap holds hit sets sealed on the clock, so it is
+    left out)."""
+    out = {}
+    for osd_id, store in stores.items():
+        for cid in store.list_collections():
+            if not cid.startswith(f"{pool_id}."):
+                continue
+            for oid in store.list_objects(cid):
+                if oid.name.startswith("_"):
+                    continue
+                out[(osd_id, cid, oid.name)] = (
+                    store.read(cid, oid), store.getattrs(cid, oid)) + (
+                    (store.omap_get(cid, oid),) if omap else ())
+    return out
+
+
+def service_counts(osd):
+    """An OSD's encode-service counters, with its requests and batches by
+    bucket kind (encode_hinfo, encode, decode)."""
+    out = dict(osd.encode_service.counters)
+    for label, prof in osd.encode_service.stats()["profiles"].items():
+        kind = label.split("[", 1)[0]
+        for key in ("requests", "batches"):
+            out[f"{kind}_{key}"] = out.get(f"{kind}_{key}", 0) + prof[key]
+    return out
+
+
+def service_growth(everyone: dict, base: dict) -> dict:
+    """The encode-service counters' growth since `base` ({osd id: counts}),
+    summed over the daemons in `everyone` (the killed ones' too)."""
+    out: dict = {}
+    for i, o in everyone.items():
+        for k, v in service_counts(o).items():
+            out[k] = out.get(k, 0) + v - base[i].get(k, 0)
+    return out
+
+
 def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     """Phase 3i: the port's OSD daemons and RADOS client on the card.  The
     PUT in three trials, meta objects, every object read back, a ranged
@@ -2815,14 +2957,11 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     from ceph_tpu_torch.device import to_device
     from ceph_tpu_torch.ec import plan
     from ceph_tpu_torch.ec.registry import create_erasure_code
-    from ceph_tpu_torch.mon import MonDaemon
-    from ceph_tpu_torch.os.memstore import MemStore
     from ceph_tpu_torch.osd import ec_util
     from ceph_tpu_torch.osd.daemon import OSDDaemon
     from ceph_tpu_torch.osd.osdmap import PgId
     from ceph_tpu_torch.common import tracing
     from ceph_tpu_torch.os import ObjectId
-    from ceph_tpu_torch.osd.pg_log import PGMETA_OID
     from ceph_tpu_torch.rados.client import RadosClient, RadosError
     from ceph_tpu_torch.rados.embedded import HINFO_ATTR, shard_collection
 
@@ -2845,46 +2984,6 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     rmw_want_bytes = bytearray(piece(5))
     rmw_want_bytes[rmw_off:rmw_off + len(rmw_data)] = rmw_data
     range_off, range_len = 777_777, 1_234_567
-
-    async def start(device):
-        mon = MonDaemon(OSD_OSDS, osds_per_host=OSD_OSDS_PER_HOST,
-                        config=dict(OSD_MON_CONFIG))
-        addr = await mon.start()
-        osds, stores = {}, {}
-        for i in range(OSD_OSDS):
-            store = MemStore()
-            store.mkfs()
-            store.mount()
-            stores[i] = store
-            osds[i] = OSDDaemon(i, [addr], store=store,
-                                config=dict(OSD_CONFIG), device=device)
-            await osds[i].start()
-        client = RadosClient([addr])
-        await client.connect()
-        await client.create_replicated_pool("rgw.meta", size=3, pg_num=8)
-        await client.create_ec_pool("rgw.data", dict(OSD_PROFILE), pg_num=8)
-        return mon, osds, stores, client
-
-    async def stop(mon, osds, client):
-        await client.shutdown()
-        for osd in osds.values():
-            await osd.stop()
-        await mon.shutdown()
-
-    async def active(mon, osds, pool_id):
-        """Every PG of the pool active on its live primary."""
-        for _ in range(600):
-            ok = True
-            for ps in range(mon.osdmap.pools[pool_id].pg_num):
-                pg = PgId(pool_id, ps)
-                _a, primary = mon.osdmap.pg_to_acting_osds(pg)
-                st = osds[primary].pgs.get(pg) if primary in osds else None
-                ok = ok and st is not None and st.state == "active" and \
-                    osds[primary].osdmap.epoch >= mon.osdmap.epoch
-            if ok:
-                return
-            await asyncio.sleep(0.05)
-        fail(f"pool {pool_id} never went active")
 
     async def put(io, trial):
         """The 64 MiB PUT: four 16 MiB parts in flight, each part its
@@ -2921,45 +3020,6 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
 
     def data_of(name):
         return piece(names(int(name[3])).index(name))
-
-    def pg_logs(mon, stores, pool_id):
-        """Each PG's log entries (oid, op, version) in order, from its
-        primary's store: the order the concurrent parts' writes took."""
-        out = {}
-        for ps in range(mon.osdmap.pools[pool_id].pg_num):
-            pg = PgId(pool_id, ps)
-            acting, primary = mon.osdmap.pg_to_acting_osds(pg)
-            cid = shard_collection(pg, acting.index(primary))
-            omap = stores[primary].omap_get(cid, ObjectId(PGMETA_OID))
-            out[ps] = [(e["oid"], e["op"], e["version"])
-                       for e in json.loads(omap["log"])]
-        return out
-
-    def snapshot(stores, pool_id):
-        """Every shard object's bytes and xattrs, per OSD (the pg-meta
-        omap holds hit sets sealed on the clock, so it is left out)."""
-        out = {}
-        for osd_id, store in stores.items():
-            for cid in store.list_collections():
-                if not cid.startswith(f"{pool_id}."):
-                    continue
-                for oid in store.list_objects(cid):
-                    if oid.name.startswith("_"):
-                        continue
-                    out[(osd_id, cid, oid.name)] = (
-                        store.read(cid, oid), store.getattrs(cid, oid))
-        return out
-
-    def service_counts(osd):
-        """An OSD's encode-service counters, with its requests and batches
-        by bucket kind (encode_hinfo, encode, decode)."""
-        out = dict(osd.encode_service.counters)
-        for label, prof in osd.encode_service.stats()["profiles"].items():
-            kind = label.split("[", 1)[0]
-            for key in ("requests", "batches"):
-                out[f"{kind}_{key}"] = out.get(f"{kind}_{key}", 0) \
-                    + prof[key]
-        return out
 
     msr_objs = {f"msr.{i}": np.random.default_rng(SEED + 12 + i).bytes(
         OSD_OBJECT) for i in range(RECOVERY_MSR_OBJECTS)}
@@ -3421,7 +3481,7 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                     {"prefix": "osd down", "osd": v})
                 check(rc == 0, f"osd down {v}: {msg}")
             t1 = step(f"{label}_kill", t1)
-            await active(mon, osds, data_id)
+            await pool_active(mon, osds, data_id)
             await caught_up()
             t1 = step(f"{label}_active", t1)
             out["short_of_k"][label] = short_of_k(targets)
@@ -3455,14 +3515,14 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     exact = []
 
     async def drive():
-        mon, osds, stores, client = await start(dev)
+        mon, osds, stores, client = await osd_cluster_start(dev)
         try:
             check(all(o.device.type == "cuda" for o in osds.values()),
                   "an OSD is not on the card")
             data_id = mon.osdmap.lookup_pool("rgw.data")
             meta_id = mon.osdmap.lookup_pool("rgw.meta")
-            await active(mon, osds, data_id)
-            await active(mon, osds, meta_id)
+            await pool_active(mon, osds, data_id)
+            await pool_active(mon, osds, meta_id)
             io = client.open_ioctx("rgw.data")
             mio = client.open_ioctx("rgw.meta")
             # the main path, its counts zeroed just before it; every OSD
@@ -3555,7 +3615,7 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                     rc, out = await client.mon_command(
                         {"prefix": "osd down", "osd": v})
                     check(rc == 0, f"osd down {v}: {out}")
-                await active(mon, osds, data_id)
+                await pool_active(mon, osds, data_id)
                 deg_s[key] = []
                 # each pass reads one PUT's objects once: the interval
                 # change emptied the read tier, so every read decodes
@@ -3567,10 +3627,7 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                             else piece(j) for j in range(n_objs)]
                     exact.extend(g == w for g, w in zip(got, want))
             launches = {n: fn.launches for n, fn in wrappers.items()}
-            svc = {}
-            for i, o in everyone.items():
-                for k2, v in service_counts(o).items():
-                    svc[k2] = svc.get(k2, 0) + v - svc0[i].get(k2, 0)
+            svc = service_growth(everyone, svc0)
             hist: dict = {}
             for o in everyone.values():
                 for prof in o.encode_service.stats()["profiles"].values():
@@ -3605,7 +3662,7 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                                            every, dev)
             return snap, meta_snap, logs, rec, k3
         finally:
-            await stop(mon, osds, client)
+            await osd_cluster_stop(mon, osds, client)
 
     def rs_want(name):
         return bytes(rmw_want_bytes) if name == rmw_name else \
@@ -3641,12 +3698,12 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
         there at the card's pace, and an object's version is its place
         in that order); then the traced write, the card's kills, phase
         3j's history (its PUT in the card's order too) and phase 3k's."""
-        mon, osds, stores, client = await start("cpu")
+        mon, osds, stores, client = await osd_cluster_start("cpu")
         try:
             data_id = mon.osdmap.lookup_pool("rgw.data")
             meta_id = mon.osdmap.lookup_pool("rgw.meta")
-            await active(mon, osds, data_id)
-            await active(mon, osds, meta_id)
+            await pool_active(mon, osds, data_id)
+            await pool_active(mon, osds, meta_id)
             io = client.open_ioctx("rgw.data")
             mio = client.open_ioctx("rgw.meta")
             for ps, entries in sorted(logs.items()):
@@ -3668,7 +3725,7 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                 rc, msg = await client.mon_command(
                     {"prefix": "osd down", "osd": v})
                 check(rc == 0, f"osd down {v}: {msg}")
-            await active(mon, osds, data_id)
+            await pool_active(mon, osds, data_id)
             rec = await recovery_steps(mon, osds, stores, client, everyone,
                                        "cpu", plan=rec_plan)
             final = final_state(mon, stores, rec["msr_id"])
@@ -3676,7 +3733,7 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                                            everyone, "cpu", plan=k3_plan)
             return out + (final, k3)
         finally:
-            await stop(mon, osds, client)
+            await osd_cluster_stop(mon, osds, client)
 
     snap, meta_snap, logs, rec, k3 = asyncio.run(
         asyncio.wait_for(drive(), 3 * OSD_PHASE_TIMEOUT))
@@ -3722,6 +3779,7 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
         "local_cluster_gib_per_s_64mib_object": PHASE_RESULTS.get(
             "cluster", {}).get("gib_per_s"),
         "seconds_in_phase": time.perf_counter() - phase_t0})
+    PHASE_RESULTS["osd"] = result["gib_per_s"]
     print(json.dumps(result))
     check(all(exact), "an OSD-path read differs from the written bytes")
     check(hinfo_ok and hinfo_n >= n_objs * (K + M),
@@ -4172,6 +4230,497 @@ def osd_compute_report(dev, card: str, k3: dict, twin: dict,
     return {"split": sl, "osd_compute": ol}
 
 
+# phase 3l: config 5 through the gateway, on a fresh cluster of 3i's shape
+# (bench.py:3252-3300): the port's S3Frontend on loopback over a port
+# RGWLite, the 64 MiB multipart PUT over HTTP (SigV4 by sign_request) as four
+# 16 MiB parts in flight together, 3 trials (the first warms), each trial its
+# own key; GETs whole and by a range, the listing, a 9 MB atomic PUT and a
+# DELETE; outside HTTP, numops add on each pool, hello record_hello (an
+# object-class write down the EC path) and a watch/notify round trip between
+# two RADOS clients; then one OSD holding data shards killed and marked down
+# and every object read again
+RGW_ACCESS, RGW_SECRET = "AKIDCHIPSMOKE", "chip-smoke-secret"
+RGW_BUCKET = "config5"
+RGW_ATOMIC = 9_000_000
+RGW_RANGE = (777_777, 1_234_567)
+RGW_INDEX_BURST = 16        # object-ACL flips: bucket-index updates only
+RGW_PHASE_TIMEOUT = 600.0
+
+
+class S3Client:
+    """A raw-socket HTTP/1.1 S3 client: one keep-alive connection, each
+    request signed with the port's sign_request (SigV4)."""
+
+    def __init__(self, addr: str):
+        self.host, port = addr.rsplit(":", 1)
+        self.port = int(port)
+        self._r = self._w = None
+
+    async def request(self, method: str, path: str, query=None,
+                      body: bytes = b"", headers=None):
+        import asyncio
+        import urllib.parse
+
+        from ceph_tpu_torch.rgw.s3_frontend import sign_request
+
+        if self._w is None or self._w.is_closing():
+            self._r, self._w = await asyncio.open_connection(
+                self.host, self.port, limit=8 << 20)
+        query = query or {}
+        hdrs = sign_request(method, path, query,
+                            {"Host": f"{self.host}:{self.port}",
+                             **(headers or {})},
+                            body, RGW_ACCESS, RGW_SECRET)
+        qs = urllib.parse.urlencode(query)
+        hdrs["Content-Length"] = str(len(body))
+        head = "".join([f"{method} {path}{'?' + qs if qs else ''}"
+                        " HTTP/1.1\r\n"]
+                       + [f"{k}: {v}\r\n" for k, v in hdrs.items()]
+                       + ["\r\n"])
+        self._w.write(head.encode())
+        self._w.write(body)
+        await self._w.drain()
+        status = int((await self._r.readline()).split()[1])
+        rhdrs = {}
+        while True:
+            line = await self._r.readline()
+            if line in (b"\r\n", b"\n", b""):
+                break
+            k, _, v = line.decode().partition(":")
+            rhdrs[k.strip().lower()] = v.strip()
+        length = int(rhdrs.get("content-length", "0"))
+        rbody = await self._r.readexactly(length) \
+            if length and method != "HEAD" else b""
+        return status, rhdrs, rbody
+
+    async def close(self) -> None:
+        if self._w is not None:
+            self._w.close()
+            self._w = None
+
+
+class Recorder:
+    """An IoCtx whose successful mutations are recorded per object, in the
+    order they completed, as (method, args): the history a twin cluster
+    replays in the card's pg-log order."""
+
+    MUTATIONS = frozenset({"write_full", "write", "append", "remove",
+                           "setxattr", "rmxattr", "omap_set",
+                           "omap_rm_keys", "execute"})
+
+    def __init__(self, io, calls: dict):
+        self._io = io
+        self.calls = calls
+
+    def __getattr__(self, name):
+        attr = getattr(self._io, name)
+        if name not in self.MUTATIONS:
+            return attr
+
+        async def call(oid, *args, **kw):
+            out = await attr(oid, *args, **kw)
+            self.calls.setdefault(oid, []).append((name, args, kw))
+            return out
+        return call
+
+
+async def replay(io, calls: dict, logs: dict) -> None:
+    """Each PG's recorded mutations through `io` in the order of the PG's
+    log on the card: an entry runs its object's next recorded call (a call
+    that logged two entries, a class method's write and xattr, runs at the
+    first)."""
+    pending = {oid: list(c) for oid, c in calls.items()}
+    for _ps, entries in sorted(logs.items()):
+        for oid, _op, _v in entries:
+            todo = pending.get(oid)
+            if todo:
+                name, args, kw = todo.pop(0)
+                await getattr(io, name)(oid, *args, **kw)
+    left = sorted(oid for oid, c in pending.items() if c)
+    check(not left, f"recorded calls not in any pg log: {left[:5]}")
+
+
+def rgw_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3l: BASELINE config 5 through the port's S3 gateway (path
+    `rgw`), on a fresh 12-OSD cluster of 3i's shape on the card, its counts
+    zeroed once the pools are active.  Checks: every GET and ranged GET
+    against the written bytes, the listing's keys and sizes; numops' sums,
+    the greeting, the notify acked by the watcher; the card's stores
+    (shard objects and xattrs of both pools, the meta pool's omap) and pg
+    logs against a device="cpu" twin that replays the card's RADOS
+    mutations in each PG's log order; the kernels at the path's shapes
+    against their plain versions; gf_matmul_spec = the encode service's
+    whole-object batches and sheds plus its RMW batches, crc32c_blocks =
+    2 x the whole-object ones, gf_matmul_gen within the service's decode
+    batches and requests, and so in the degraded GETs alone with at least
+    one launch (healthy GETs decode too where the first k shards to answer
+    hold a parity shard), and no launch at all in a burst of bucket-index
+    updates.  Returns the path's launches."""
+    import asyncio
+    import hashlib
+    import xml.etree.ElementTree as ET
+
+    from ceph_tpu_torch.models import reed_solomon as rs
+    from ceph_tpu_torch.ops import checksum as cks
+    from ceph_tpu_torch.ops import crc_kernels, gf_kernels
+    from ceph_tpu_torch.rados.client import RadosClient, RadosError
+    from ceph_tpu_torch.rgw import RGWLite
+    from ceph_tpu_torch.rgw.s3_frontend import S3Frontend
+
+    phase_t0 = time.perf_counter()
+    payload = np.random.default_rng(SEED + 20).bytes(OSD_PUT)
+    atomic = np.random.default_rng(SEED + 21).bytes(RGW_ATOMIC)
+    n_parts = OSD_PUT // OSD_PART
+    keys = [f"big.{t}" for t in range(OSD_TRIALS)]
+    lo, n_range = RGW_RANGE
+    exact: dict = {}
+    out: dict = {"phase": "rgw", "card": card}
+    numops_req = json.dumps({"key": "n", "value": 7}).encode()
+
+    def count_launches():
+        return {n: fn.launches for n, fn in wrappers.items()}
+
+    async def put(s3s, key):
+        """Initiate, the four parts in flight together (one connection
+        each), complete."""
+        st, _, body = await s3s[0].request(
+            "POST", f"/{RGW_BUCKET}/{key}", {"uploads": ""})
+        check(st == 200, f"initiate {key}: {st}")
+        upload = ET.fromstring(body).findtext("UploadId")
+
+        async def part(num):
+            t0 = time.perf_counter()
+            st, h, _ = await s3s[num - 1].request(
+                "PUT", f"/{RGW_BUCKET}/{key}",
+                {"partNumber": str(num), "uploadId": upload},
+                memoryview(payload)[(num - 1) * OSD_PART:num * OSD_PART])
+            part_s["request"].append(time.perf_counter() - t0)
+            check(st == 200, f"part {num} of {key}: {st}")
+            return h["etag"].strip('"')
+        etags = await asyncio.gather(*(part(n)
+                                       for n in range(1, n_parts + 1)))
+        comp = ET.Element("CompleteMultipartUpload")
+        for num, etag in enumerate(etags, 1):
+            p = ET.SubElement(comp, "Part")
+            ET.SubElement(p, "PartNumber").text = str(num)
+            ET.SubElement(p, "ETag").text = etag
+        st, _, body = await s3s[0].request(
+            "POST", f"/{RGW_BUCKET}/{key}", {"uploadId": upload},
+            ET.tostring(comp))
+        check(st == 200, f"complete {key}: {st} {body[:200]!r}")
+        return ET.fromstring(body).findtext("ETag").strip('"')
+
+    async def get(s3, key, label):
+        t0 = time.perf_counter()
+        st, _h, got = await s3.request("GET", f"/{RGW_BUCKET}/{key}")
+        sec = time.perf_counter() - t0
+        exact[f"{label} {key}"] = st == 200 and got == payload
+        return sec
+
+    # a part's seconds: the client's request, and inside it the gateway's
+    # upload_part (its stripes' RADOS writes, the MD5 ETag, the upload
+    # doc); the rest is HTTP, the frontend and its SigV4 payload check
+    part_s: dict = {"request": [], "gateway": []}
+
+    # the host hashing a 16 MiB part costs on each side of the wire: the
+    # client's SigV4 payload sha256, the gateway's sha256 check and MD5 ETag
+    first_part = memoryview(payload)[:OSD_PART]
+    hash_ms = {}
+    for name in ("sha256", "md5"):
+        t0 = time.perf_counter()
+        hashlib.new(name, first_part).hexdigest()
+        hash_ms[name] = (time.perf_counter() - t0) * 1e3
+
+    async def drive():
+        mon, osds, stores, client = await osd_cluster_start(dev)
+        fe = watcher = None
+        s3s: list = []
+        try:
+            check(all(o.device.type == "cuda" for o in osds.values()),
+                  "an OSD is not on the card")
+            data_id = mon.osdmap.lookup_pool("rgw.data")
+            meta_id = mon.osdmap.lookup_pool("rgw.meta")
+            await pool_active(mon, osds, data_id)
+            await pool_active(mon, osds, meta_id)
+            rgw = RGWLite(client, "rgw.data", "rgw.meta")
+            upload_part = rgw.upload_part
+
+            async def timed_upload_part(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return await upload_part(*args, **kw)
+                finally:
+                    part_s["gateway"].append(time.perf_counter() - t0)
+            # the frontend calls the gateway's method on the instance
+            rgw.upload_part = timed_upload_part
+            calls = {"data": {}, "meta": {}}
+            rgw.data = Recorder(rgw.data, calls["data"])
+            rgw.meta = Recorder(rgw.meta, calls["meta"])
+            fe = S3Frontend(rgw, {RGW_ACCESS: RGW_SECRET})
+            addr = await fe.start()
+            s3s = [S3Client(addr) for _ in range(n_parts)]
+            everyone = dict(osds)
+            # the path, its counts zeroed just before it
+            for fn in wrappers.values():
+                fn.launches = 0
+            svc0 = {i: service_counts(o) for i, o in everyone.items()}
+            st, _, _ = await s3s[0].request("PUT", f"/{RGW_BUCKET}")
+            check(st == 200, f"create bucket: {st}")
+            put_s, etags = [], []
+            for key in keys:
+                t0 = time.perf_counter()
+                etags.append(await put(s3s, key))
+                put_s.append(time.perf_counter() - t0)
+            get_s = [await get(s3s[0], key, "get") for key in keys]
+            t0 = time.perf_counter()
+            st, h, got = await s3s[0].request(
+                "GET", f"/{RGW_BUCKET}/{keys[0]}",
+                headers={"Range": f"bytes={lo}-{lo + n_range - 1}"})
+            range_s = time.perf_counter() - t0
+            exact["ranged get"] = st == 206 and \
+                got == payload[lo:lo + n_range] and \
+                h.get("content-range") == \
+                f"bytes {lo}-{lo + n_range - 1}/{OSD_PUT}"
+            st, _, body = await s3s[0].request("GET", f"/{RGW_BUCKET}")
+            listed = sorted((c.findtext("Key"), int(c.findtext("Size")))
+                            for c in ET.fromstring(body).iter("Contents"))
+            exact["listing"] = st == 200 and listed == sorted(
+                (k, OSD_PUT) for k in keys)
+            # a 9 MB atomic PUT (three stripes), read back, deleted
+            t0 = time.perf_counter()
+            st, _, _ = await s3s[0].request(
+                "PUT", f"/{RGW_BUCKET}/atomic", body=atomic)
+            atomic_s = time.perf_counter() - t0
+            check(st == 200, f"atomic PUT: {st}")
+            st, _, got = await s3s[0].request("GET",
+                                              f"/{RGW_BUCKET}/atomic")
+            exact["atomic get"] = st == 200 and got == atomic
+            st, _, _ = await s3s[0].request("DELETE",
+                                            f"/{RGW_BUCKET}/atomic")
+            st2, _, _ = await s3s[0].request("GET",
+                                             f"/{RGW_BUCKET}/atomic")
+            exact["atomic delete"] = st == 204 and st2 == 404
+            # bucket-index updates alone launch nothing
+            before = count_launches()
+            for i in range(RGW_INDEX_BURST):
+                acl = ("public-read", "private")[i % 2]
+                st, _, _ = await s3s[0].request(
+                    "PUT", f"/{RGW_BUCKET}/{keys[0]}", {"acl": ""},
+                    headers={"x-amz-acl": acl})
+                check(st == 200, f"object acl {acl}: {st}")
+            index_launches = {n: v - before[n]
+                              for n, v in count_launches().items()}
+            # outside HTTP: object classes on each pool, watch/notify
+            mio, dio = rgw.meta, rgw.data
+            cls_s = {}
+            for pool, io in (("meta", mio), ("data", dio)):
+                t0 = time.perf_counter()
+                try:
+                    got = float(await io.execute("counter", "numops", "add",
+                                                 numops_req))
+                except RadosError as e:
+                    got = e.rc
+                cls_s[f"numops_add_{pool}_ms"] = \
+                    (time.perf_counter() - t0) * 1e3
+                out[f"numops_add_{pool}"] = got
+            t0 = time.perf_counter()
+            await dio.execute("greeting", "hello", "record_hello", b"rgw")
+            cls_s["record_hello_data_ms"] = (time.perf_counter() - t0) * 1e3
+            exact["greeting"] = await dio.read("greeting") == \
+                b"Hello, rgw!"
+            await mio.write_full("notify.obj", b"watched")
+            watcher = RadosClient(client.mon_addrs, name="client.watcher",
+                                  device=dev)
+            await watcher.connect()
+            got_notes: list = []
+            cookie = await watcher.open_ioctx("rgw.meta").watch(
+                "notify.obj", got_notes.append)
+            t0 = time.perf_counter()
+            res = await mio.notify("notify.obj", b"chip-smoke")
+            notify_ms = (time.perf_counter() - t0) * 1e3
+            exact["notify"] = res == {"acked": [["client.watcher",
+                                                 cookie]],
+                                      "missed": []} \
+                and got_notes == [b"chip-smoke"]
+            healthy = count_launches()
+            svc_healthy = service_growth(everyone, svc0)
+            snap = {"data": snapshot(stores, data_id),
+                    "meta": snapshot(stores, meta_id, omap=True)}
+            logs = {"data": pg_logs(mon, stores, data_id),
+                    "meta": pg_logs(mon, stores, meta_id)}
+            # one non-primary OSD holding data shards of the objects'
+            # stripes killed and marked down; every object read again
+            stripes = [o for o in calls["data"]
+                       if "_multipart_" in o]
+            acting = [mon.osdmap.pg_to_acting_osds(
+                client.open_ioctx("rgw.data").object_pg(o))
+                for o in stripes]
+            primaries = {p for _a, p in acting}
+            holders: dict = {}
+            for a, _p in acting:
+                for osd in a[:K]:
+                    holders[osd] = holders.get(osd, 0) + 1
+            victim = sorted(holders, key=lambda o: (o in primaries,
+                                                    -holders[o], o))[0]
+            await osds.pop(victim).kill()
+            rc, msg = await client.mon_command({"prefix": "osd down",
+                                                "osd": victim})
+            check(rc == 0, f"osd down {victim}: {msg}")
+            await pool_active(mon, osds, data_id)
+            await pool_active(mon, osds, meta_id)
+            deg_s = [await get(s3s[0], key, "degraded get") for key in keys]
+            launches = count_launches()
+            svc = service_growth(everyone, svc0)
+            out.update({
+                "etags": etags, "victim": victim,
+                "victim_primary_of_a_stripe": victim in primaries,
+                "stripe_objects": len(stripes),
+                "launches": launches, "launches_healthy": healthy,
+                "launches_in_index_burst": index_launches,
+                "encode_service": svc, "encode_service_healthy": svc_healthy,
+                "hash_ms_16mib": hash_ms,
+                "part_s_median_trials_2_3": {
+                    k: statistics.median(v[n_parts:])
+                    for k, v in part_s.items()},
+                "seconds": {"put": put_s, "get": get_s,
+                            "get_1_down": deg_s, "ranged_get": range_s,
+                            "atomic_put_9mb": atomic_s},
+                "ms": {**cls_s, "notify_round_trip": notify_ms}})
+            return snap, logs, calls
+        finally:
+            for s3 in s3s:
+                await s3.close()
+            if watcher is not None:
+                await watcher.shutdown()
+            if fe is not None:
+                await fe.stop()
+            await osd_cluster_stop(mon, osds, client)
+
+    async def drive_twin(logs, calls):
+        mon, osds, stores, client = await osd_cluster_start("cpu")
+        try:
+            data_id = mon.osdmap.lookup_pool("rgw.data")
+            meta_id = mon.osdmap.lookup_pool("rgw.meta")
+            await pool_active(mon, osds, data_id)
+            await pool_active(mon, osds, meta_id)
+            for pool in ("data", "meta"):
+                await replay(client.open_ioctx(f"rgw.{pool}"), calls[pool],
+                             logs[pool])
+            return ({"data": snapshot(stores, data_id),
+                     "meta": snapshot(stores, meta_id, omap=True)},
+                    {"data": pg_logs(mon, stores, data_id),
+                     "meta": pg_logs(mon, stores, meta_id)})
+        finally:
+            await osd_cluster_stop(mon, osds, client)
+
+    snap, logs, calls = asyncio.run(asyncio.wait_for(drive(),
+                                                     RGW_PHASE_TIMEOUT))
+    t0 = time.perf_counter()
+    twin_snap, twin_logs = asyncio.run(asyncio.wait_for(
+        drive_twin(logs, calls), RGW_PHASE_TIMEOUT))
+    twin_s = time.perf_counter() - t0
+    diff = {pool: sorted(k for k in set(snap[pool]) | set(twin_snap[pool])
+                         if snap[pool].get(k) != twin_snap[pool].get(k))
+            for pool in ("data", "meta")}
+    same_as_twin = not any(diff.values()) and logs == twin_logs
+
+    # the kernels at the path's shapes against their plain versions: a
+    # service batch of two 4 MiB stripes (8 stripes of 64 KiB units each),
+    # one stripe, the 9 MB object's 0.58 MiB tail (2 stripes), their
+    # chunks' crcs, and a one-lost decode of one and of four stripes
+    rs_mat = rs.reed_sol_van_matrix(K, M)
+    one_lost = rs.decode_matrix(rs_mat, K, [1], [0] + list(range(2, K + 1)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 22)
+
+    def rand_dev(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    def err(a, b) -> int:
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        return int(d.max()) if d.numel() else 0
+
+    kernel_errs = {}
+    for label, (kind, mat, x) in {
+            "encode (16, 8, 65536)": ("spec", rs_mat, rand_dev(16, K, 65536)),
+            "encode (8, 8, 65536)": ("spec", rs_mat, rand_dev(8, K, 65536)),
+            "encode (2, 8, 65536)": ("spec", rs_mat, rand_dev(2, K, 65536)),
+            "decode 1 lost (8, 8, 65536)": ("gen", one_lost,
+                                            rand_dev(8, K, 65536)),
+            "decode 1 lost (32, 8, 65536)": ("gen", one_lost,
+                                             rand_dev(32, K, 65536))}.items():
+        kernel_errs[label] = err(
+            getattr(gf_kernels, f"gf_matmul_{kind}")(mat, x),
+            getattr(gf_kernels, f"gf_matmul_{kind}_plain")(mat, x))
+    for nb in (16 * K, 16 * M, 2 * (K + M)):
+        blk = rand_dev(nb, 65536)
+        kernel_errs[f"crc ({nb}, 65536)"] = err(
+            crc_kernels.crc32c_blocks(blk, 65536, 0).to(torch.int64)
+            & 0xFFFFFFFF,
+            cks.crc32c_batch(blk, 0).to(torch.int64) & 0xFFFFFFFF)
+    torch.cuda.synchronize()
+
+    launches, svc = out["launches"], out["encode_service"]
+    svc_h = out["encode_service_healthy"]
+
+    def c(key, base=None):
+        return svc.get(key, 0) - (base or {}).get(key, 0)
+    writes = c("encode_hinfo_batches") + c("shed_encode_hinfo")
+    # the degraded GETs' decodes alone: at least one launch, at most one
+    # per survivor set in each of the service's decode batches (healthy
+    # GETs decode too where the hedged first k shards to answer hold a
+    # parity shard)
+    gen_down = launches["gf_matmul_gen"] \
+        - out["launches_healthy"]["gf_matmul_gen"]
+    launches_ok = {
+        "spec": writes > 0 and launches["gf_matmul_spec"]
+        == writes + c("encode_batches") + c("shed_encode"),
+        "crc": launches["crc32c_blocks"] == 2 * writes,
+        "gen": c("decode_batches") <= launches["gf_matmul_gen"]
+        <= c("decode_requests") + c("shed_decode"),
+        "gen_1_down": gen_down >= 1
+        and c("decode_batches", svc_h) <= gen_down
+        <= c("decode_requests", svc_h) + c("shed_decode", svc_h),
+        "index_burst_none": not any(out["launches_in_index_burst"].values())}
+    secs = out["seconds"]
+    gib = OSD_PUT / (1 << 30)
+    put_med = statistics.median(secs["put"][1:])
+    get_med = statistics.median(secs["get"][1:])
+    deg_med = statistics.median(secs["get_1_down"])
+    out.update({
+        "exact": exact, "same_as_cpu_twin": same_as_twin,
+        "twin_differs_at": {p: [list(k) for k in v[:5]]
+                            for p, v in diff.items()},
+        "shard_objects": {p: len(v) for p, v in snap.items()},
+        "log_entries": {p: sum(len(e) for e in v.values())
+                        for p, v in logs.items()},
+        "twin_seconds": twin_s,
+        "kernels_vs_plain": kernel_errs, "launches_ok": launches_ok,
+        "gib_per_s": {"s3_put": gib / put_med, "get": gib / get_med,
+                      "get_1_down": gib / deg_med,
+                      "osd_path_put_below_rgw": PHASE_RESULTS.get(
+                          "osd", {}).get("put")},
+        "ranged_get_ms": secs["ranged_get"] * 1e3,
+        "seconds_in_phase": time.perf_counter() - phase_t0})
+    print(json.dumps(out))
+    check(all(exact.values()),
+          f"a gateway answer differs from the written bytes: {exact}")
+    check(out["numops_add_meta"] == 7.0,
+          f"numops add on rgw.meta: {out['numops_add_meta']}")
+    check(out["numops_add_data"] == -95,
+          "numops add on rgw.data (omap on an EC pool) did not answer"
+          f" EOPNOTSUPP: {out['numops_add_data']}")
+    check(same_as_twin, "the card's stores or pg logs differ from the CPU"
+          f" twin's: {out['twin_differs_at']}")
+    check(not any(kernel_errs.values()),
+          f"a kernel disagrees with its plain version: {kernel_errs}")
+    check(all(launches_ok.values()),
+          f"the rgw path's launches {launches} are not its encode service's"
+          f" counts {svc}: {launches_ok}")
+    return {"rgw": launches}
+
+
 def main() -> None:
     import torch
 
@@ -4243,6 +4792,11 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "osd"]:
         # phases 3i, 3j and 3k alone, after the build: no result line
         print(json.dumps({"phase_only": "osd", "launches": osd_phase(
+            torch, dev, card, wrappers)}))
+        return
+    if sys.argv[1:] == ["--phase", "rgw"]:
+        # phase 3l alone, after the build: no result line
+        print(json.dumps({"phase_only": "rgw", "launches": rgw_phase(
             torch, dev, card, wrappers)}))
         return
 
@@ -4443,6 +4997,10 @@ def main() -> None:
     # -- 3i. the OSD daemons and the RADOS client ----------------------------
     osd_launches = osd_phase(torch, dev, card, wrappers)   # and 3j, 3k
     mark("3i-3k")
+
+    # -- 3l. config 5 through the S3 gateway --------------------------------
+    rgw_launches = rgw_phase(torch, dev, card, wrappers)
+    mark("3l")
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
@@ -4451,7 +5009,8 @@ def main() -> None:
                "store": store_state["store"],
                "store_cluster": store_state["store_cluster"],
                "compute": compute_state["launches"],
-               "mon": mon_state["launches"], **osd_launches}
+               "mon": mon_state["launches"], **osd_launches,
+               **rgw_launches}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)

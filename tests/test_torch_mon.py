@@ -180,8 +180,26 @@ def test_lossy_rank0_stops_leading():
             # every ~4th frame on any mon.0 connection kills it —
             # pings still occasionally round-trip (a flap, not a death)
             cluster.mons[0].msgr.inject_socket_failures = 4
-            # let probes drag mon.0's score down and the quorum re-form
-            await asyncio.sleep(3.0)
+            # let probes drag mon.0's score down and the quorum re-form:
+            # wait, up to a bound, until both healthy mons agree on a
+            # leader other than mon.0 (a fixed 3 s was not always enough
+            # on a loaded host, where fewer frames fail in that time)
+            loop = asyncio.get_running_loop()
+            settle_by = loop.time() + 30.0
+
+            def settled() -> bool:
+                views = set()
+                for rank in (1, 2):
+                    el = cluster.mons[rank].elector
+                    if el.electing or el.leader is None:
+                        return False
+                    views.add(el.leader)
+                return len(views) == 1 and 0 not in views
+
+            while not settled():
+                assert loop.time() < settle_by, \
+                    "the healthy mons never agreed on a leader but mon.0"
+                await asyncio.sleep(0.1)
             observed = set()
             deadline = asyncio.get_running_loop().time() + 6.0
             while asyncio.get_running_loop().time() < deadline:

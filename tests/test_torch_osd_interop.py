@@ -5,8 +5,9 @@ edges of the slice, and the port's OSD process entry point, on the CPU.
   against JAX OSDs (JAX mon), and one cluster with OSDs of both packages
   in a `jerasure` 4+2 pool (the name both registries know), clients of
   both packages reading each other's bytes, healthy and degraded;
-- ops of the families the slice leaves for later answer EOPNOTSUPP
-  (omap, object classes, watch/notify, snapshot writes and reads);
+- ops of the families the port leaves for later answer EOPNOTSUPP
+  (snapshot writes and reads), and so does omap on an EC pool, as in
+  the reference; omap, object classes and watch/notify are served;
   recovery of a peer's missing object and a post-write repair run, and
   a pg_num increase after them splits the port OSDs' PGs; an OSD with
   no CUDA and no device named raises;
@@ -147,14 +148,26 @@ def test_later_families_answer_eopnotsupp():
         try:
             await cluster.client.create_replicated_pool("rep", size=2,
                                                         pg_num=8)
+            await cluster.client.create_ec_pool(
+                "ec", profile("ec_torch", 2, 1), pg_num=8)
             io = cluster.client.open_ioctx("rep")
             await io.write_full("obj", b"data")
             jerr = pkg("jax", "rados.client").RadosError
-            for call in (io.omap_set("obj", {"a": b"1"}),
-                         io.omap_get("obj"),
-                         io.execute("obj", "hello", "say_hello"),
-                         io.notify("obj", b"x"),
-                         io.watch("obj", lambda payload: None)):
+            # omap, object classes and watch/notify are served
+            await io.omap_set("obj", {"a": b"1"})
+            assert await io.omap_get("obj") == {"a": b"1"}
+            assert await io.execute("obj", "hello", "say_hello") == \
+                b"Hello, world!"
+            cookie = await io.watch("obj", lambda payload: None)
+            res = await io.notify("obj", b"x")
+            assert res["acked"] == [[cluster.client.msgr.entity_name,
+                                     cookie]]
+            await io.unwatch("obj", cookie)
+            # omap on an EC pool answers EOPNOTSUPP, as in the reference
+            eio = cluster.client.open_ioctx("ec")
+            await eio.write_full("obj", b"data")
+            for call in (eio.omap_set("obj", {"a": b"1"}),
+                         eio.omap_get("obj")):
                 with pytest.raises(jerr) as e:
                     await call
                 assert e.value.rc == tdaemon.EOPNOTSUPP
@@ -174,7 +187,7 @@ def test_later_families_answer_eopnotsupp():
             tio = cluster.new_client("torch")
             await tio.connect()
             try:
-                reply = await tio.open_ioctx("rep")._submit(
+                reply = await tio.open_ioctx("ec")._submit(
                     "obj", [OSDOp("omap_get")])
                 assert reply.rc == tdaemon.EOPNOTSUPP
             finally:
