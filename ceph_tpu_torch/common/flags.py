@@ -206,6 +206,11 @@ register("CEPH_TPU_FUSE_MIN_BYTES", None, "process",
 register("CEPH_TPU_MSR_REPAIR", "1", "process",
          "MSR regenerating repair; 0 = classic k-read rebuild")
 
+# -- store / durability -------------------------------------------------
+register("CEPH_TPU_CRASH_INJECT", "1", "process",
+         "power-cut synthesis in FaultStore kill paths (chaos "
+         "power-cut hazard lever)")
+
 # -- QoS / scheduling ---------------------------------------------------
 register("CEPH_TPU_QOS", "1", "startup",
          "per-tenant mClock classes + admission gate; 0 = one "

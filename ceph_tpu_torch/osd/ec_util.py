@@ -133,6 +133,10 @@ def encode(sinfo: StripeInfo, ec_impl, data,
         streams.setflags(write=False)
         streams = streams.reshape(k, n_stripes * chunk)
         parity = np.ascontiguousarray(ec_impl.encode_batch(streams[None])[0])
+        if parity.base is not None:
+            # a view of the codec's output tensor: own the memory, so the
+            # frozen-owner contract (buffer.is_immutable) holds
+            parity = parity.copy()
         parity.setflags(write=False)
         for i in range(n):
             if i in want:

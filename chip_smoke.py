@@ -7,7 +7,7 @@ Run from the repository root:
 
 (`python3 chip_smoke.py --phase osd` builds the kernels and runs phases 3i,
 3j and 3k alone, with their checks, and prints no result line;
-`--phase rgw` does the same for phase 3l.)
+`--phase rgw` does the same for phase 3l, `--phase persist` for 3m.)
 
 Phases; any failure exits nonzero and prints no result line:
 
@@ -282,6 +282,42 @@ Phases; any failure exits nonzero and prints no result line:
    and no launch in the ACL flips.  Times: the S3 PUT, GET healthy and
    with one OSD down in GiB/s beside 3i's PUT below RGW, the ranged GET,
    numops add on each pool and the notify round trip in ms.
+3m. Persistence in the live cluster (paths `persist` and `persist_sweep`),
+   CEPH_TPU_CRASH_INJECT armed, under one temporary directory.  (a) A fresh
+   cluster of 3i's shape, every OSD on a FaultStore on the card, an EC 8+3
+   pool (64 KiB units, 8 PGs) and a replicated one, the counts zeroed:
+   config 5's 64 MiB as 16 objects of 4 MiB, four in flight; a small
+   replicated object and its deferred overwrite on each of three OSDs
+   holding data shards; the same 16 objects again with new bytes, the first
+   of those OSDs power-cut (FaultStore.crash_powercut: un-synced writes
+   dropped) while they are in flight, and marked down once they are done
+   (ROADMAP C10); every object read
+   (acked ones as written, unacked ones as their old or new bytes); the
+   other two power-cut and down, every object read; the three revived on
+   their directories (each remount replays its WAL, each fsid unchanged),
+   wait for clean; every stored shard and hinfo against a device="cpu"
+   codec's encode; deep scrub of every PG clean; one shard's byte flipped
+   by inject_bitrot, the read of it refused, scrub reporting and repairing
+   it, the read exact.  gf_matmul_spec = the encode service's whole-object
+   batches + its re-encode batches, decode batches <=
+   gf_matmul_gen <= decode requests, crc32c_blocks >= 2 x the whole-object
+   batches + the stores' checksum calls of 8 or more blocks (counted at
+   common/checksummer._calc_values).  (b) CrashSweep on the card over
+   default_workload(24, seed 0): no violation, its trace equal to a
+   device="cpu" sweep's, crc launches in the image checks; BrokenBlockStore
+   and BrokenCommitStore caught.  (c) `python -m ceph_tpu_torch.tools.vstart
+   --mons 1 --osds 12`: 12 TPUStore OSD processes on the card; through `python
+   -m ceph_tpu_torch.tools.rados`: an EC 8+3 pool (mkpool --ec-profile), a
+   64 MiB put and get, bench 5 write and seq (4 MiB, 16 threads), bench 5 seq
+   --tenants 8 (read=0.7,write=0.3) at half the seq rate, scan gf_fold with
+   and without CEPH_TPU_COMPUTE; one OSD process holding data shards
+   SIGKILLed (a process kill, not a power cut) and marked down, the get
+   exact; the OSD restarted on its store directory, the cluster clean (every
+   PG active on its primary, asked over the wire), the get exact; the
+   restarted OSD's perf dump through `rados tell` (journal_replays), the
+   others' over a client, every EC primary with encode-service batches, no
+   csum read failure, nvidia-smi listing every OSD process; vstart --stop.
+   No new kernel library may appear in the build directory during 3m.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -298,10 +334,12 @@ Phases; any failure exits nonzero and prints no result line:
    against its plain version, and the placement kernel at phase 3c's.
    Every kernels-line row carries its launches per path (codec, crushtool,
    osdmap, cluster, codecs, store, store_cluster, compute, mon, osd,
-   recovery, recovery_msr, split, osd_compute, rgw) and their sum;
+   recovery, recovery_msr, split, osd_compute, rgw, persist, persist_sweep)
+   and their sum;
    bloom_positions' row is timed at the tier's geometry and 65536 hashes.
 
-The line before the last is {"kernels": [...]}; the last is
+The line before the last is {"kernels": [...]}, the one before it each
+phase's wall seconds ({"phase_seconds": {...}}); the last is
 {"ok": true, "device": {...}}.  The card's name and power limit, as
 nvidia-smi reports them, are printed on an earlier line.
 """
@@ -2879,6 +2917,44 @@ async def pool_active(mon, osds, pool_id):
     fail(f"pool {pool_id} never went active")
 
 
+async def wait_clean(mon, osds, timeout: float = OSD_PHASE_TIMEOUT) -> float:
+    """Every PG of every pool active and found on its live primary, every
+    live OSD at the mon's epoch; returns the seconds it took."""
+    import asyncio
+
+    from ceph_tpu_torch.osd.osdmap import PgId
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        epoch = mon.osdmap.epoch
+        ok = all(o.osdmap is not None and o.osdmap.epoch >= epoch
+                 for o in osds.values())
+        for pool in mon.osdmap.pools.values():
+            for ps in range(pool.pg_num if ok else 0):
+                pg = PgId(pool.id, ps)
+                _a, primary = mon.osdmap.pg_to_acting_osds(pg)
+                st = osds[primary].pgs.get(pg) if primary in osds else None
+                ok = ok and st is not None and st.state == "active" \
+                    and not st.unfound
+        if ok:
+            return time.perf_counter() - t0
+        await asyncio.sleep(0.05)
+    fail("the cluster never went clean")
+
+
+def data_shard_victims(osdmap, io, names, n: int) -> list:
+    """`n` OSDs holding data shards of the objects `names`: primaries of
+    none of them first, then the most data shards."""
+    acting = [osdmap.pg_to_acting_osds(io.object_pg(o)) for o in names]
+    primaries = {p for _a, p in acting}
+    holders: dict = {}
+    for a, _p in acting:
+        for osd in a[:K]:
+            holders[osd] = holders.get(osd, 0) + 1
+    return sorted(holders, key=lambda o: (o in primaries, -holders[o],
+                                          o))[:n]
+
+
 def pg_logs(mon, stores, pool_id):
     """Each PG's log entries (oid, op, version) in order, from its
     primary's store: the order the concurrent writes took."""
@@ -3024,26 +3100,6 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     msr_objs = {f"msr.{i}": np.random.default_rng(SEED + 12 + i).bytes(
         OSD_OBJECT) for i in range(RECOVERY_MSR_OBJECTS)}
     tname = "traced.0"
-
-    async def wait_clean(mon, osds):
-        """Every PG of every pool active and found on its live primary,
-        every live OSD at the mon's epoch."""
-        for _ in range(int(OSD_PHASE_TIMEOUT / 0.05)):
-            epoch = mon.osdmap.epoch
-            ok = all(o.osdmap is not None and o.osdmap.epoch >= epoch
-                     for o in osds.values())
-            for pool in mon.osdmap.pools.values():
-                for ps in range(pool.pg_num if ok else 0):
-                    pg = PgId(pool.id, ps)
-                    _a, primary = mon.osdmap.pg_to_acting_osds(pg)
-                    st = osds[primary].pgs.get(pg) \
-                        if primary in osds else None
-                    ok = ok and st is not None and \
-                        st.state == "active" and not st.unfound
-            if ok:
-                return
-            await asyncio.sleep(0.05)
-        fail("the cluster never went clean")
 
     def tallies(everyone):
         """Per daemon object (a revived OSD is a new one): its perf
@@ -4552,16 +4608,10 @@ def rgw_phase(torch, dev, card: str, wrappers: dict) -> dict:
             # stripes killed and marked down; every object read again
             stripes = [o for o in calls["data"]
                        if "_multipart_" in o]
-            acting = [mon.osdmap.pg_to_acting_osds(
-                client.open_ioctx("rgw.data").object_pg(o))
-                for o in stripes]
-            primaries = {p for _a, p in acting}
-            holders: dict = {}
-            for a, _p in acting:
-                for osd in a[:K]:
-                    holders[osd] = holders.get(osd, 0) + 1
-            victim = sorted(holders, key=lambda o: (o in primaries,
-                                                    -holders[o], o))[0]
+            dio = client.open_ioctx("rgw.data")
+            primaries = {mon.osdmap.pg_to_acting_osds(dio.object_pg(o))[1]
+                         for o in stripes}
+            victim = data_shard_victims(mon.osdmap, dio, stripes, 1)[0]
             await osds.pop(victim).kill()
             rc, msg = await client.mon_command({"prefix": "osd down",
                                                 "osd": victim})
@@ -4721,6 +4771,803 @@ def rgw_phase(torch, dev, card: str, wrappers: dict) -> dict:
     return {"rgw": launches}
 
 
+# -- phase 3m: persistence in the live cluster -----------------------------
+
+# (a) a fresh cluster of 3i's shape on FaultStores on the card: config 5's
+# 64 MiB as 16 objects of 4 MiB (four in flight, one trial), power cuts of
+# three OSDs holding data shards (one while a second batch of writes is in
+# flight), revives on their directories, convergence, deep scrub, bit rot;
+# (b) the crash sweep on the card; (c) real processes: vstart's TPUStore OSDs
+# on the card, the rados CLI, one OSD process SIGKILLed and restarted
+PERSIST_POOL, PERSIST_META = "persist.data", "persist.meta"
+PERSIST_PGS = 8
+PERSIST_WAL_BYTES = 16 << 10    # a replicated object a victim holds
+PERSIST_WAL_EDIT = 200          # its small overwrite: a deferred WAL entry
+PERSIST_TIMEOUT = 300.0
+SWEEP_TXNS = 24
+VSTART_OSDS = 12
+VSTART_BENCH_S = 5
+VSTART_BENCH_THREADS = 16
+VSTART_TENANTS = 8
+VSTART_TENANT_OBJECTS = 16
+VSTART_SCAN_BENCH_OBJECTS = 8   # bench objects scanned beside the 64 MiB one
+# the least card memory an OSD process's CUDA context adds (a context with
+# the port's kernels loaded takes several hundred MiB on an H100)
+OSD_CONTEXT_MIB = 200
+
+
+def card_memory_used_mib() -> float:
+    """The card's memory in use, all processes (nvidia-smi)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+
+
+def holds_the_card(pid: int) -> bool:
+    """True when the process has a GPU device node (/dev/nvidiaN) open: it
+    initialized CUDA on the card.  (nvidia-smi cannot map the processes of
+    a PID namespace to their own pids.)"""
+    import os
+    import re
+
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if re.fullmatch(r"/dev/nvidia\d+",
+                            os.readlink(f"/proc/{pid}/fd/{fd}")):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def csum_counter():
+    """Count the stores' crc32c checksum calls that go to the card (8 or
+    more blocks, as common/checksummer._calc_values decides), from any
+    thread, without changing the store: returns (counts, restore)."""
+    import threading
+
+    from ceph_tpu_torch.common import checksummer as csum_mod
+
+    real = csum_mod._calc_values
+    lock = threading.Lock()
+    counts = {"device_calls": 0}
+    crcs = (csum_mod.CSUM_CRC32C, csum_mod.CSUM_CRC32C_16,
+            csum_mod.CSUM_CRC32C_8)
+
+    def counted(csum_type, blocks, block_size, init_value, device):
+        if (device.type == "cuda" and csum_type in crcs
+                and blocks.size // block_size >= csum_mod.MIN_DEVICE_BLOCKS
+                and block_size % 4 == 0):
+            with lock:
+                counts["device_calls"] += 1
+        return real(csum_type, blocks, block_size, init_value, device)
+
+    csum_mod._calc_values = counted
+
+    def restore():
+        csum_mod._calc_values = real
+    return counts, restore
+
+
+async def wal_entries(io, osdmap, victims, prefix: str) -> list:
+    """Give each victim a pending deferred-WAL entry: a small replicated
+    object it holds, then a small overwrite of it (journaled in the KV
+    commit, applied to the block file after it, trimmed only in batches).
+    Returns the objects and their bytes."""
+    out = []
+    for v in victims:
+        i = 0
+        while v not in osdmap.pg_to_acting_osds(
+                io.object_pg(f"{prefix}.{v}.{i}"))[0]:
+            i += 1
+        name = f"{prefix}.{v}.{i}"
+        data = bytearray(np.random.default_rng(SEED + 30 + v).bytes(
+            PERSIST_WAL_BYTES))
+        await io.write_full(name, bytes(data))
+        edit = np.random.default_rng(SEED + 31 + v).bytes(PERSIST_WAL_EDIT)
+        await io.write(name, edit, 1000)
+        data[1000:1000 + len(edit)] = edit
+        out.append((name, bytes(data)))
+    return out
+
+
+def persist_powercut(torch, dev, card: str, wrappers: dict,
+                     workdir: str) -> dict:
+    """Phase 3m (a): power cuts in a live cluster of FaultStores on the
+    card.  Returns the path's launches, its counts and its numbers."""
+    import asyncio
+    import os
+
+    from ceph_tpu_torch.ec.registry import create_erasure_code
+    from ceph_tpu_torch.mon import MonDaemon
+    from ceph_tpu_torch.os import ObjectId
+    from ceph_tpu_torch.os.faultstore import FaultStore, crash_inject_enabled
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.daemon import OSDDaemon
+    from ceph_tpu_torch.osd.osdmap import PgId
+    from ceph_tpu_torch.rados.client import RadosClient, RadosError
+    from ceph_tpu_torch.rados.embedded import HINFO_ATTR, shard_collection
+
+    n_objs, per_part = OSD_PUT // OSD_OBJECT, OSD_PART // OSD_OBJECT
+    names = [f"pc.{j}" for j in range(n_objs)]
+    old = np.random.default_rng(SEED + 32).bytes(OSD_PUT)
+    new = np.random.default_rng(SEED + 33).bytes(OSD_PUT)
+
+    def piece(buf, j):
+        return memoryview(buf)[j * OSD_OBJECT:(j + 1) * OSD_OBJECT]
+    compaction = {"calls": 0, "seconds": 0.0, "events_folded": 0}
+    out: dict = {"phase": "persist_powercut", "card": card}
+
+    def fault_store(i):
+        store = FaultStore(os.path.join(workdir, f"osd.{i}"), device=dev)
+        inner = store.compact_trace
+
+        def timed_compact():
+            before = len(store.crashlog.events)
+            t0 = time.perf_counter()
+            inner()
+            compaction["seconds"] += time.perf_counter() - t0
+            compaction["calls"] += 1
+            compaction["events_folded"] += before - len(store.crashlog.events)
+        store.compact_trace = timed_compact
+        return store
+
+    async def put_all(io, buf, acked):
+        """The 64 MiB in four parts in flight, each part's four 4 MiB
+        objects in order; records each object's ack (True) or error."""
+        async def part(p):
+            for i in range(per_part):
+                j = p * per_part + i
+                try:
+                    await io.write_full(names[j], piece(buf, j))
+                    acked[j] = True
+                except RadosError:
+                    acked[j] = False
+        await asyncio.gather(*(part(p) for p in range(n_objs // per_part)))
+
+    async def get_all(io):
+        async def part(p):
+            return [await io.read(names[p * per_part + i])
+                    for i in range(per_part)]
+        got = await asyncio.gather(*(part(p)
+                                     for p in range(n_objs // per_part)))
+        return [b for g in got for b in g]
+
+    async def drive():
+        mon = MonDaemon(OSD_OSDS, osds_per_host=OSD_OSDS_PER_HOST,
+                        config=dict(OSD_MON_CONFIG))
+        addr = await mon.start()
+        stores, osds, fsids, everyone = {}, {}, {}, []
+        client = None
+        try:
+            for i in range(OSD_OSDS):
+                stores[i] = fault_store(i)
+                stores[i].mkfs()
+                stores[i].mount()
+                fsids[i] = stores[i].fsid
+                osds[i] = OSDDaemon(i, [addr], store=stores[i],
+                                    config=dict(OSD_CONFIG), device=dev)
+                await osds[i].start()
+                everyone.append(osds[i])
+            check(all(o.device.type == dev.type for o in osds.values())
+                  and all(s.device.type == dev.type
+                          for s in stores.values()),
+                  "an OSD or its store is not on the card")
+            client = RadosClient([addr])
+            await client.connect()
+            await client.create_ec_pool(PERSIST_POOL, dict(OSD_PROFILE),
+                                        pg_num=PERSIST_PGS)
+            await client.create_replicated_pool(PERSIST_META, size=3,
+                                                pg_num=PERSIST_PGS)
+            await wait_clean(mon, osds)
+            dio = client.open_ioctx(PERSIST_POOL)
+            mio = client.open_ioctx(PERSIST_META)
+
+            async def power_cut(v):
+                """Kill the daemon, then cut the power under its store:
+                its directory becomes the image a machine that lost
+                power would leave (un-synced block writes dropped, KV
+                at its last sync commit)."""
+                await osds.pop(v).kill()
+                t0 = time.perf_counter()
+                stores.pop(v).crash_powercut()
+                out.setdefault("powercut_s", []).append(
+                    time.perf_counter() - t0)
+
+            async def mark_down(v):
+                rc, msg = await client.mon_command({"prefix": "osd down",
+                                                    "osd": v})
+                check(rc == 0, f"osd down {v}: {msg}")
+
+            # the path, its counts zeroed just before it
+            for fn in wrappers.values():
+                fn.launches = 0
+            svc0 = [service_counts(o) for o in everyone]
+            perf0 = [dict(o.perf) for o in everyone]
+            csum, restore = csum_counter()
+            try:
+                # 1. the first batch
+                acked1: dict = {}
+                t0 = time.perf_counter()
+                await put_all(dio, old, acked1)
+                put_s = time.perf_counter() - t0
+                check(all(acked1.get(j) for j in range(n_objs)),
+                      f"a write of the first batch failed: {acked1}")
+                victims = data_shard_victims(mon.osdmap, dio, names, 3)
+                wal = await wal_entries(mio, mon.osdmap, victims, "wal")
+                # 2. the second batch (new bytes, same names) with the
+                # first victim's power cut while it is in flight; the
+                # mon learns of it once the batch is done, as it would
+                # past the heartbeat grace (an `osd down` racing the
+                # batch's sub-writes can leave an object unfound while
+                # the victim is down: ROADMAP C10)
+                acked2: dict = {}
+                batch = asyncio.ensure_future(put_all(dio, new, acked2))
+                while not acked2 and not batch.done():
+                    await asyncio.sleep(0.002)
+                in_flight_at_cut = n_objs - len(acked2)
+                await power_cut(victims[0])
+                await batch
+                await mark_down(victims[0])
+                state, model_ok = {}, {}
+                got = await get_all(dio)
+                for j in range(n_objs):
+                    legal = [bytes(piece(new, j))] if acked2.get(j) else \
+                        [bytes(piece(old, j)), bytes(piece(new, j))]
+                    model_ok[j] = got[j] in legal
+                    state[j] = got[j]
+                # 3. two more power cuts; every object read with three down
+                for v in victims[1:]:
+                    await power_cut(v)
+                    await mark_down(v)
+                t0 = time.perf_counter()
+                got = await get_all(dio)
+                degraded_s = time.perf_counter() - t0
+                exact3 = [got[j] == state[j] for j in range(n_objs)]
+                # 4. revive the three on their directories
+                t0 = time.perf_counter()
+                revived = {}
+                for v in victims:
+                    store = fault_store(v)
+                    store.mount()        # the deferred WAL replays here
+                    stores[v] = store
+                    revived[v] = {"fsid_same": store.fsid == fsids[v],
+                                  "journal_replays":
+                                      store.perf["journal_replays"],
+                                  "replayed_bytes":
+                                      store.perf["journal_replayed_bytes"]}
+                    osds[v] = OSDDaemon(v, [addr], store=store,
+                                        config=dict(OSD_CONFIG), device=dev)
+                    await osds[v].start()
+                    everyone.append(osds[v])
+                await wait_clean(mon, osds)
+                clean_s = time.perf_counter() - t0
+                wal_ok = [await mio.read(n) == d for n, d in wal]
+                # 5. convergence: every stored shard against the CPU
+                # codec's encode of the object's bytes, hinfo included
+                cpu_codec = create_erasure_code({**OSD_PROFILE,
+                                                 "device": "cpu"})
+                cpu_sinfo = ec_util.StripeInfo(K, K * 65536)
+                bad_shards, shards_checked = [], 0
+                for j, name in enumerate(names):
+                    shards, h, _c = ec_util.encode_with_hinfo(
+                        cpu_sinfo, cpu_codec, state[j], range(K + M))
+                    pg = dio.object_pg(name)
+                    acting, _p = mon.osdmap.pg_to_acting_osds(pg)
+                    for idx, osd in enumerate(acting):
+                        cid = shard_collection(pg, idx)
+                        try:
+                            data = stores[osd].read(cid, ObjectId(name))
+                            attrs = stores[osd].getattrs(cid,
+                                                         ObjectId(name))
+                            ok = bytes(data) == bytes(shards[idx]) and \
+                                json.loads(attrs[HINFO_ATTR]) == h.to_dict()
+                        except (KeyError, IOError):
+                            ok = False
+                        shards_checked += 1
+                        if not ok:
+                            bad_shards.append([osd, cid, name])
+                # 6. deep scrub of every PG on its primary
+                pool = mon.osdmap.pools[mon.osdmap.lookup_pool(
+                    PERSIST_POOL)]
+
+                async def scrub(ps):
+                    pg = PgId(pool.id, ps)
+                    _a, primary = mon.osdmap.pg_to_acting_osds(pg)
+                    prim = osds[primary]
+                    return await prim.scrub_pg(
+                        prim.pgs[pg], prim.osdmap.pools[pool.id])
+                t0 = time.perf_counter()
+                scrubs = [await scrub(ps) for ps in range(pool.pg_num)]
+                scrub_s = time.perf_counter() - t0
+                # 7. bit rot in one non-primary data shard
+                name = names[0]
+                pg = dio.object_pg(name)
+                acting, primary = mon.osdmap.pg_to_acting_osds(pg)
+                idx, rot_osd = next((i, o) for i, o in enumerate(acting[:K])
+                                    if o != primary)
+                cid = shard_collection(pg, idx)
+                stores[rot_osd].inject_bitrot(cid, ObjectId(name), byte=77)
+                try:
+                    stores[rot_osd].read(cid, ObjectId(name))
+                    rot_caught = False
+                except IOError:
+                    rot_caught = True
+                rot_run = await scrub(pg.ps)
+                shards, _h, _c = ec_util.encode_with_hinfo(
+                    cpu_sinfo, cpu_codec, state[0], range(K + M))
+                rot_fixed = bytes(stores[rot_osd].read(
+                    cid, ObjectId(name))) == bytes(shards[idx])
+                rot_read = await dio.read(name) == state[0]
+                launches = {n: fn.launches for n, fn in wrappers.items()}
+                device_csums = csum["device_calls"]
+            finally:
+                restore()
+            svc: dict = {}
+            perf: dict = {}
+            for n_o, o in enumerate(everyone):
+                for k, v in service_counts(o).items():
+                    base = svc0[n_o].get(k, 0) if n_o < len(svc0) else 0
+                    svc[k] = svc.get(k, 0) + v - base
+                for k, v in o.perf.items():
+                    if isinstance(v, (int, float)):
+                        base = perf0[n_o].get(k, 0) \
+                            if n_o < len(perf0) else 0
+                        perf[k] = perf.get(k, 0) + v - base
+            # the trace's fold, forced once on every live store
+            compacted = dict(compaction)
+            t0 = time.perf_counter()
+            for s in stores.values():
+                s.compact_trace()
+            forced_s = time.perf_counter() - t0
+            base_bytes = sum(len(s.base_block) for s in stores.values())
+            out.update({
+                "victims": victims, "crash_inject": crash_inject_enabled(),
+                "in_flight_at_first_cut": in_flight_at_cut,
+                "acked_in_second_batch": sum(map(bool, acked2.values())),
+                "model_ok": all(model_ok.values()),
+                "exact_3_down": all(exact3), "revived": revived,
+                "wal_reads_exact": all(wal_ok),
+                "shards_checked": shards_checked,
+                "bad_shards": bad_shards[:5], "scrubs": scrubs,
+                "bitrot": {"osd": rot_osd, "caught_on_read": rot_caught,
+                           "scrub": rot_run, "shard_fixed": rot_fixed,
+                           "read_exact": rot_read},
+                "launches": launches, "encode_service": svc,
+                "perf": {k: perf.get(k, 0) for k in (
+                    "encode_dispatches", "decode_dispatches",
+                    "recovery_installs", "recovery_bytes_repaired")},
+                "store_device_csum_calls": device_csums,
+                "trace_compaction": {**compacted,
+                                     "forced_once_s": forced_s,
+                                     "base_image_bytes": base_bytes},
+                "seconds": {"put": put_s, "read_3_down": degraded_s,
+                            "revive_to_clean": clean_s,
+                            "deep_scrub": scrub_s}})
+        finally:
+            if client is not None:
+                await client.shutdown()
+            for o in osds.values():
+                await o.stop()
+            await mon.shutdown()
+
+    t0 = time.perf_counter()
+    asyncio.run(asyncio.wait_for(drive(), 2 * PERSIST_TIMEOUT))
+    launches, svc = out["launches"], out["encode_service"]
+    writes = svc.get("encode_hinfo_batches", 0) + \
+        svc.get("shed_encode_hinfo", 0)
+    crc_want = 2 * writes + out["store_device_csum_calls"]
+    out["launches_ok"] = {
+        # one fused encode a service batch of whole-object writes, one a
+        # batch of the re-encodes (recovery, the scrub and post-write
+        # repairs: concurrent ones share a batch)
+        "spec": writes > 0 and launches["gf_matmul_spec"]
+        == writes + svc.get("encode_batches", 0) + svc.get("shed_encode",
+                                                          0),
+        # a decode launch per survivor set in each decode batch of the
+        # degraded reads, the rebuilds and the scrub repair
+        "gen": launches["gf_matmul_gen"] >= 1
+        and svc.get("decode_batches", 0) <= launches["gf_matmul_gen"]
+        <= svc.get("decode_requests", 0) + svc.get("shed_decode", 0),
+        # two hinfo crc launches a fused batch, and one a store checksum
+        # call of 8 or more blocks (each shard write and verified read)
+        "crc": launches["crc32c_blocks"] >= crc_want
+        and out["store_device_csum_calls"] > 0}
+    out["crc_equals_its_count"] = launches["crc32c_blocks"] == crc_want
+    gib = OSD_PUT / (1 << 30)
+    secs = out["seconds"]
+    out.update({"gib_per_s": {"put": gib / secs["put"],
+                              "read_3_down": gib / secs["read_3_down"]},
+                "seconds_in_part": time.perf_counter() - t0})
+    print(json.dumps(out))
+    check(out["crash_inject"], "CEPH_TPU_CRASH_INJECT is not armed")
+    check(out["model_ok"], "after the power cut an object reads back as"
+          " neither its acked bytes nor a legal unacked state")
+    check(out["exact_3_down"], "a read with three OSDs power-cut differs")
+    check(all(r["fsid_same"] and r["journal_replays"] >= 1
+              for r in out["revived"].values()),
+          f"a revived store is not its own disk or replayed no WAL:"
+          f" {out['revived']}")
+    check(out["wal_reads_exact"], "a WAL-replayed object differs")
+    check(not out["bad_shards"], "shards did not converge to the CPU"
+          f" encode: {out['bad_shards']}")
+    check(all(s["errors"] == 0 for s in out["scrubs"]),
+          f"deep scrub found errors: {out['scrubs']}")
+    rot = out["bitrot"]
+    check(rot["caught_on_read"] and rot["scrub"]["errors"] >= 1
+          and rot["scrub"]["repaired"] >= 1 and rot["shard_fixed"]
+          and rot["read_exact"], f"bit rot not caught and repaired: {rot}")
+    check(all(out["launches_ok"].values()),
+          f"the persist path's launches {launches} are not its counts"
+          f" (service {svc}, daemons {out['perf']}, store checksums"
+          f" {out['store_device_csum_calls']}): {out['launches_ok']}")
+    return out
+
+
+def persist_sweep(torch, dev, card: str, wrappers: dict,
+                  workdir: str) -> dict:
+    """Phase 3m (b): CrashSweep on the card over the default workload, its
+    trace against a device="cpu" sweep's, the broken stores caught."""
+    import os
+
+    from ceph_tpu_torch.os import faultstore as fs
+
+    crc = wrappers["crc32c_blocks"]
+    for fn in wrappers.values():
+        fn.launches = 0
+    sweep = fs.CrashSweep(os.path.join(workdir, "sweep"), device=dev)
+    in_checks = {"launches": 0, "images": 0}
+    inner = sweep.check_image
+
+    def counted_check(img, cut):
+        before = crc.launches
+        try:
+            inner(img, cut)
+        finally:
+            in_checks["launches"] += crc.launches - before
+            in_checks["images"] += 1
+    sweep.check_image = counted_check
+    t0 = time.perf_counter()
+    rep = sweep.run(fs.default_workload, txns=SWEEP_TXNS, seed=0)
+    sweep_s = time.perf_counter() - t0
+    twin = fs.CrashSweep(os.path.join(workdir, "sweep_cpu"), device="cpu")
+    twin_rep = twin.run(fs.default_workload, txns=SWEEP_TXNS, seed=0)
+    broken = {}
+    for cls in (fs.BrokenBlockStore, fs.BrokenCommitStore):
+        r = fs.CrashSweep(os.path.join(workdir, cls.__name__),
+                          store_cls=cls, device=dev).run(
+            txns=8, seed=1, double_crash=False)
+        broken[cls.__name__] = r["violations"]
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    out = {"phase": "persist_sweep", "card": card,
+           "report": {k: v for k, v in rep.items() if k != "violations"},
+           "violations": rep["violations"][:5],
+           "trace_equals_cpu_sweep": sweep.events == twin.events
+           and sweep.base_block == twin.base_block,
+           "report_equals_cpu_sweep": rep == twin_rep,
+           "images_checked": in_checks["images"],
+           "crc_launches_in_image_checks": in_checks["launches"],
+           "broken_store_violations": {k: v[:2] for k, v in broken.items()},
+           "launches": launches,
+           "seconds": sweep_s}
+    print(json.dumps(out))
+    check(not rep["violations"], f"sweep violations: {rep['violations'][:3]}")
+    check(out["trace_equals_cpu_sweep"] and out["report_equals_cpu_sweep"],
+          "the card's sweep recorded another trace than the CPU sweep")
+    check(in_checks["launches"] > 0, "no crc launch in the image checks")
+    check(bool(broken["BrokenBlockStore"]),
+          "the sweep passed a store without its block fsync")
+    check(any("not durable" in v for v in broken["BrokenCommitStore"]),
+          "the sweep passed a store without its sync commit")
+    return out
+
+
+async def pgs_active(client, pg_type) -> bool:
+    """Every PG of every pool active on its primary, asked over the wire
+    (`dump_pgs`): the clean test for OSDs in other processes."""
+    m = client.osdmap
+    for pool in m.pools.values():
+        prims: dict = {}
+        for ps in range(pool.pg_num):
+            pg = pg_type(pool.id, ps)
+            prims.setdefault(m.pg_to_acting_osds(pg)[1], []).append(str(pg))
+        for osd, pgs in prims.items():
+            if osd < 0 or not m.is_up(osd):
+                return False
+            rc, st = await client.osd_command(osd, {"prefix": "dump_pgs"})
+            if rc != 0 or any(st.get(p, {}).get("state") != "active"
+                              for p in pgs):
+                return False
+    return True
+
+
+def persist_processes(torch, dev, card: str, workdir: str) -> dict:
+    """Phase 3m (c): real processes.  vstart starts one mon and 12
+    TPUStore OSD processes on the card; the rados CLI makes an EC 8+3
+    pool, puts and gets config 5's 64 MiB, benches (closed loop, write
+    and seq; open loop, 8 tenants), scans gf_fold with and without the
+    pushdown; one OSD process holding data shards is SIGKILLed (a process
+    kill: the OS keeps every write it was handed) and marked down, the get
+    is exact; it restarts on its store, the cluster goes clean, the get is
+    exact again; perf dumps, nvidia-smi's process list; vstart --stop."""
+    import asyncio
+    import concurrent.futures
+    import glob
+    import os
+    import signal
+
+    from ceph_tpu_torch.ops import _build
+    from ceph_tpu_torch.osd.osdmap import PgId
+    from ceph_tpu_torch.rados.client import RadosClient
+
+    data_dir = os.path.join(workdir, "vstart")
+    libs0 = sorted(glob.glob(str(_build.BUILD_DIR / "*.so")))
+    out: dict = {"phase": "persist_processes", "card": card,
+                 "kill": "SIGKILL of the process (not a power cut)"}
+    secs: dict = {}
+    exact: dict = {}
+    py = sys.executable
+    mon = ""
+    # the daemons' and the CLI's device: the card unless the phase is given
+    # another (a CPU rehearsal)
+    dev_args = [] if dev.type == "cuda" else ["--device", dev.type]
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def tool(args, env_extra=None, timeout=240):
+        env = dict(os.environ)
+        env.update(env_extra or {})
+        t0 = time.perf_counter()
+        r = subprocess.run([py, "-m", *args], capture_output=True,
+                           timeout=timeout, env=env, cwd=root)
+        return r, time.perf_counter() - t0
+
+    def rados(*args, env_extra=None):
+        r, s = tool(["ceph_tpu_torch.tools.rados", *dev_args, "-m", mon,
+                     *args], env_extra)
+        check(r.returncode == 0, f"rados {' '.join(args[:4])}: rc"
+              f" {r.returncode} {r.stderr[-1500:]!r}")
+        return r.stdout, s
+
+    def get_exact(label, big, dst):
+        _o, secs[label] = rados("-p", PERSIST_POOL, "get", "big", dst)
+        with open(dst, "rb") as f:
+            exact[label] = f.read() == big
+        os.remove(dst)
+
+    own_mib = torch.cuda.memory_reserved(dev) / (1 << 20) \
+        if dev.type == "cuda" else 0.0
+    mem0 = card_memory_used_mib() - own_mib if dev.type == "cuda" else 0.0
+    up, secs["vstart"] = tool(["ceph_tpu_torch.tools.vstart", "--data-dir",
+                               data_dir, "--mons", "1", "--osds",
+                               str(VSTART_OSDS), *dev_args])
+    check(up.returncode == 0, f"vstart: {up.stderr[-2000:]!r}")
+    mon = up.stdout.decode().split("export CEPH_TPU_MON=")[1].split()[0]
+    pids_file = os.path.join(data_dir, "vstart.pids")
+    with open(pids_file) as f:
+        pids = [int(p) for p in f.read().split()]
+    restarted = None
+    try:
+        big = np.random.default_rng(SEED + 40).bytes(OSD_PUT)
+        src, dst = os.path.join(data_dir, "big.in"), \
+            os.path.join(data_dir, "big.out")
+        with open(src, "wb") as f:
+            f.write(big)
+        rados("mkpool", PERSIST_POOL, "--pg-num", str(PERSIST_PGS),
+              "--ec-profile", json.dumps(OSD_PROFILE))
+        _o, secs["put"] = rados("-p", PERSIST_POOL, "put", "big", src)
+        get_exact("get", big, dst)
+        bench = {}
+        for mode in ("write", "seq"):
+            o, _s = rados("-p", PERSIST_POOL, "bench", str(VSTART_BENCH_S),
+                          mode, "-b", str(OSD_OBJECT), "-t",
+                          str(VSTART_BENCH_THREADS))
+            bench[mode] = json.loads(o)
+        # the open loop at half the closed-loop seq rate, over 8 tenants
+        rate = 0.5 * bench["seq"]["ops_per_sec"] / VSTART_TENANTS
+        o, _s = rados("-p", PERSIST_POOL, "bench", str(VSTART_BENCH_S),
+                      "seq", "--tenants", str(VSTART_TENANTS),
+                      "--arrival-rate", f"{rate:.3f}", "--blend",
+                      "read=0.7,write=0.3", "-b", str(OSD_OBJECT),
+                      "--objects", str(VSTART_TENANT_OBJECTS))
+        bench["tenants"] = json.loads(o)
+        out["tenant_rate_per_s"] = rate
+        scan_objs = ["big"] + [f"bench_{s}_0" for s in
+                               range(VSTART_SCAN_BENCH_OBJECTS)]
+        # the pushdown scan and its read-then-compute twin, side by side
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            scans = [pool.submit(rados, "-p", PERSIST_POOL, "scan",
+                                 "gf_fold", *scan_objs, env_extra=env)
+                     for env in (None, {"CEPH_TPU_COMPUTE": "0"})]
+            (o, _s), (o_rtc, _s2) = [f.result() for f in scans]
+        pushdown = json.loads(o)
+        exact["scan"] = pushdown["results"] == json.loads(o_rtc)["results"] \
+            and not pushdown["errors"] \
+            and len(pushdown["results"]) == len(scan_objs)
+
+        async def drive():
+            nonlocal restarted
+            client = RadosClient(mon, device=dev)
+            await client.connect()
+            try:
+                io = client.open_ioctx(PERSIST_POOL)
+                t0 = time.perf_counter()
+                res, errs = await io.compute("gf_fold", scan_objs)
+                secs["scan_in_process"] = time.perf_counter() - t0
+                exact["scan_in_process"] = not errs and {
+                    o: bytes(v).hex() for o, v in res.items()} == \
+                    pushdown["results"]
+                await client.create_replicated_pool(PERSIST_META, size=3,
+                                                    pg_num=PERSIST_PGS)
+                victim = data_shard_victims(client.osdmap, io, ["big"],
+                                            1)[0]
+                mio = client.open_ioctx(PERSIST_META)
+                wal = await wal_entries(mio, client.osdmap, [victim], "wal")
+                os.kill(pids[1 + victim], signal.SIGKILL)
+                rc, msg = await client.mon_command({"prefix": "osd down",
+                                                    "osd": victim})
+                check(rc == 0, f"osd down {victim}: {msg}")
+                await asyncio.to_thread(get_exact, "get_1_down", big, dst)
+                # the restart on its own store directory (no --device:
+                # the card)
+                t0 = time.perf_counter()
+                restarted = subprocess.Popen(
+                    [py, "-m", "ceph_tpu_torch.osd", "--id", str(victim),
+                     "--mon", mon, "--store-path",
+                     os.path.join(data_dir, f"osd.{victim}"), *dev_args],
+                    stdout=subprocess.PIPE, cwd=root,
+                    stderr=open(os.path.join(data_dir, "restart.log"), "w"))
+                with open(pids_file, "a") as f:
+                    f.write(f" {restarted.pid}")
+                line = await asyncio.to_thread(restarted.stdout.readline)
+                check(line.startswith(b"OSD_ADDR"),
+                      f"the restarted OSD printed {line!r}")
+                clean = False
+                while not clean and \
+                        time.perf_counter() - t0 < PERSIST_TIMEOUT:
+                    await asyncio.sleep(0.2)
+                    await client.refresh_map()
+                    clean = await pgs_active(client, PgId)
+                check(clean, "the cluster never went clean after the"
+                      " restart")
+                secs["restart_to_clean"] = time.perf_counter() - t0
+                # the get and the restarted OSD's perf dump, side by side
+                _g, (o, _s) = await asyncio.gather(
+                    asyncio.to_thread(get_exact, "get_after_restart", big,
+                                      dst),
+                    asyncio.to_thread(rados, "tell", str(victim), "perf",
+                                      "dump"))
+                exact["wal_objects"] = all(
+                    [await mio.read(n) == d for n, d in wal])
+                dumps = {victim: json.loads(o)}
+                for osd in range(VSTART_OSDS):
+                    if osd != victim:
+                        rc, dumps[osd] = await client.osd_command(
+                            osd, {"prefix": "perf dump"})
+                        check(rc == 0, f"perf dump osd.{osd}")
+                ec_pool = client.osdmap.lookup_pool(PERSIST_POOL)
+                prims = {client.osdmap.pg_to_acting_osds(
+                    PgId(ec_pool, ps))[1] for ps in range(PERSIST_PGS)}
+                if dev.type == "cuda":
+                    out["card_memory_mib"] = {
+                        "before_vstart": mem0,
+                        "osds_running": card_memory_used_mib()
+                        - torch.cuda.memory_reserved(dev) / (1 << 20)}
+                return victim, dumps, prims
+            finally:
+                await client.shutdown()
+
+        victim, dumps, prims = asyncio.run(asyncio.wait_for(
+            drive(), 2 * PERSIST_TIMEOUT))
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        apps = {int(line.split(",")[0]): line.split(",")[1].strip()
+                for line in smi.stdout.splitlines() if line.strip()}
+        osd_pids = [p for i, p in enumerate(pids[1:1 + VSTART_OSDS])
+                    if i != victim] + [restarted.pid]
+        on_card = {p: holds_the_card(p) for p in osd_pids}
+        mem = out.get("card_memory_mib", {})
+        grew = mem.get("osds_running", 0.0) - mem.get("before_vstart", 0.0)
+        hinfo_batches = {
+            o: sum(p.get("batches", 0) for label, p in
+                   d["encode_service"]["profiles"].items()
+                   if label.startswith("encode_hinfo"))
+            for o, d in dumps.items()}
+        out.update({
+            "mon": mon, "victim": victim, "bench": bench,
+            "scan_objects": len(scan_objs),
+            "primaries_encode_hinfo_batches": {
+                o: hinfo_batches[o] for o in sorted(prims)},
+            "restarted_store": dumps[victim].get("store", {}),
+            "csum_read_failures": {o: d.get("store", {}).get(
+                "csum_read_failures") for o, d in sorted(dumps.items())},
+            "nvidia_smi_apps": apps, "osd_pids": osd_pids,
+            "osd_pids_listed_by_nvidia_smi": all(p in apps for p in osd_pids),
+            "osd_pids_holding_the_card": on_card,
+            "card_memory_growth_mib": grew,
+            "osd_pids_on_card": all(on_card.values())
+            and grew >= OSD_CONTEXT_MIB * len(osd_pids),
+            "mib_per_s": {"put": OSD_PUT / (1 << 20) / secs["put"],
+                          "get": OSD_PUT / (1 << 20) / secs["get"],
+                          "bench_write": bench["write"]["mib_per_sec"],
+                          "bench_seq": bench["seq"]["mib_per_sec"]},
+            "scan_gib_per_s_in_process": (OSD_PUT + VSTART_SCAN_BENCH_OBJECTS
+                                          * OSD_OBJECT) / (1 << 30)
+            / secs["scan_in_process"],
+            "tenants": {k: bench["tenants"].get(k) for k in (
+                "goodput_mib_s", "p50_ms", "p95_ms", "p99_ms", "completed",
+                "errors", "shed", "dropped", "offered")}})
+    finally:
+        down, secs["stop"] = tool(["ceph_tpu_torch.tools.vstart",
+                                   "--data-dir", data_dir, "--stop"])
+        for pid in pids + ([restarted.pid] if restarted else []):
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        if restarted is not None:
+            restarted.wait(30)
+    libs1 = sorted(glob.glob(str(_build.BUILD_DIR / "*.so")))
+    out.update({"exact": exact, "seconds": secs,
+                "new_build_libraries": sorted(set(libs1) - set(libs0))})
+    print(json.dumps(out))
+    check(down.returncode == 0, f"vstart --stop: {down.stdout!r}")
+    check(all(exact.values()), f"a CLI answer differs: {exact}")
+    check(not out["new_build_libraries"], "a process built a kernel library"
+          f" during the phase: {out['new_build_libraries']}")
+    check(out["restarted_store"].get("journal_replays", 0) >= 1,
+          f"the restarted OSD replayed no WAL: {out['restarted_store']}")
+    check(all(b > 0 for b in out["primaries_encode_hinfo_batches"].values()),
+          "a primary of the EC pool shows no encode-service batch:"
+          f" {out['primaries_encode_hinfo_batches']}")
+    check(all(v == 0 for v in out["csum_read_failures"].values()),
+          f"csum read failures: {out['csum_read_failures']}")
+    check(out["osd_pids_on_card"], "an OSD process holds no context on the"
+          f" card: {out['osd_pids_holding_the_card']}, card memory grew"
+          f" {out['card_memory_growth_mib']} MiB (nvidia-smi's processes:"
+          f" {out['nvidia_smi_apps']})")
+    check(out["tenants"]["errors"] == 0 and out["tenants"]["completed"] > 0,
+          f"the open-loop bench failed: {out['tenants']}")
+    return out
+
+
+def persist_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3m (path `persist`): (a) power cuts in a live cluster, (b)
+    the crash sweep on the card, (c) real processes through vstart and the
+    rados CLI, all under one temporary directory.  Returns the launches of
+    the paths persist ((a)) and persist_sweep ((b)); (c)'s launches run
+    in other processes and are held by their perf dumps."""
+    import os
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="ceph_tpu_torch_persist_")
+    try:
+        os.environ["CEPH_TPU_CRASH_INJECT"] = "1"
+        t0 = time.perf_counter()
+        a = persist_powercut(torch, dev, card, wrappers, workdir)
+        t1 = time.perf_counter()
+        b = persist_sweep(torch, dev, card, wrappers, workdir)
+        t2 = time.perf_counter()
+        persist_processes(torch, dev, card, workdir)
+        t3 = time.perf_counter()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(json.dumps({"phase": "persist", "card": card, "seconds": {
+        "a_powercuts": t1 - t0, "b_sweep": t2 - t1, "c_processes": t3 - t2},
+        "kill_kinds": {"a": "power cut (FaultStore.crash_powercut:"
+                       " un-synced writes dropped)",
+                       "c": "SIGKILL of an OSD process (the OS keeps"
+                       " every write it was handed)"}}))
+    return {"persist": a["launches"], "persist_sweep": b["launches"]}
+
+
 def main() -> None:
     import torch
 
@@ -4753,11 +5600,17 @@ def main() -> None:
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
     run_t0 = time.perf_counter()
+    phase_seconds: dict = {}
+    last_mark = [run_t0]
 
     def mark(phase: str) -> None:
-        """The command's seconds so far, at the end of a phase."""
+        """The command's seconds so far, at the end of a phase; the
+        phase's own wall seconds go on the phase_seconds line."""
+        now = time.perf_counter()
+        phase_seconds[phase] = now - last_mark[0]
+        last_mark[0] = now
         print(json.dumps({"phase_done": phase,
-                          "command_seconds": time.perf_counter() - run_t0}))
+                          "command_seconds": now - run_t0}))
 
     # -- 1. build ------------------------------------------------------------
     _build.load()
@@ -4781,6 +5634,7 @@ def main() -> None:
                                 .get("compress_score", "").splitlines()
                                 if "registers" in line or "spill" in line
                                 or "smem" in line]}))
+    mark("1")
 
     wrappers = {"gf_matmul_spec": gf_kernels.gf_matmul_spec,
                 "gf_matmul_gen": gf_kernels.gf_matmul_gen,
@@ -4797,6 +5651,11 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "rgw"]:
         # phase 3l alone, after the build: no result line
         print(json.dumps({"phase_only": "rgw", "launches": rgw_phase(
+            torch, dev, card, wrappers)}))
+        return
+    if sys.argv[1:] == ["--phase", "persist"]:
+        # phase 3m alone, after the build: no result line
+        print(json.dumps({"phase_only": "persist", "launches": persist_phase(
             torch, dev, card, wrappers)}))
         return
 
@@ -4898,6 +5757,7 @@ def main() -> None:
                                      [blocks_odd.shape[0], odd_len]]}))
     check(spec_err == gen_err == crc_err == 0,
           "a kernel disagrees with its plain version")
+    mark("2")
 
     # -- 3. the main path ---------------------------------------------------
     codec = create_erasure_code({"plugin": "ec_torch",
@@ -5001,6 +5861,10 @@ def main() -> None:
     # -- 3l. config 5 through the S3 gateway --------------------------------
     rgw_launches = rgw_phase(torch, dev, card, wrappers)
     mark("3l")
+
+    # -- 3m. persistence in the live cluster --------------------------------
+    persist_launches = persist_phase(torch, dev, card, wrappers)
+    mark("3m")
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
@@ -5010,7 +5874,7 @@ def main() -> None:
                "store_cluster": store_state["store_cluster"],
                "compute": compute_state["launches"],
                "mon": mon_state["launches"], **osd_launches,
-               **rgw_launches}
+               **rgw_launches, **persist_launches}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)
@@ -5191,6 +6055,8 @@ def main() -> None:
         "max_abs_err": bloom["max_abs_err"], "ms": bloom["ms"],
         "plain_ms": bloom["plain_ms"], "bound_ms": bloom["bound_ms"],
         "bound_by": bloom["bound_by"], "library_ms": None})
+    mark("4")
+    print(json.dumps({"phase_seconds": phase_seconds, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

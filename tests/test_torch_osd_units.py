@@ -99,6 +99,7 @@ def on_port(module, name: str, **overrides):
                 v.__module__ == module.__name__:
             g[k] = types.FunctionType(v.__code__, g, v.__name__,
                                       v.__defaults__, v.__closure__)
+            g[k].__kwdefaults__ = v.__kwdefaults__
     g.update(overrides)
     return g[name]
 

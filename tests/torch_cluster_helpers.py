@@ -10,14 +10,28 @@ OSDs, and a port client's read-then-compute legs, run on the CPU.  With `num_mon
 `client_secure` key the client as the JAX harness does (the daemons take
 theirs in `osd_config` / `mon_config`).  kill_osd drops a daemon off the
 network without a clean shutdown; revive_osd boots a fresh daemon of
-either package on the MemStore that survived it (tests/cluster_helpers.py's
-MemStore contract); mark_down, mark_out, mark_in and mark_lost are the
-mon's `osd down|out|in|lost` commands.
+either package; mark_down, mark_out, mark_in and mark_lost are the mon's
+`osd down|out|in|lost` commands.
+
+Store lifecycle across kill and revive (tests/cluster_helpers.py's
+contract, `persistent=`):
+
+- persistent=False (the default, MemStore): the in-RAM store survives the
+  kill and the revived daemon reboots on it; nothing is remounted and
+  nothing is lost.
+- persistent=True (TPUStores from `tpustore_factory`): kill_osd
+  crash-closes the store (no clean umount, no deferred-WAL flush); on a
+  FaultStore with CEPH_TPU_CRASH_INJECT armed it power-cuts it instead
+  (`crash_powercut`: the directory is rewritten to the image a machine
+  that lost power would leave, un-synced writes dropped).  revive_osd
+  builds a new store over the same directory, mounts it (the WAL
+  replays) and asserts that its fsid is the killed store's.
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 from typing import Dict, List, Optional, Sequence
 
 import pytest
@@ -40,6 +54,23 @@ FAST_MON_CONFIG = {
 }
 
 
+def tpustore_factory(base_dir, fault: bool = False, device="cpu"):
+    """Per-OSD TPUStore directories under `base_dir`, for
+    Cluster(store_factory=..., persistent=True): `make(osd_id, kind)` builds
+    the store of the OSD's package over `base_dir/osd-<id>` (port stores on
+    `device`).  fault=True arms the FaultStore recording shim, so kill_osd
+    can power-cut it and tests can script bit rot into live shards."""
+    def make(osd_id: int, kind: str = "torch"):
+        path = os.path.join(str(base_dir), f"osd-{osd_id}")
+        if fault:
+            cls = pkg(kind, "os.faultstore").FaultStore
+        else:
+            cls = pkg(kind, "os.tpustore").TPUStore
+        return cls(path, device=device) if kind == "torch" else cls(path)
+
+    return make
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """Import into a test module to run it with one intra-op thread: the
@@ -60,7 +91,8 @@ class Cluster:
                  mon_config: Optional[dict] = None,
                  num_mons: int = 1,
                  client_secret: Optional[str] = None,
-                 client_secure: bool = False):
+                 client_secure: bool = False,
+                 store_factory=None, persistent: bool = False):
         self.num_osds = num_osds
         self.osds_per_host = osds_per_host
         self.kinds = list(kinds) if kinds is not None \
@@ -75,6 +107,12 @@ class Cluster:
         self.num_mons = num_mons
         self.client_secret = client_secret
         self.client_secure = client_secure
+        assert not (persistent and store_factory is None), \
+            "persistent=True needs a disk-backed store_factory" \
+            " (tpustore_factory)"
+        self.store_factory = store_factory
+        self.persistent = persistent
+        self.fsids: Dict[int, str] = {}
         self.mons: Dict[int, object] = {}
         self.mon_addrs: List[str] = []
         self.osds: Dict[int, object] = {}
@@ -101,13 +139,20 @@ class Cluster:
                 await m.set_peers(self.mon_addrs)
             await self.wait_for_quorum()
         for osd_id, kind in enumerate(self.kinds):
-            store = pkg(kind, "os.memstore").MemStore()
+            store = self._new_store(osd_id)
             store.mkfs()
             store.mount()
             self.stores[osd_id] = store
+            self.fsids[osd_id] = getattr(store, "fsid", "")
             await self._boot_osd(osd_id)
         self.client = self.new_client(self.client_kind)
         await self.client.connect()
+
+    def _new_store(self, osd_id: int):
+        kind = self.kinds[osd_id]
+        if self.store_factory is not None:
+            return self.store_factory(osd_id, kind)
+        return pkg(kind, "os.memstore").MemStore()
 
     async def _boot_osd(self, osd_id: int) -> None:
         kind = self.kinds[osd_id]
@@ -165,17 +210,45 @@ class Cluster:
 
     async def kill_osd(self, osd_id: int) -> None:
         """Crash an OSD: it drops off the network without a clean
-        shutdown (its MemStore stays readable in `stores`)."""
+        shutdown.  A MemStore stays readable in `stores`; in persistent
+        mode the store crashes too (no clean umount, no deferred-WAL
+        flush), and a FaultStore with CEPH_TPU_CRASH_INJECT armed is
+        power-cut: its directory becomes the image a machine that lost
+        power would leave, before any revive can remount it."""
         await self.osds.pop(osd_id).kill()
+        if self.persistent:
+            from ceph_tpu_torch.os.faultstore import crash_inject_enabled
+
+            store = self.stores.pop(osd_id)
+            if hasattr(store, "crash_powercut") and crash_inject_enabled():
+                store.crash_powercut()
+            else:
+                store.crash()
 
     async def revive_osd(self, osd_id: int,
                          kind: Optional[str] = None) -> None:
-        """Boot a fresh daemon at the dead rank on the MemStore that
-        survived the kill (nothing was lost: no remount).  `kind` picks
-        the new daemon's package (default: the dead one's)."""
+        """Boot a fresh daemon at the dead rank.  With MemStores it boots
+        on the store that survived the kill (nothing was lost: no
+        remount).  In persistent mode a new store is built over the same
+        directory and mounted (the WAL replays here), and its fsid must
+        be the killed store's: a fresh disk under a revived OSD id is a
+        harness fault this catches.  `kind` picks the new daemon's
+        package (default: the dead one's)."""
         assert osd_id not in self.osds
         if kind is not None:
             self.kinds[osd_id] = kind
+        if self.persistent:
+            assert osd_id not in self.stores
+            store = self._new_store(osd_id)
+            store.mount()
+            want, got = self.fsids.get(osd_id), getattr(store, "fsid", "")
+            if want and got != want:
+                # stop() umounts only the stores in self.stores
+                store.umount()
+                raise AssertionError(
+                    f"osd.{osd_id} remounted fsid {got!r} != {want!r}"
+                    " (fresh store under a revived OSD?)")
+            self.stores[osd_id] = store
         await self._boot_osd(osd_id)
 
     async def _osd_command(self, prefix: str, osd_id: int, **extra):
@@ -238,3 +311,43 @@ class Cluster:
                 return
             await asyncio.sleep(0.05)
         raise TimeoutError(what)
+
+
+def port_profile(profile: dict) -> dict:
+    """A JAX test's `ec_jax` profile under the port's plugin name."""
+    out = {k: v for k, v in profile.items() if k != "tpu"}
+    if out.get("plugin") == "ec_jax":
+        out["plugin"] = "ec_torch"
+    return out
+
+
+class JaxShapedCluster(Cluster):
+    """tests/cluster_helpers.Cluster's constructor and calls on port
+    daemons and a port client, for JAX test bodies run on the port: their
+    `ec_jax` profiles go to the port's codec, and kill_osd also marks the
+    OSD down through the mon (the JAX harness waits out a 2.5 s heartbeat
+    grace; this harness's grace is past any stall of a loaded host)."""
+
+    def __init__(self, num_osds: int = 4, osds_per_host: int = 2,
+                 osd_config: Optional[dict] = None,
+                 mon_config: Optional[dict] = None,
+                 store_factory=None, persistent: bool = False,
+                 client_secret: Optional[str] = None,
+                 num_mons: int = 1, client_secure: bool = False):
+        super().__init__(num_osds, osds_per_host, osd_config=osd_config,
+                         mon_config=mon_config, num_mons=num_mons,
+                         client_secret=client_secret,
+                         client_secure=client_secure,
+                         store_factory=store_factory, persistent=persistent)
+
+    async def start(self) -> None:
+        await super().start()
+        create = self.client.create_ec_pool
+
+        async def create_ec_pool(name, profile, *args, **kw):
+            return await create(name, port_profile(profile), *args, **kw)
+        self.client.create_ec_pool = create_ec_pool
+
+    async def kill_osd(self, osd_id: int) -> None:
+        await super().kill_osd(osd_id)
+        await self.mark_down(osd_id)

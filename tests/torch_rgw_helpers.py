@@ -40,6 +40,7 @@ import ceph_tpu_torch.cls.lock as tlock
 import ceph_tpu_torch.rgw.gateway as tgateway
 
 from torch_cluster_helpers import Cluster as _PortHarness
+from torch_cluster_helpers import port_profile
 from test_torch_osd import snapshot
 from test_torch_osd_units import _port_of
 
@@ -88,14 +89,6 @@ def _window_one(cls):
     return RGWLite
 
 
-def _port_profile(profile: dict) -> dict:
-    """A JAX test's `ec_jax` profile under the port's plugin name."""
-    out = {k: v for k, v in profile.items() if k != "tpu"}
-    if out.get("plugin") == "ec_jax":
-        out["plugin"] = "ec_torch"
-    return out
-
-
 def harness(kind: str, snaps: list):
     """tests/cluster_helpers.Cluster's constructor and calls, on the port
     harness with daemons and client of package `kind`; `stop` first
@@ -115,7 +108,7 @@ def harness(kind: str, snaps: list):
                 create = self.client.create_ec_pool
 
                 async def create_ec_pool(name, profile, *a, **kw):
-                    return await create(name, _port_profile(profile),
+                    return await create(name, port_profile(profile),
                                         *a, **kw)
                 self.client.create_ec_pool = create_ec_pool
 
