@@ -206,6 +206,18 @@ register("CEPH_TPU_FUSE_MIN_BYTES", None, "process",
 register("CEPH_TPU_MSR_REPAIR", "1", "process",
          "MSR regenerating repair; 0 = classic k-read rebuild")
 
+# -- the XOR-schedule compiler (ec/xsched.py) ----------------------------
+register("CEPH_TPU_XSCHED", "1", "process",
+         "XOR schedule compiler; 0 = naive row-walk")
+register("CEPH_TPU_NATIVE_XSCHED", "1", "process",
+         "native fused-tape executor; 0 = python executor")
+register("CEPH_TPU_XSCHED_MAX_OPS", "256", "process",
+         "schedule-size cap for the compiler")
+register("CEPH_TPU_XSCHED_MIN_REDUCTION", "0.25", "process",
+         "minimum XOR reduction to prefer the schedule")
+register("CEPH_TPU_XSCHED_HOST_MAX_ONES", "4096", "process",
+         "host-executor density ceiling (ones count)")
+
 # -- store / durability -------------------------------------------------
 register("CEPH_TPU_CRASH_INJECT", "1", "process",
          "power-cut synthesis in FaultStore kill paths (chaos "

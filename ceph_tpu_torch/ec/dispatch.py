@@ -30,6 +30,17 @@ def gf_matmul(mat: np.ndarray, data: np.ndarray,
     return plan.matmul(mat, arr, device)
 
 
+def gf_repair_matmul(mat: np.ndarray, data: np.ndarray,
+                     device: torch.device) -> np.ndarray:
+    """Repair twin of gf_matmul for the regenerating-code path:
+    helper-side projections (1 x alpha) and primary-side reconstructions
+    (alpha x d) through plan.repair, where a matrix whose compiled XOR
+    program wins by op count runs on the `xor_sched` kernel and any
+    other on the GF matmul kernels.  (R,K) x (K,S) or (B,K,S) -> (R,S)
+    or (B,R,S), on `device`; a launch runs or raises."""
+    return plan.repair(mat, data, device)
+
+
 class LruCache:
     """Tiny bounded LRU (decode tables keyed by erasure signature).
     Overflow evicts the least-recently-used entry only."""

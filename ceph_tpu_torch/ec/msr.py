@@ -22,10 +22,13 @@ layout (alpha = 1), where repair is k-read decode and
 supports_fractional_repair() is False.  A linear remapping, solved at
 init, makes the code systematic.
 
-On the device: encode, decode and the repair projections and
-reconstructions all run through dispatch.gf_matmul, on gf_matmul_gen,
-since no matrix here is registered.  The parity matrix is (m*alpha, k*alpha), (25, 25) at k=5
-m=5 d=9, wider than one launch takes: plan tiles it.
+On the device: encode and decode run through dispatch.gf_matmul, on
+gf_matmul_gen, since no matrix here is registered.  The repair
+projections and reconstructions run through dispatch.gf_repair_matmul,
+as the reference's `_repair_matmul` does: on the `xor_sched` kernel
+where the matrix's compiled XOR program wins by op count (plan.repair),
+else on gf_matmul_gen.  The parity matrix is (m*alpha, k*alpha), (25,
+25) at k=5 m=5 d=9, wider than one launch takes: plan tiles it.
 """
 
 
@@ -227,6 +230,10 @@ class ErasureCodeMsr(ErasureCode):
     def _matmul(self, mat: np.ndarray, data: np.ndarray) -> np.ndarray:
         return dispatch.gf_matmul(mat, data, self.device)
 
+    def _repair_matmul(self, mat: np.ndarray,
+                       data: np.ndarray) -> np.ndarray:
+        return dispatch.gf_repair_matmul(mat, data, self.device)
+
     def _to_syms(self, data: np.ndarray) -> np.ndarray:
         """(..., R, C) chunks -> (..., R*alpha, C/alpha) sub-chunk
         symbol rows (sub-chunk a of chunk r is row r*alpha+a).
@@ -351,7 +358,7 @@ class ErasureCodeMsr(ErasureCode):
         data = np.frombuffer(chunk, dtype=np.uint8)
         syms = self._to_syms(data.reshape(1, 1, -1))  # (1, alpha, sc)
         vec = self.repair_vector(lost)[None, :]
-        out = self._matmul(vec, syms)
+        out = self._repair_matmul(vec, syms)
         # beta-byte wire fragment: the matmul result must materialize
         # once at the array -> bytes boundary (it is 1/alpha of the
         # shard, the bandwidth win, not a redundant copy)
@@ -400,7 +407,7 @@ class ErasureCodeMsr(ErasureCode):
         streams from many objects may be concatenated along S) ->
         (alpha, S) lost sub-chunk rows in one repair product."""
         rmat = self.repair_matrix(lost, helpers)
-        return np.ascontiguousarray(self._matmul(
+        return np.ascontiguousarray(self._repair_matmul(
             rmat, np.ascontiguousarray(fragments)))
 
     def repair_assemble(self, syms: np.ndarray) -> bytes:

@@ -13,6 +13,13 @@ into its slice of the output, and inputs in blocks of MAX_K whose partial
 products are XORed together.  The tiling runs on every device, so the
 CPU (the kernels' plain versions) exercises it too.
 
+The `xor_sched` kind (`repair`, `xor_sched_direct`): a GF(2^8) matrix
+whose bit expansion compiles (ec/xsched.py) to an XOR program small
+enough and short enough against its naive count (`xsched.prefer_schedule`)
+runs as that program on the `xor_sched` kernel's GF entry, one launch;
+any other matrix keeps the GF matmul kernels.  The pick is the
+reference's (`_sched_for`), including its memo of too-dense matrices.
+
 Two more entries serve the coded-compute and inference libraries:
 `compute_eval` folds a wave of shard streams with one `gf_fold` launch
 (the reference's `compute` plan kind), and `inference_eval` runs the
@@ -25,13 +32,16 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import threading
+from collections import OrderedDict
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from ceph_tpu_torch.device import to_device
-from ceph_tpu_torch.ops import crc_kernels, fold_kernels, gf, gf_kernels
+from ceph_tpu_torch.ops import (crc_kernels, fold_kernels, gf, gf_kernels,
+                                xor_kernels)
 
 
 def matrix_signature(matrix: np.ndarray, extra: str = "") -> str:
@@ -128,6 +138,134 @@ def encode_with_crc(matrix: np.ndarray, data: np.ndarray,
     crc = np.concatenate([c[:b * k].reshape(b, k), c[b * k:].reshape(b, r)],
                          axis=1)
     return host[:par_bytes].reshape(b, r, s), crc
+
+
+# ---------------------------------------------------------------------------
+# The xor_sched kind
+# ---------------------------------------------------------------------------
+
+# pick cache: matrix signature -> XorSchedule | ("dense", naive).  Reached
+# from the event loop AND the encode service's to_thread workers, so
+# every access takes the lock; compiles happen OUTSIDE it (a racing pair
+# builds twice, both results identical)
+_sched_lock = threading.Lock()
+_sched_pick: OrderedDict = OrderedDict()
+_SCHED_PICK_CAP = 64
+
+
+def _sched_for(matrix: np.ndarray):
+    """The compiled XOR schedule of a GF(2^8) matrix's bit expansion,
+    memoized by matrix signature, or None when the kill switch is off or
+    the matrix is too dense to ever clear the op-count pick.  The density
+    pre-bound matters: Paar CSE is quadratic-ish in the ones count, and a
+    wide-k expansion whose BEST case still exceeds the op ceiling must
+    not pay a multi-second compile on its first call just to be
+    rejected.  The cache stores the schedule (or the naive count for
+    too-dense matrices) rather than the verdict, so the policy knobs —
+    `xsched.prefer_schedule` AND the density bound below — are re-judged
+    per call and stay live."""
+    from ceph_tpu_torch.ec import xsched
+
+    if not xsched.enabled():
+        return None
+    m = np.ascontiguousarray(matrix, dtype=np.uint8)
+    msig = matrix_signature(m)
+    with _sched_lock:
+        sched = _sched_pick.get(msig)
+        if sched is not None:
+            _sched_pick.move_to_end(msig)
+    if sched is None:
+        bits = gf.gf_matrix_to_bits(m)
+        naive = int(bits.sum()) - bits.shape[0]
+        if naive // 4 > xsched._max_ops():
+            # even a 75% CSE cut could not fit the op ceiling: remember
+            # the COUNT, not the verdict, and skip the compile
+            sched = ("dense", naive)
+        else:
+            sched = xsched.compile_matrix(bits, sig=f"{msig}/bits")
+        with _sched_lock:
+            _sched_pick[msig] = sched
+            if len(_sched_pick) > _SCHED_PICK_CAP:
+                _sched_pick.popitem(last=False)
+    if isinstance(sched, tuple):        # ("dense", naive): re-judge
+        if sched[1] // 4 > xsched._max_ops():
+            return None
+        with _sched_lock:               # the ceiling was raised:
+            _sched_pick.pop(msig, None)     # compile on the next call
+        return _sched_for(m)
+    return sched
+
+
+def _xor_sched_call(prog, data: torch.Tensor) -> torch.Tensor:
+    """One XOR program of a GF matrix over (B, K, S) bytes on the
+    tensor's device -> (B, R, S): the kernel's GF entry, the chunk size
+    zero-padded to a multiple of 4 (padding bytes give padding bytes:
+    the product acts column by column)."""
+    s = data.shape[-1]
+    pad = -s % 4
+    if pad:
+        padded = torch.zeros((*data.shape[:-1], s + pad), dtype=torch.uint8,
+                             device=data.device)
+        padded[..., :s] = data
+        return xor_kernels.xor_sched_gf(prog, padded)[..., :s]
+    return xor_kernels.xor_sched_gf(prog, data.contiguous())
+
+
+def xor_sched_direct(matrix: np.ndarray):
+    """Schedule-vs-matmul pick for direct callers of a GF product: a
+    function of a (B, K, S) uint8 tensor that runs the matrix's compiled
+    XOR program on the kernel's GF entry when the measured op count
+    prefers it, else None (the caller keeps the GF matmul kernels)."""
+    from ceph_tpu_torch.ec import xsched
+
+    sched = _sched_for(np.asarray(matrix, dtype=np.uint8))
+    if sched is None or not xsched.prefer_schedule(sched):
+        return None
+    prog = xsched.lower_program(sched)
+    return lambda data: _xor_sched_call(prog, data)
+
+
+def repair(mat: np.ndarray, data, device: torch.device) -> np.ndarray:
+    """(B, D, S) or (D, S) uint8 helper fragments x the (R, D) repair
+    matrix -> the lost sub-chunk rows on the host, computed on `device`.
+    The reference's `repair` plan kind: a sparse bit expansion whose
+    compiled XOR program wins by op count runs as that program on the
+    `xor_sched` kernel (the `xor_sched` kind); any other matrix goes
+    through the GF matmul kernels (`matmul`).  A launch runs or raises:
+    there is no host retry."""
+    from ceph_tpu_torch.ec import xsched
+
+    arr = np.asarray(data, dtype=np.uint8)
+    squeeze = arr.ndim == 2
+    if squeeze:
+        arr = arr[None]
+    if arr.ndim != 3:
+        raise ValueError(f"expected (B, D, S) fragments, got {arr.shape}")
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    b, _d, s = arr.shape
+    if s == 0 or b == 0:
+        out = np.zeros((b, mat.shape[0], s), dtype=np.uint8)
+    else:
+        sched = _sched_for(mat)
+        if sched is not None and xsched.prefer_schedule(sched):
+            out = _xor_sched_call(xsched.lower_program(sched),
+                                  to_device(arr, device)).cpu().numpy()
+        elif s % 4:
+            # the GF kernels take whole 32-bit words: zero-pad the chunk
+            # (a product acts column by column)
+            out = matmul(mat, np.pad(arr, ((0, 0), (0, 0), (0, -s % 4))),
+                         device)[..., :s]
+        else:
+            out = matmul(mat, arr, device)
+    return out[0] if squeeze else out
+
+
+def stats() -> dict:
+    """Observability: the schedule compiler's section (the reference's
+    plan.stats()["xsched"]); the port has no plan cache to report."""
+    from ceph_tpu_torch.ec import xsched
+
+    return {"xsched": xsched.stats()}
 
 
 # the fold's weight rows on the device, one upload per (kernel, row count,

@@ -3,7 +3,9 @@
 The ErasureCodePluginRegistry role: a process-wide table of named codec
 factories with a version stamp, and `create_erasure_code(profile)`, which
 resolves the profile's `plugin` (default `ec_torch`; `jerasure` and `isa`
-are aliases of it; `lrc`, `shec`, `clay` and `ec_msr` are the layered,
+are aliases of it, and route the bitmatrix techniques `liberation`,
+`blaum_roth` and `liber8tion` to ec/bitmatrix_plugin.py as the reference
+does; `lrc`, `shec`, `clay` and `ec_msr` are the layered,
 shingled, coupled-layer and product-matrix codecs), builds the codec and
 checks that it echoes the profile back, as the reference asserts.
 
@@ -87,9 +89,15 @@ class ErasureCodePluginRegistry:
 
 
 def _torch_factory(profile: ErasureCodeProfile) -> ErasureCode:
-    codec = ErasureCodeTorch(
-        technique=profile.get("technique", "reed_sol_van"),
-        device=profile.get("device") or None)
+    from ceph_tpu_torch.ec.bitmatrix_plugin import ErasureCodeTorchBitmatrix
+
+    tech = profile.get("technique", "reed_sol_van")
+    device = profile.get("device") or None
+    if tech in ErasureCodeTorchBitmatrix.TECHNIQUES:
+        codec: ErasureCode = ErasureCodeTorchBitmatrix(technique=tech,
+                                                       device=device)
+    else:
+        codec = ErasureCodeTorch(technique=tech, device=device)
     codec.init(profile)
     return codec
 

@@ -1,9 +1,9 @@
 """The port's host C++ library: the lz4 and snappy block codecs, xxhash,
-crc32c and AES-256-GCM.
+crc32c, AES-256-GCM and the XOR-schedule tape executor.
 
 Sources live in ``ceph_tpu_torch/native/src`` (copies of the JAX package's
-``compress.cc`` and ``aesgcm.cc``, and of the xxhash and the crc32c
-functions of its ``checksum.cc``).  They
+``compress.cc``, ``aesgcm.cc`` and ``xor_sched.cc``, and of the xxhash and
+the crc32c functions of its ``checksum.cc``).  They
 are host code: the first call to `get_lib` compiles them with ``g++`` into
 one shared library under ``ceph_tpu_torch/_build/`` (reused while the
 sources' hash is unchanged) and binds it with ctypes, here and on the
@@ -88,6 +88,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, f"ceph_tpu_aesgcm_{op}")
         fn.restype = ctypes.c_int
         fn.argtypes = [u8p, u8p, u8p, u64, u8p, u64, u8p]
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    # the XOR-schedule tape and its crc spans (xor_sched.cc)
+    lib.ceph_tpu_xsched_exec.restype = None
+    lib.ceph_tpu_xsched_exec.argtypes = [i32p, u64, u8p, u64, u64, u64]
+    lib.ceph_tpu_xsched_crc_spans.restype = None
+    lib.ceph_tpu_xsched_crc_spans.argtypes = [
+        u8p, u64, i32p, u64, ctypes.POINTER(ctypes.c_uint32)]
     return lib
 
 

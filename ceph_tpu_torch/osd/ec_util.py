@@ -12,7 +12,9 @@ ECUtil parity:
   chunk's crc come from one call (ec/plan.encode_with_crc) and fold into
   the ledger on the host.  On the CPU it is encode plus the host crc;
 - encode_many_with_hinfo / encode_many: N objects of one profile in one
-  fused call (the encode service's flush);
+  fused call (the encode service's flush); for the bitmatrix codecs the
+  packed tier, every stripe of every object one object of a single XOR
+  tape run (bitmatrix_native_available, _encode_many_bitmatrix);
 - decode_many: requests that share a survivor set decode together, one
   codec call per group (the coded-compute scan's result-domain decode);
 - fastest_survivors / choose_decode_set: the read path's survivor choice.
@@ -280,8 +282,178 @@ def encode_many_with_hinfo(sinfo: StripeInfo, ec_impl, items
     fused = _encode_many_device(sinfo, ec_impl, items)
     if fused is not None:
         return fused
+    packed = _encode_many_bitmatrix(sinfo, ec_impl, items)
+    if packed is not None:
+        return packed
     return [encode_with_hinfo(sinfo, ec_impl, d, w, logical_len=l)
             for d, w, l in items]
+
+
+def bitmatrix_native_available(ec_impl) -> bool:
+    """True when the packed multi-object tier can engage for this codec
+    — the encode service's batching gate for the bitmatrix family (the
+    GF codecs' gate is device_fused_available).  Requires the schedule
+    compiler (CEPH_TPU_XSCHED up, matrix within the serving-path compile
+    bound), an identity chunk mapping, and an executor for the tape: the
+    `xor_sched` kernel for a codec on a CUDA card, the native tape for a
+    `device="cpu"` codec (CEPH_TPU_NATIVE_XSCHED up)."""
+    from ceph_tpu_torch.ec import xsched
+
+    bm = getattr(ec_impl, "bitmatrix", None)
+    if (bm is None or getattr(ec_impl, "_sig", None) is None
+            or ec_impl.get_chunk_mapping() or not xsched.enabled()
+            or not xsched.host_compile_allowed(bm)):
+        return False
+    device = getattr(ec_impl, "device", None)
+    return (device is not None and device.type == "cuda") \
+        or xsched.native_available()
+
+
+def _encode_many_bitmatrix(sinfo: StripeInfo, ec_impl, items):
+    """Packed multi-object tier for the bitmatrix family: EVERY stripe
+    of every item becomes one object of a single region arena, so a
+    flushed bucket of thousands of tiny writes runs the compiled XOR
+    tape ONCE.  On a CUDA codec that is one launch of the `xor_sched`
+    kernel's region entry over a device arena, then the per-(stripe,
+    shard) crcs on crc32c_blocks over the data and parity spans on the
+    card (no host copy of the arena in between), folded per item into
+    the HashInfo ledger (fold_ledger).  With `device="cpu"` it is the
+    reference's: one native tape call and one native crc-span call.
+    Requires single-block chunks (chunk == w * packetsize — a chunk's
+    bytes ARE its w input regions back to back, so packing is one flat
+    copy per item); anything else returns None and the caller runs the
+    items inline, bit-identically."""
+    if not bitmatrix_native_available(ec_impl):
+        return None
+    from ceph_tpu_torch.ec import xsched
+
+    width = sinfo.get_stripe_width()
+    chunk = sinfo.get_chunk_size()
+    w, ps = ec_impl.w, ec_impl.packetsize
+    n = ec_impl.get_chunk_count()
+    k = width // chunk
+    on_card = ec_impl.device.type == "cuda"
+    if chunk != w * ps or ec_impl.get_chunk_size(width) != chunk \
+            or k != ec_impl.k or (on_card and chunk % 4):
+        return None
+    datas = []
+    stripes_of = []
+    for d, _want, _l in items:
+        d = as_buffer(d)
+        if len(d) == 0 or len(d) % width:
+            return None
+        datas.append(d)
+        stripes_of.append(len(d) // width)
+    sched = xsched.compile_matrix(ec_impl.bitmatrix, sig=ec_impl._sig)
+    prog = xsched.lower_program(sched)
+    total = sum(stripes_of)
+    m = n - k
+    if on_card:
+        parity, crc0 = _packed_on_device(ec_impl.device, prog, datas,
+                                         total, k, m, chunk)
+    else:
+        parity, crc0 = _packed_native(prog, datas, stripes_of, k, m, w,
+                                      ps, chunk)
+    results = []
+    s0 = 0
+    for (item, d, ns) in zip(items, datas, stripes_of):
+        _data, want, logical_len = item
+        src = np.frombuffer(d, dtype=np.uint8)
+        if src.flags.writeable:
+            src.setflags(write=False)
+        grid = src.reshape(ns, k, chunk)
+        want = set(want)
+        shards: Dict[int, memoryview] = {}
+        for i in range(n):
+            if i not in want:
+                continue
+            if i < k:
+                shards[i] = _frozen_view(
+                    np.ascontiguousarray(grid[:, i, :]).reshape(-1))
+            else:
+                row = np.ascontiguousarray(
+                    parity[s0:s0 + ns, i - k]).reshape(-1)
+                if row.base is not None:
+                    row = row.copy()    # parity owns its memory
+                shards[i] = _frozen_view(row)
+        hinfo = HashInfo(n)
+        hinfo.cumulative_shard_hashes = fold_ledger(crc0[s0:s0 + ns], chunk)
+        hinfo.total_chunk_size = ns * chunk
+        results.append((shards, hinfo, _data_crc(d, logical_len)))
+        s0 += ns
+    return results
+
+
+def _packed_on_device(device, prog, datas, total: int, k: int, m: int,
+                    chunk: int):
+    """The packed batch on `device` (the card; on the CPU the kernels'
+    plain versions): (total, m, chunk) parity and (total, k + m)
+    zero-seeded chunk crcs on the host, from one staging copy, one
+    xor_sched launch, two crc32c_blocks launches and one copy back."""
+    import torch
+
+    from ceph_tpu_torch.ops import crc_kernels, xor_kernels
+
+    staged = torch.empty((total, k * chunk), dtype=torch.uint8,
+                         pin_memory=device.type == "cuda")
+    host = staged.numpy()
+    s0 = 0
+    for d in datas:
+        ns = len(d) // (k * chunk)
+        host[s0:s0 + ns] = np.frombuffer(d, dtype=np.uint8).reshape(ns, -1)
+        s0 += ns
+    data = staged.to(device, non_blocking=True)
+    ps = chunk // (prog.n_in // k)
+    arena = torch.empty((total, prog.n_regions, ps), dtype=torch.uint8,
+                        device=device)
+    arena[:, :prog.n_in].copy_(data.view(total, prog.n_in, ps))
+    xor_kernels.xor_sched_regions(prog, arena)
+    # one buffer, so one copy back: parity, then the data chunks' crcs,
+    # then the parity chunks'
+    par_bytes = total * m * chunk
+    buf = torch.empty(par_bytes + 4 * total * (k + m), dtype=torch.uint8,
+                      device=device)
+    parity = buf[:par_bytes].view(total, m * chunk)
+    parity.view(total, prog.n_out, ps).copy_(arena[:, prog.out_base:])
+    crcs = buf[par_bytes:].view(torch.int32)
+    crc_kernels.crc32c_blocks(data, chunk, 0, out=crcs[:total * k])
+    crc_kernels.crc32c_blocks(parity, chunk, 0, out=crcs[total * k:])
+    out = buf.cpu().numpy()
+    c = out[par_bytes:].view(np.uint32)
+    crc0 = np.concatenate([c[:total * k].reshape(total, k),
+                           c[total * k:].reshape(total, m)], axis=1)
+    return out[:par_bytes].reshape(total, m, chunk), crc0
+
+
+def _packed_native(prog, datas, stripes_of, k: int, m: int, w: int, ps: int,
+                   chunk: int):
+    """The packed batch on the host's native tape (a `device="cpu"`
+    codec): (total, m, chunk) parity and (total, k + m) zero-seeded
+    chunk crcs, from one tape call and one crc-span call."""
+    from ceph_tpu_torch.ec import xsched
+
+    total = sum(stripes_of)
+    n_regions, out_base = prog.n_regions, prog.out_base
+    arena = np.empty((total, n_regions, ps), dtype=np.uint8)
+    s0 = 0
+    for d, ns in zip(datas, stripes_of):
+        arena[s0:s0 + ns, :k * w, :] = \
+            np.frombuffer(d, dtype=np.uint8).reshape(ns, k * w, ps)
+        s0 += ns
+    xsched.execute_native(prog, arena)
+    # one span per (stripe, shard), each its own zero-seeded crc slot
+    n = k + m
+    offs = np.concatenate([np.arange(k, dtype=np.int64) * w,
+                           out_base + np.arange(m, dtype=np.int64) * w])
+    rows = np.arange(total, dtype=np.int64)[:, None] * n_regions
+    spans = np.empty((total * n, 3), dtype=np.int32)
+    spans[:, 0] = (rows + offs[None, :]).reshape(-1)
+    spans[:, 1] = w
+    spans[:, 2] = np.arange(total * n, dtype=np.int32)
+    crc0 = np.zeros(total * n, dtype=np.uint32)
+    xsched.crc_regions_native(arena, spans, crc0)
+    parity = arena[:, out_base:].reshape(total, m, chunk)
+    return parity, crc0.reshape(total, n)
 
 
 def _encode_many_device(sinfo: StripeInfo, ec_impl, items):

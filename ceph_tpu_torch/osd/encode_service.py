@@ -26,20 +26,26 @@ Knobs (read at construction):
   CEPH_TPU_ENCODE_SERVICE=0        kill switch — every call runs the
                                    inline path, results unchanged
 
-Batching engages when the fused batched tier can
+Batching engages when a batched tier can: the fused tier
 (ec_util.device_fused_available: the codec runs on CUDA, or
 CEPH_TPU_FUSE_MIN_BYTES is set, which engages the same batched body on
-the CPU).  Otherwise every request takes the inline path.
+the CPU) or, for the bitmatrix family on the hinfo write path, the packed
+tier (ec_util.bitmatrix_native_available: N objects' stripes pack into
+ONE region arena and the whole bucket runs as a single XOR tape — one
+`xor_sched` launch on the card, one native call on the CPU).  A packed
+bucket is routed by arrival density (`_cold_inline`): sparse arrivals
+encode inline on the caller, bursts pool into packed batches.  Plain
+encode and decode of a bitmatrix codec stay inline.  Otherwise every
+request takes the inline path.
 Backpressure is a bounded queue per profile (requests + bytes, counting
 in-flight batches); overflow **sheds to the inline path** instead of
 queueing unboundedly.
 
 Deviations from the reference: no circuit breaker and no mesh (the port
-has no device guard: a launch runs or raises), and no packed bitmatrix
-tier (those codecs are not ported).  A batch that raises is retried item
-by item on the SAME codec and device, so one malformed request cannot
-fail its neighbours; an error on the retry reaches that request's
-future — it is never retried on a host or plain twin.
+has no device guard: a launch runs or raises).  A batch that raises is
+retried item by item on the SAME codec and device, so one malformed
+request cannot fail its neighbours; an error on the retry reaches that
+request's future — it is never retried on a host or plain twin.
 
 Threading: all bookkeeping (buckets, counters, histograms) runs on
 the owning event loop; only the numeric batch body runs in the
@@ -53,7 +59,7 @@ import time
 from typing import Dict, Iterable, List, Optional
 
 from ceph_tpu_torch.common import flags, tracing
-from ceph_tpu_torch.osd import ec_util
+from ceph_tpu_torch.osd import ec_util, scheduler
 
 __all__ = ["EncodeService"]
 
@@ -112,18 +118,27 @@ class _Bucket:
 
     __slots__ = ("kind", "label", "sinfo", "codec", "pending",
                  "nbytes", "outstanding", "outstanding_bytes",
-                 "timer", "sem", "stats", "in_flight")
+                 "timer", "sem", "stats", "in_flight", "tier",
+                 "last_arrival", "ewma_gap")
 
-    def __init__(self, kind: str, label: str, sinfo, codec):
+    def __init__(self, kind: str, label: str, sinfo, codec,
+                 tier: str = "device"):
         self.kind = kind
         self.label = label
         self.sinfo = sinfo
         self.codec = codec
+        self.tier = tier
         self.pending: List[_Req] = []
         self.nbytes = 0
         self.outstanding = 0          # queued + in-flight requests
         self.outstanding_bytes = 0
         self.in_flight = 0            # dispatched batches not yet done
+        # arrival-density tracking (the bitmatrix hot/cold router),
+        # keyed by mClock class: a recovery wave's dense arrivals
+        # must not mark the bucket hot for sparse client writes (and
+        # a client trickle must not mask a forming recovery batch)
+        self.last_arrival: Dict[str, float] = {}
+        self.ewma_gap: Dict[str, float] = {}
         self.timer: Optional[asyncio.TimerHandle] = None
         # two dispatch slots: the double buffer — batch N on device,
         # batch N+1 accumulating/launching behind it
@@ -163,9 +178,9 @@ class EncodeService:
         # set by the owning daemon: flush dispatch spans (with links
         # to the ops each batch served) land in this tracer's ring
         self.tracer = None
-        self._usable_cache: Dict[int, bool] = {}
+        self._usable_cache: Dict[int, str] = {}
         self.counters = {"requests": 0, "batched": 0, "inline": 0,
-                         "shed": 0, "batches": 0,
+                         "inline_cold": 0, "shed": 0, "batches": 0,
                          "dispatch_errors": 0,
                          # sheds by request kind: each runs the inline
                          # path (one fused encode or one decode launch)
@@ -182,10 +197,14 @@ class EncodeService:
         want = tuple(want)
         self.counters["requests"] += 1
         q = self._bucket_for("encode_hinfo", sinfo, codec)
+        if q is not None and self._cold_inline(q):
+            self.counters["inline_cold"] += 1
+            q = None
         if q is None or not self._admit(q, len(data)):
             self._count_unbatched(q, "encode_hinfo")
             # intentionally-inline path (kill switch, no batchable
-            # tier, or backpressure shed).  The span names the stage —
+            # tier, a cold bitmatrix bucket, or backpressure shed).
+            # The span names the stage —
             # inline codec work must be attributable in the
             # histograms, not folded invisibly into osd_op self-time
             with tracing.child_span_sync("encode_inline"):
@@ -278,20 +297,32 @@ class EncodeService:
             self.counters["shed"] += 1
             self.counters[f"shed_{kind}"] += 1
 
-    def _usable(self, codec) -> bool:
-        """Whether this codec can ride the fused batched tier."""
+    def _usable(self, codec) -> str:
+        """The batching tier this codec can ride: "device" (the fused
+        encode+crc call), "bitmatrix" (the packed XOR tape —
+        ec_util._encode_many_bitmatrix), or "" (inline only)."""
         if not self.enabled or self._closed:
-            return False
+            return ""
         key = id(codec)
         hit = self._usable_cache.get(key)
         if hit is None:
-            hit = ec_util.device_fused_available(codec)
+            if ec_util.device_fused_available(codec):
+                hit = "device"
+            elif ec_util.bitmatrix_native_available(codec):
+                hit = "bitmatrix"
+            else:
+                hit = ""
             self._usable_cache[key] = hit
         return hit
 
     def _bucket_for(self, kind: str, sinfo, codec
                     ) -> Optional[_Bucket]:
-        if not self._usable(codec):
+        tier = self._usable(codec)
+        if not tier:
+            return None
+        # the packed tape tier only exists for the hinfo write path:
+        # plain encode / decode stay inline for bitmatrix
+        if tier == "bitmatrix" and kind != "encode_hinfo":
             return None
         if kind == "decode" and not hasattr(codec, "decode_batch"):
             return None
@@ -304,7 +335,7 @@ class EncodeService:
         if q is None:
             label = f"{kind}[{sig[:8]}] w{sinfo.get_stripe_width()}" \
                     f" c{sinfo.get_chunk_size()}"
-            q = _Bucket(kind, label, sinfo, codec)
+            q = _Bucket(kind, label, sinfo, codec, tier=tier)
             self._buckets[key] = q
         return q
 
@@ -313,6 +344,36 @@ class EncodeService:
         return (q.outstanding < self.max_queue_requests
                 and q.outstanding_bytes + nbytes
                 <= self.max_queue_bytes)
+
+    def _cold_inline(self, q: _Bucket) -> bool:
+        """Hot/cold router for the packed bitmatrix tier.  A singleton
+        batch pays the off-loop hop (task + to_thread round trip, ~ms
+        under load) to save little codec work — a pure loss, so a COLD
+        bucket (observed inter-arrival EWMA wider than a quarter of the
+        batch window) runs the encode inline on the caller, where the
+        tape is still one launch (or one C++ call).  Once arrivals pack
+        well inside the window — or a batch is already pooling or in
+        flight to join — requests take the packed multi-object path.
+        The fused tier never routes here: its per-op dispatch cost is
+        exactly what batching amortizes."""
+        if q.tier != "bitmatrix":
+            return False
+        # per-mClock-class arrival density: the op's scheduler class
+        # rides the contextvar set by scheduler.run() ('' outside any
+        # grant); tenant classes fold so the dicts stay bounded
+        cls = scheduler.stage_class(scheduler.current_class())
+        now = time.perf_counter()
+        last = q.last_arrival.get(cls)
+        if last is not None:
+            gap = now - last
+            prev = q.ewma_gap.get(cls)
+            q.ewma_gap[cls] = gap if prev is None \
+                else 0.5 * prev + 0.5 * gap
+        q.last_arrival[cls] = now
+        if q.pending or q.in_flight:
+            return False        # a batch is forming: join it
+        gap = q.ewma_gap.get(cls)
+        return gap is None or gap > self.window_s / 4.0
 
     async def _enqueue(self, q: _Bucket, payload, nbytes: int):
         loop = asyncio.get_running_loop()

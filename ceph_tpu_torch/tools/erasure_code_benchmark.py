@@ -12,7 +12,9 @@ device it raises.  The JAX tool's --plan-cache/--no-plan-cache and its
 stderr `plan-cache:` line have no counterpart, since the port has no
 plan cache; instead, after the timing line, stderr carries the run's
 kernel launches: `launches: gf_matmul_spec=N gf_matmul_gen=N
-crc32c_blocks=N`.
+crc32c_blocks=N xor_sched_regions=N xor_sched_gf=N`.  Every technique the
+registry builds runs here, the bitmatrix ones (`-P technique=liberation`,
+`blaum_roth`, `liber8tion`) on the `xor_sched` kernel.
 """
 
 
@@ -26,11 +28,13 @@ import time
 from typing import Dict, List
 
 from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
-from ceph_tpu_torch.ops import crc_kernels, gf_kernels
+from ceph_tpu_torch.ops import crc_kernels, gf_kernels, xor_kernels
 
 KERNELS = {"gf_matmul_spec": gf_kernels.gf_matmul_spec,
            "gf_matmul_gen": gf_kernels.gf_matmul_gen,
-           "crc32c_blocks": crc_kernels.crc32c_blocks}
+           "crc32c_blocks": crc_kernels.crc32c_blocks,
+           "xor_sched_regions": xor_kernels.xor_sched_regions,
+           "xor_sched_gf": xor_kernels.xor_sched_gf}
 
 
 def parse_args(argv: List[str]) -> argparse.Namespace:

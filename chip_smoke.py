@@ -7,14 +7,15 @@ Run from the repository root:
 
 (`python3 chip_smoke.py --phase osd` builds the kernels and runs phases 3i,
 3j and 3k alone, with their checks, and prints no result line;
-`--phase rgw` does the same for phase 3l, `--phase persist` for 3m.)
+`--phase rgw` does the same for phase 3l, `--phase persist` for 3m,
+`--phase xsched` for 3n.)
 
 Phases; any failure exits nonzero and prints no result line:
 
 1. Build the CUDA kernels from ceph_tpu_torch/csrc (GF, crc, scoring, the
-   CRUSH placement kernel, the GF fold and the hit-set hash, one nvcc per
-   source, started together) and print the seconds it took and what ptxas
-   reports (registers per source, spills).
+   CRUSH placement kernel, the GF fold, the hit-set hash and the XOR
+   schedule, one nvcc per source, started together) and print the seconds
+   it took and what ptxas reports (registers per source, spills).
 2. Hold every kernel against its plain PyTorch version on the card at the
    main path's shapes, bit-exact: the GF kernel through gf_matmul_spec
    (the registered generator's stored schedule) on RS 8+3
@@ -52,7 +53,7 @@ Phases; any failure exits nonzero and prints no result line:
    4), on odd input counts (1, 31, 33, 2^20 + 17; rebalance vector), on
    the same map with a seeded weight per OSD (many distinct reciprocals;
    2^18 inputs), and also on a 64-OSD map with a CHOOSE_FIRSTN osd rule,
-   on a map with an empty host bucket and on 16 seeded random
+   on a map with an empty host bucket and on 8 seeded random
    hierarchies of 2-4 levels with random rules and weights (firstn and
    indep, leaf and not, stable 0 and 1, vary_r 0-3, descend_once 0 and
    1, numrep other than result_max); and against the host mapper on 256
@@ -215,10 +216,13 @@ Phases; any failure exits nonzero and prints no result line:
    the CPU twin driven through the same history; the GF kernels at the
    paths' shapes against their plain versions; gf_matmul_gen launched at
    least once per encode-service decode batch and at most once per
-   batched decode (plus, in d, once per MSR fragment and rebuild group),
+   batched decode (plus, in d, once per MSR fragment: the schedule pick
+   refuses the projections), in d each rebuild group on gen or, where the
+   pick takes its (alpha x d) matrix (lost chunks 0, 2, 4 and 6),
+   xor_sched's GF entry, at least once when such an object was rebuilt,
    gf_matmul_spec once per re-encode and per service batch of the PUT,
-   crc32c_blocks
-   twice per such batch, fewer decode dispatches in b than objects
+   crc32c_blocks twice per such batch, fewer decode dispatches in b than
+   objects
    rebuilt; MSR repair on every lost chunk from at least d fragments, no
    fallback, and on primaries that ran no classic decode at most (d /
    alpha + 0.1) bytes read per byte rebuilt.  Times to clean, bytes
@@ -308,7 +312,7 @@ Phases; any failure exits nonzero and prints no result line:
    and BrokenCommitStore caught.  (c) `python -m ceph_tpu_torch.tools.vstart
    --mons 1 --osds 12`: 12 TPUStore OSD processes on the card; through `python
    -m ceph_tpu_torch.tools.rados`: an EC 8+3 pool (mkpool --ec-profile), a
-   64 MiB put and get, bench 5 write and seq (4 MiB, 16 threads), bench 5 seq
+   64 MiB put and get, bench 3 write and seq (4 MiB, 16 threads), bench 3 seq
    --tenants 8 (read=0.7,write=0.3) at half the seq rate, scan gf_fold with
    and without CEPH_TPU_COMPUTE; one OSD process holding data shards
    SIGKILLed (a process kill, not a power cut) and marked down, the get
@@ -318,6 +322,36 @@ Phases; any failure exits nonzero and prints no result line:
    others' over a client, every EC primary with encode-service batches, no
    csum read failure, nvidia-smi listing every OSD process; vstart --stop.
    No new kernel library may appear in the build directory during 3m.
+3n. The XOR-schedule kernel and the bitmatrix codecs (paths `xsched_codec`
+   and `xsched`).  (a) Outside the counted paths, xor_sched's region entry
+   against its plain version (output regions equal, inputs kept) on the
+   compiled encode and (0, 1)-decode tapes of jerasure liberation k=4 w=7,
+   blaum_roth k=4 w=6 and liber8tion k=4 (w=8) at packetsize 2048 over
+   the arena of a 1 MiB object (BASELINE config 1's shape) and on a packed
+   batch of 512 one-stripe liberation objects; its GF entry against its
+   plain version and gf_matmul_gen's plain version at MSR 4/3/6's (3 x 6)
+   rebuilds (lost 0 over one 4 MiB object's fragments, lost 6 over four)
+   and MSR 5/5/9's (1 x 5) projection; each timed alone and back to back
+   beside its bound and its plain version, gf_matmul_gen at the same
+   repair shapes.  (b) The counts zeroed: each technique's codec on the
+   card encodes a 1 MiB object (chunks against a device="cpu" twin) and
+   decodes every two-erasure pattern, one launch a call; encode and decode
+   GiB/s; the port's erasure_code_benchmark (encode, decode -e 2) on it.
+   (c) A fresh cluster of 3i's shape with a pool `lib.data` of liberation
+   k=4 m=2 w=7 at a stripe unit of one chunk (14,336 bytes), the OSDs'
+   encode-service window at XSCHED_WINDOW_MS, the counts zeroed once it is
+   active: config 5's 64 MiB as 16 objects of 4 MiB four in flight, a
+   burst of 512 one-stripe writes 32 in flight, a trickle of 16 spaced
+   XSCHED_TRICKLE_GAP_S apart; every object read healthy and with two OSDs
+   holding data shards killed and down; the two revived, clean.  Checks:
+   every read exact, every stored shard and hinfo against encode_with_hinfo
+   of a device="cpu" codec, the burst packed into multi-object batches and
+   the trickle inline (the hot/cold router), crc32c_blocks exactly twice
+   per packed batch, xor_sched_regions between the packed batches and
+   those plus a launch per stripe of the inline encodes, no GF matmul
+   launch on the writes, decode launches on the degraded reads.  Times:
+   PUT and read GiB/s healthy and 2 down, the burst's writes/s, seconds to
+   clean; the packed batch sizes, inline and packed counts.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -334,9 +368,10 @@ Phases; any failure exits nonzero and prints no result line:
    against its plain version, and the placement kernel at phase 3c's.
    Every kernels-line row carries its launches per path (codec, crushtool,
    osdmap, cluster, codecs, store, store_cluster, compute, mon, osd,
-   recovery, recovery_msr, split, osd_compute, rgw, persist, persist_sweep)
-   and their sum;
-   bloom_positions' row is timed at the tier's geometry and 65536 hashes.
+   recovery, recovery_msr, split, osd_compute, rgw, persist, persist_sweep,
+   xsched_codec, xsched) and their sum;
+   bloom_positions' row is timed at the tier's geometry and 65536 hashes,
+   xor_sched's at the packed batch (its launches both entries').
 
 The line before the last is {"kernels": [...]}, the one before it each
 phase's wall seconds ({"phase_seconds": {...}}); the last is
@@ -359,7 +394,7 @@ CHUNK = 512 << 10
 B = 64                      # stripes of the 256 MiB object
 STRIPE = K * CHUNK          # 4 MiB
 SEED = 20261016
-RANDOM_CRUSH_MAPS = 16      # seeded random hierarchies of phase 3b
+RANDOM_CRUSH_MAPS = 8       # seeded random hierarchies of phase 3b
 ODD_COUNTS = (1, 31, 33, (1 << 20) + 17)   # CRUSH inputs of phase 3b
 EC_PROFILE = {"plugin": "jerasure", "technique": "reed_sol_van",
               "k": str(K), "m": str(M), "crush-failure-domain": "host"}
@@ -3280,6 +3315,15 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
                {"d_msr_loss_to_clean": time.perf_counter() - t0})
         out["msr_objects_to_rebuild"] = sum(
             dv in msr_acting[msr_io.object_pg(n).ps][0] for n in msr_objs)
+        # the victim's shard in each object's PG: the lost chunk a rebuild
+        # reconstructs (its matrix decides xor_sched or gf_matmul_gen)
+        by_lost: dict = {}
+        for n in msr_objs:
+            acting = msr_acting[msr_io.object_pg(n).ps][0]
+            if dv in acting:
+                by_lost[acting.index(dv)] = by_lost.get(
+                    acting.index(dv), 0) + 1
+        out["msr_objects_by_lost_shard"] = by_lost
         out["plan"] = plan
         out["msr_id"] = msr_id
         out["msr_sinfo_width"] = next(iter(osds.values()))._sinfo(
@@ -3933,6 +3977,10 @@ def recovery_report(dev, card: str, rec: dict, twin: dict, rs_want,
     def err(a, b) -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
+    from ceph_tpu_torch.ec import plan as tplan
+    from ceph_tpu_torch.ec import xsched as txsched
+    from ceph_tpu_torch.ops import xor_kernels
+
     one_lost = rs.decode_matrix(rs_mat, K, [0], list(range(1, K + 1)))
     msr = create_erasure_code({**RECOVERY_MSR_PROFILE, "device": str(dev)})
     alpha, d = msr.get_sub_chunk_count(), msr.repair_degree()
@@ -3956,6 +4004,26 @@ def recovery_report(dev, card: str, rec: dict, twin: dict, rs_want,
         fn = getattr(gf_kernels, f"gf_matmul_{kind}")
         plain = getattr(gf_kernels, f"gf_matmul_{kind}_plain")
         kernel_errs[label] = err(fn(mat, x), plain(mat, x))
+    # the rebuilds the schedule pick takes run on xor_sched's GF entry:
+    # which lost chunks' (alpha x d) matrices it takes, and the entry at
+    # the rebuild shape against the GF product's plain version
+    n_msr = msr.get_chunk_count()
+    picked = set()
+    for lost in range(n_msr):
+        sched = tplan._sched_for(msr.repair_matrix(
+            lost, tuple(h for h in range(n_msr) if h != lost)))
+        if sched is not None and txsched.prefer_schedule(sched):
+            picked.add(lost)
+    rmat = msr.repair_matrix(min(picked), tuple(
+        h for h in range(n_msr) if h != min(picked))) if picked else None
+    if rmat is not None:
+        x = rand_dev(1, d, 4 * msr_chunk // alpha // 4 * 4)
+        kernel_errs["msr rebuild (1, d, 4 chunks/alpha) on xor_sched"] = err(
+            xor_kernels.xor_sched_gf(txsched.lower_program(
+                tplan._sched_for(rmat)), x),
+            gf_kernels.gf_matmul_gen_plain(rmat, x))
+    xor_objects = sum(v for lost, v in rec["msr_objects_by_lost_shard"]
+                      .items() if lost in picked)
 
     # each path's launches against its counters (every OSD's, the killed
     # and revived daemons' too)
@@ -3978,13 +4046,20 @@ def recovery_report(dev, card: str, rec: dict, twin: dict, rs_want,
         "recovery_crc": lr["crc32c_blocks"] == 2 * hinfo_b,
         "recovery_batched": 0 < c(rec["b_counts"], "perf.decode_dispatches")
         < rec["b_objects_to_rebuild"],
-        # MSR: one projection a fragment (on its helper) and one rebuild
-        # a (lost, helper set) group, beside step d's RS decodes
-        "msr_gen": c(cm, "perf.repair_fragments")
+        # MSR: one projection a fragment (on its helper; the pick refuses
+        # the (1 x alpha) vectors: gf_matmul_gen) and one rebuild a (lost,
+        # helper set) group, on xor_sched's GF entry where the pick takes
+        # the (alpha x d) matrix, else on gen, beside step d's RS decodes
+        "msr_gen_and_xor_sched": c(cm, "perf.repair_fragments")
         + min(1, c(cm, "perf.repair_objects"))
-        + c(cm, "svc.decode_batches") <= lm["gf_matmul_gen"]
+        + c(cm, "svc.decode_batches")
+        <= lm["gf_matmul_gen"] + lm["xor_sched_gf"]
         <= c(cm, "svc.decode_requests") + c(cm, "perf.repair_objects")
         + c(cm, "perf.repair_fragments"),
+        "msr_projections_on_gen": lm["gf_matmul_gen"]
+        >= c(cm, "perf.repair_fragments"),
+        "msr_rebuilds_on_xor_sched": min(1, xor_objects)
+        <= lm["xor_sched_gf"] <= xor_objects,
         "msr_spec": lm["gf_matmul_spec"] == c(cm, "perf.encode_dispatches"),
         "msr_crc": lm["crc32c_blocks"] == 0}
     # MSR: every rebuild from d fragments, and on the primaries that ran
@@ -4033,7 +4108,10 @@ def recovery_report(dev, card: str, rec: dict, twin: dict, rs_want,
                         for path, counts in rec["counts"].items()},
            "launches": rec["launches"], "launches_ok": launches_ok,
            "msr": {**msr_ok, "alpha": alpha, "d": d,
-                   "ratios_on_clean_primaries": ratios},
+                   "ratios_on_clean_primaries": ratios,
+                   "rebuilds_on_xor_sched_for_lost": sorted(picked),
+                   "objects_by_lost_shard": rec["msr_objects_by_lost_shard"],
+                   "objects_on_xor_sched": xor_objects},
            "reads_exact": sum(rec["reads_exact"]),
            "reads": len(rec["reads_exact"]),
            "shards_vs_cpu_encode_checked": shards_checked,
@@ -4786,7 +4864,7 @@ PERSIST_WAL_EDIT = 200          # its small overwrite: a deferred WAL entry
 PERSIST_TIMEOUT = 300.0
 SWEEP_TXNS = 24
 VSTART_OSDS = 12
-VSTART_BENCH_S = 5
+VSTART_BENCH_S = 3
 VSTART_BENCH_THREADS = 16
 VSTART_TENANTS = 8
 VSTART_TENANT_OBJECTS = 16
@@ -5568,6 +5646,515 @@ def persist_phase(torch, dev, card: str, wrappers: dict) -> dict:
     return {"persist": a["launches"], "persist_sweep": b["launches"]}
 
 
+# phase 3n: the XOR-schedule kernel and the bitmatrix codecs (path
+# `xsched`).  BASELINE config 1's shape (1 MiB objects, k=4 m=2) for the
+# jerasure bitmatrix trio at packetsize 2048; the MSR repair programs at
+# phase 3j's shapes; a packed batch of 512 one-stripe objects; then a
+# cluster of 3i's shape carrying a liberation k=4 m=2 w=7 pool whose stripe
+# unit is one chunk (w x packetsize = 14,336 bytes), so that one-stripe
+# writes pack: config 5's 64 MiB as 16 objects of 4 MiB four in flight, a
+# burst of 512 one-stripe writes 32 in flight, a trickle of 16 spaced ones
+XSCHED_PS = 2048
+XSCHED_PROFILES = {
+    tech: {"plugin": "jerasure", "technique": tech, "k": "4", "m": "2",
+           "w": str(w), "packetsize": str(XSCHED_PS)}
+    for tech, w in (("liberation", 7), ("blaum_roth", 6), ("liber8tion", 8))}
+XSCHED_K = 4
+XSCHED_OBJECT = 1 << 20
+XSCHED_PACKED = 512
+XSCHED_BENCH_ITERATIONS = 20
+XSCHED_POOL = "lib.data"
+XSCHED_UNIT = 7 * XSCHED_PS
+XSCHED_POOL_PROFILE = {**XSCHED_PROFILES["liberation"],
+                       "crush-failure-domain": "osd",
+                       "stripe_unit": str(XSCHED_UNIT)}
+XSCHED_BURST, XSCHED_BURST_IN_FLIGHT = 512, 32
+XSCHED_TRICKLE, XSCHED_TRICKLE_GAP_S = 16, 0.1
+# the OSDs' encode-service window (CEPH_TPU_ENCODE_BATCH_WINDOW_MS, the
+# reference's knob): the router calls a bucket hot below a quarter of it.
+# A burst's writes reach a primary a few ms apart, each behind the op
+# processing of the ones before it on the one loop, so at the default 1 ms
+# every write stays cold; at 20 ms the burst packs and the trickle, 20 ms
+# apart, stays inline
+XSCHED_WINDOW_MS = 100.0
+XSCHED_MSR = {"4/3/6": {"plugin": "ec_msr", "k": "4", "m": "3", "d": "6"},
+              "5/5/9": {"plugin": "ec_msr", "k": "5", "m": "5", "d": "9"}}
+
+
+def xsched_ops(prog, n_objects: int, region_bytes: int) -> int:
+    """32-bit lane operations of the region entry: one a tape op and
+    column (a copy or a zero fill counts too)."""
+    return n_objects * prog.n_ops * -(-region_bytes // 4)
+
+
+def xsched_gf_ops(prog, b: int, s: int) -> int:
+    """32-bit lane operations of the GF entry: per word of a column, a
+    shift a bit plane, the tape's ops, and a mask, a shift and an OR per
+    output plane."""
+    return b * (s // 4) * (prog.n_in + prog.n_ops + 3 * prog.n_out)
+
+
+def xsched_kernels(torch, dev, card: str) -> dict:
+    """Phase 3n (a): each entry of the xor_sched kernel against its plain
+    version (outside any counted path), timed alone and back to back
+    beside its bound and its plain version; gf_matmul_gen at the same
+    repair shapes."""
+    from ceph_tpu_torch.ec import xsched
+    from ceph_tpu_torch.ec.registry import create_erasure_code
+    from ceph_tpu_torch.models import bitmatrix as bmx
+    from ceph_tpu_torch.ops import gf, gf_kernels, xor_kernels
+    from ceph_tpu_torch.tools.kernel_shapes import alone_ms, back_to_back_ms
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=gen)
+
+    def err(a, b) -> int:
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    regions = {}
+    for tech, prof in XSCHED_PROFILES.items():
+        codec = create_erasure_code({**prof, "device": str(dev)})
+        w = codec.w
+        rb = codec.get_chunk_size(XSCHED_OBJECT) // w
+        have = tuple(range(2, XSCHED_K + 2))
+        for label, rows, sig in (
+                ("encode", codec.bitmatrix, codec._sig),
+                ("decode 0 1", bmx.decode_bitmatrix(
+                    codec.bitmatrix, XSCHED_K, w, have, (0, 1)),
+                 f"{codec._sig}/d{have}/(0, 1)")):
+            prog = xsched.lower_program(xsched.compile_matrix(rows, sig=sig))
+            regions[f"{tech} {label}"] = (prog, rand(1, prog.n_regions, rb))
+        if tech == "liberation":
+            prog = regions["liberation encode"][0]
+            regions["packed 512 one-stripe objects"] = (
+                prog, rand(XSCHED_PACKED, prog.n_regions, XSCHED_PS))
+    out = {"regions": {}, "gf": {}}
+    worst = 0
+    for name, (prog, arena) in regions.items():
+        plain = arena.clone()
+        xor_kernels.xor_sched_regions_plain(prog, plain)
+        xor_kernels.xor_sched_regions(prog, arena)
+        torch.cuda.synchronize()
+        base = prog.out_base
+        e = err(arena[:, base:], plain[:, base:])
+        kept = bool(torch.equal(arena[:, :prog.n_in], plain[:, :prog.n_in]))
+        n_obj, _r, rb = arena.shape
+        b_ms, by = bound(n_obj * (prog.n_in + prog.n_out) * rb,
+                         xsched_ops(prog, n_obj, rb))
+        worst = max(worst, e)
+        out["regions"][name] = {
+            "shape": list(arena.shape), "n_in": prog.n_in,
+            "n_slots": prog.n_slots, "n_out": prog.n_out,
+            "n_ops": prog.n_ops, "max_abs_err": e, "inputs_kept": kept,
+            "ms": alone_ms(lambda: xor_kernels.xor_sched_regions(prog,
+                                                                 arena)),
+            "back_to_back_ms": back_to_back_ms(
+                lambda: xor_kernels.xor_sched_regions(prog, arena)),
+            "plain_ms": alone_ms(lambda: xor_kernels.xor_sched_regions_plain(
+                prog, plain), reps=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": by}
+        check(e == 0 and kept, f"xor_sched_regions disagrees with its plain"
+              f" version on {name}")
+    msr = {name: create_erasure_code({**prof, "device": str(dev)})
+           for name, prof in XSCHED_MSR.items()}
+    m436 = msr["4/3/6"]
+    alpha = m436.get_sub_chunk_count()
+    frag = m436.get_chunk_size(OSD_OBJECT) // alpha // 4 * 4
+    m559 = msr["5/5/9"]
+    frag559 = m559.get_chunk_size(OSD_OBJECT) // 5 // 4 * 4
+    gf_cases = {
+        "msr 4/3/6 rebuild lost 0 (1, 6, chunk/3)": (
+            m436.repair_matrix(0, tuple(range(1, 7))), rand(1, 6, frag)),
+        "msr 4/3/6 rebuild lost 6 (1, 6, 4 chunks/3)": (
+            m436.repair_matrix(6, tuple(range(6))), rand(1, 6, 4 * frag)),
+        "msr 5/5/9 project lost 9 (1, 5, chunk/5)": (
+            m559.repair_vector(9)[None, :], rand(1, 5, frag559))}
+    for name, (mat, data) in gf_cases.items():
+        sched = xsched.compile_matrix(gf.gf_matrix_to_bits(mat))
+        check(xsched.prefer_schedule(sched), f"{name}: the pick refuses"
+              " the schedule")
+        prog = xsched.lower_program(sched)
+        got = xor_kernels.xor_sched_gf(prog, data)
+        e = max(err(got, xor_kernels.xor_sched_gf_plain(prog, data)),
+                err(got, gf_kernels.gf_matmul_gen_plain(mat, data)))
+        out_t = torch.empty_like(got)
+        b, _k, s = data.shape
+        b_ms, by = bound(data.numel() + got.numel(),
+                         xsched_gf_ops(prog, b, s))
+        worst = max(worst, e)
+        out["gf"][name] = {
+            "matrix": list(mat.shape), "shape": list(data.shape),
+            "xors_naive": sched.xors_naive,
+            "xors_scheduled": sched.xors_scheduled, "n_ops": prog.n_ops,
+            "n_regions": prog.n_regions, "max_abs_err": e,
+            "ms": alone_ms(lambda: xor_kernels.xor_sched_gf(prog, data,
+                                                            out=out_t)),
+            "back_to_back_ms": back_to_back_ms(
+                lambda: xor_kernels.xor_sched_gf(prog, data, out=out_t)),
+            "plain_ms": alone_ms(lambda: xor_kernels.xor_sched_gf_plain(
+                prog, data), reps=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": by,
+            "gf_matmul_gen_ms": alone_ms(lambda: gf_kernels.gf_matmul_gen(
+                mat, data, out=out_t)),
+            "gf_matmul_gen_back_to_back_ms": back_to_back_ms(
+                lambda: gf_kernels.gf_matmul_gen(mat, data, out=out_t))}
+        check(e == 0, f"xor_sched_gf disagrees with its plain version and"
+              f" gf_matmul_gen on {name}")
+    out["max_abs_err"] = worst
+    print(json.dumps({"phase": "xsched_kernels", "card": card, **out}))
+    return out
+
+
+def xsched_codecs(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3n (b): the trio at config 1's shape through the codec (every
+    chunk against a device="cpu" twin, every two-erasure decode) and
+    through the port's erasure_code_benchmark CLI; encode and decode
+    GiB/s on the host clock."""
+    import contextlib
+    import io
+    import itertools
+    import random
+
+    from ceph_tpu_torch.ec.registry import create_erasure_code
+    from ceph_tpu_torch.ops import xor_kernels
+    from ceph_tpu_torch.tools import erasure_code_benchmark
+
+    rng = np.random.default_rng(SEED + 22)
+    gib = XSCHED_OBJECT / (1 << 30)
+    out = {}
+    for tech, prof in XSCHED_PROFILES.items():
+        codec = create_erasure_code({**prof, "device": str(dev)})
+        twin = create_erasure_code({**prof, "device": "cpu"})
+        check(codec.device.type == "cuda", f"{tech}: the codec is not on"
+              " the card")
+        n = codec.get_chunk_count()
+        obj = rng.bytes(XSCHED_OBJECT)
+        before = xor_kernels.xor_sched_regions.launches
+        enc = codec.encode(range(n), obj)
+        enc_launches = xor_kernels.xor_sched_regions.launches - before
+        want = twin.encode(range(n), obj)
+        same = all(bytes(enc[i]) == bytes(want[i]) for i in range(n))
+        size = len(enc[0])
+        decodes = bad = 0
+        for lost in itertools.combinations(range(n), 2):
+            have = {i: bytes(enc[i]) for i in range(n) if i not in lost}
+            got = codec.decode(set(lost), have, size)
+            decodes += 1
+            bad += any(bytes(got[i]) != bytes(want[i]) for i in lost)
+        have01 = {i: bytes(enc[i]) for i in range(2, n)}
+        before = xor_kernels.xor_sched_regions.launches
+        codec.decode({0, 1}, have01, size)
+        dec_launches = xor_kernels.xor_sched_regions.launches - before
+        enc_s = host_median_s(torch, lambda: codec.encode(range(n), obj))
+        dec_s = host_median_s(torch, lambda: codec.decode({0, 1}, have01,
+                                                          size))
+        bench = {}
+        for workload in ("encode", "decode"):
+            argv = ["-p", prof["plugin"], "-s", str(XSCHED_OBJECT), "-i",
+                    str(XSCHED_BENCH_ITERATIONS), "-w", workload]
+            for key, val in prof.items():
+                if key != "plugin":
+                    argv += ["-P", f"{key}={val}"]
+            if workload == "decode":
+                argv += ["-e", "2"]
+            random.seed(SEED)
+            buf, errs = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(errs):
+                rc = erasure_code_benchmark.run(argv, device=dev)
+            sec, kib = buf.getvalue().strip().splitlines()[-1].split("\t")
+            bench[workload] = {"rc": rc, "seconds": float(sec),
+                               "kib": int(kib),
+                               "gib_per_s": int(kib) / (1 << 20)
+                               / float(sec),
+                               "stderr": errs.getvalue().strip()
+                               .splitlines()[-1]}
+        row = {"technique": tech, "w": codec.w, "chunk": size,
+               "same_as_cpu_twin": same, "two_erasure_decodes": decodes,
+               "bad_decodes": bad, "launches_per_encode": enc_launches,
+               "launches_per_decode": dec_launches,
+               "encode_gib_per_s": gib / enc_s,
+               "decode_2_lost_gib_per_s": gib / dec_s, "benchmark": bench}
+        out[tech] = row
+        check(same, f"{tech}: chunks differ from the CPU twin's")
+        check(bad == 0, f"{tech}: a two-erasure decode differs")
+        check(enc_launches == dec_launches == 1, f"{tech}: an encode or a"
+              " decode did not take one xor_sched launch")
+        check(all(b["rc"] == 0 for b in bench.values()),
+              f"{tech}: erasure_code_benchmark failed")
+    print(json.dumps({"phase": "xsched_codecs", "card": card, **out}))
+    return out
+
+
+def xsched_cluster(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3n (c): a fresh cluster of 3i's shape with the liberation
+    pool, its counts zeroed once the pool is active: the PUT, the burst
+    and the trickle, every object read healthy and with two OSDs holding
+    data shards killed and down, the two revived, clean.  Every stored
+    shard and hinfo against a device="cpu" codec replaying the writes
+    (encode_with_hinfo of each object)."""
+    import asyncio
+
+    from ceph_tpu_torch.ec.registry import create_erasure_code
+    from ceph_tpu_torch.mon import MonDaemon
+    from ceph_tpu_torch.os.memstore import MemStore
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.daemon import OSDDaemon
+    from ceph_tpu_torch.rados.client import RadosClient
+    from ceph_tpu_torch.rados.embedded import HINFO_ATTR
+
+    rng = np.random.default_rng(SEED + 23)
+    put = {f"put.part{p}.{i}": rng.bytes(OSD_OBJECT)
+           for p in range(OSD_PUT // OSD_PART)
+           for i in range(OSD_PART // OSD_OBJECT)}
+    width = XSCHED_K * XSCHED_UNIT
+    burst = {f"burst.{i}": rng.bytes(width) for i in range(XSCHED_BURST)}
+    trickle = {f"trickle.{i}": rng.bytes(width)
+               for i in range(XSCHED_TRICKLE)}
+    objs = {**put, **burst, **trickle}
+
+    async def drive():
+        mon = MonDaemon(OSD_OSDS, osds_per_host=OSD_OSDS_PER_HOST,
+                        config=dict(OSD_MON_CONFIG))
+        addr = await mon.start()
+        osds, stores = {}, {}
+        for i in range(OSD_OSDS):
+            stores[i] = MemStore()
+            stores[i].mkfs()
+            stores[i].mount()
+            osds[i] = OSDDaemon(i, [addr], store=stores[i],
+                                config=dict(OSD_CONFIG), device=dev)
+            await osds[i].start()
+        daemons = list(osds.values())
+        client = RadosClient([addr])
+        await client.connect()
+        res: dict = {"seconds": {}}
+        try:
+            await client.create_ec_pool(XSCHED_POOL,
+                                        dict(XSCHED_POOL_PROFILE), pg_num=8)
+            pool_id = mon.osdmap.lookup_pool(XSCHED_POOL)
+            await pool_active(mon, osds, pool_id)
+            io = client.open_ioctx(XSCHED_POOL)
+            base = {id(o): service_counts(o) for o in daemons}
+
+            def growth():
+                out: dict = {}
+                for o in daemons:
+                    was = base.get(id(o), {})
+                    for k, v in service_counts(o).items():
+                        if isinstance(v, int):
+                            out[k] = out.get(k, 0) + v - was.get(k, 0)
+                return out
+
+            def hist():
+                out: dict = {}
+                for o in daemons:
+                    for label, prof in o.encode_service.stats()[
+                            "profiles"].items():
+                        if label.startswith("encode_hinfo"):
+                            for size, c in prof["batch_size_hist"].items():
+                                out[size] = out.get(size, 0) + c
+                return out
+
+            for fn in wrappers.values():
+                fn.launches = 0
+            names = list(put)
+            per = OSD_PART // OSD_OBJECT
+
+            async def part(p):
+                for name in names[p * per:(p + 1) * per]:
+                    await io.write_full(name, put[name])
+            t0 = time.perf_counter()
+            await asyncio.gather(*(part(p)
+                                   for p in range(OSD_PUT // OSD_PART)))
+            res["seconds"]["put"] = time.perf_counter() - t0
+            svc_put = growth()
+            sem = asyncio.Semaphore(XSCHED_BURST_IN_FLIGHT)
+
+            async def one(name):
+                async with sem:
+                    await io.write_full(name, burst[name])
+            t0 = time.perf_counter()
+            await asyncio.gather(*(one(name) for name in burst))
+            res["seconds"]["burst"] = time.perf_counter() - t0
+            svc_burst = growth()
+            res["hist_after_burst"] = hist()
+            t0 = time.perf_counter()
+            for name, data in trickle.items():
+                await io.write_full(name, data)
+                await asyncio.sleep(XSCHED_TRICKLE_GAP_S)
+            res["seconds"]["trickle"] = time.perf_counter() - t0
+            svc_writes = growth()
+            res["launches_writes"] = {n: fn.launches
+                                      for n, fn in wrappers.items()}
+
+            async def read_put():
+                async def rpart(p):
+                    return [(n, await io.read(n))
+                            for n in names[p * per:(p + 1) * per]]
+                got = await asyncio.gather(
+                    *(rpart(p) for p in range(OSD_PUT // OSD_PART)))
+                return [put[n] == b for g in got for n, b in g]
+            t0 = time.perf_counter()
+            healthy = await read_put()
+            res["seconds"]["read_healthy"] = time.perf_counter() - t0
+            healthy += [await io.read(n) == d for n, d in
+                        {**burst, **trickle}.items()]
+            res["launches_healthy_reads"] = {
+                n: fn.launches - res["launches_writes"][n]
+                for n, fn in wrappers.items()}
+            # two OSDs holding data shards (primaries of none first)
+            acting = [mon.osdmap.pg_to_acting_osds(io.object_pg(n))
+                      for n in names]
+            primaries = {p for _a, p in acting}
+            holders: dict = {}
+            for a, _p in acting:
+                for osd in a[:XSCHED_K]:
+                    holders[osd] = holders.get(osd, 0) + 1
+            victims = sorted(holders, key=lambda o: (
+                o in primaries, -holders[o], o))[:2]
+            for v in victims:
+                await osds.pop(v).kill()
+                rc, msg = await client.mon_command({"prefix": "osd down",
+                                                    "osd": v})
+                check(rc == 0, f"osd down {v}: {msg}")
+            t0 = time.perf_counter()
+            degraded = await read_put()
+            res["seconds"]["read_2_down"] = time.perf_counter() - t0
+            degraded += [await io.read(n) == d for n, d in burst.items()]
+            t0 = time.perf_counter()
+            for v in victims:
+                osds[v] = OSDDaemon(v, [addr], store=stores[v],
+                                    config=dict(OSD_CONFIG), device=dev)
+                await osds[v].start()
+                daemons.append(osds[v])
+            await wait_clean(mon, osds)
+            res["seconds"]["revive_to_clean"] = time.perf_counter() - t0
+            res["launches"] = {n: fn.launches for n, fn in wrappers.items()}
+            res.update(victims=victims, healthy=healthy, degraded=degraded,
+                       svc={"put": svc_put, "burst": svc_burst,
+                            "writes": svc_writes, "all": growth()},
+                       hist=hist(), snap=snapshot(stores, pool_id))
+        finally:
+            await client.shutdown()
+            for osd in osds.values():
+                await osd.stop()
+            await mon.shutdown()
+        return res
+
+    import os
+
+    was = os.environ.get("CEPH_TPU_ENCODE_BATCH_WINDOW_MS")
+    os.environ["CEPH_TPU_ENCODE_BATCH_WINDOW_MS"] = str(XSCHED_WINDOW_MS)
+    try:
+        res = asyncio.run(asyncio.wait_for(drive(), OSD_PHASE_TIMEOUT))
+    finally:
+        if was is None:
+            os.environ.pop("CEPH_TPU_ENCODE_BATCH_WINDOW_MS", None)
+        else:
+            os.environ["CEPH_TPU_ENCODE_BATCH_WINDOW_MS"] = was
+    # the device="cpu" twin: every object's encode_with_hinfo on the CPU
+    cpu = create_erasure_code({**XSCHED_POOL_PROFILE, "device": "cpu"})
+    sinfo = ec_util.StripeInfo(XSCHED_K, width)
+    want, bad, checked = {}, [], 0
+    for (osd_id, cid, name), (data, attrs) in res["snap"].items():
+        shard = int(cid.rsplit("s", 1)[1].split("_")[0])
+        if name not in want:
+            obj = objs[name] + bytes(-len(objs[name]) % width)
+            shards, h, _c = ec_util.encode_with_hinfo(sinfo, cpu, obj,
+                                                      range(XSCHED_K + 2))
+            want[name] = ({i: bytes(v) for i, v in shards.items()},
+                          h.to_dict())
+        exp, hinfo = want[name]
+        if bytes(data) != exp[shard] or json.loads(attrs[HINFO_ATTR]) \
+                != hinfo:
+            bad.append([osd_id, cid, name])
+        checked += 1
+    svc = res["svc"]
+    put_b = svc["put"].get("encode_hinfo_batches", 0)
+    burst_b = svc["burst"].get("encode_hinfo_batches", 0) - put_b
+    burst_batched = svc["burst"]["batched"] - svc["put"]["batched"]
+    trickle_cold = svc["writes"]["inline_cold"] - svc["burst"]["inline_cold"]
+    trickle_batched = svc["writes"]["batched"] - svc["burst"]["batched"]
+    lw = res["launches_writes"]
+    hinfo_b = svc["writes"].get("encode_hinfo_batches", 0)
+    inline = (svc["writes"]["inline"] + svc["writes"]["shed"])
+    stripes_max = -(-OSD_OBJECT // width)
+    gib = OSD_PUT / (1 << 30)
+    secs = res["seconds"]
+    out = {
+        "phase": "xsched_cluster", "card": card, "seconds": secs,
+        "put_gib_per_s": gib / secs["put"],
+        "read_healthy_gib_per_s": gib / secs["read_healthy"],
+        "read_2_down_gib_per_s": gib / secs["read_2_down"],
+        "seconds_to_clean": secs["revive_to_clean"],
+        "burst_writes_per_s": XSCHED_BURST / secs["burst"],
+        "packed_batch_sizes": res["hist"],
+        "packed_batch_sizes_after_burst": res["hist_after_burst"],
+        "inline_cold": svc["writes"]["inline_cold"],
+        "inline": svc["writes"]["inline"], "batched": svc["writes"]["batched"],
+        "packed_batches": hinfo_b, "burst_batches": burst_b,
+        "burst_batched": burst_batched, "trickle_inline_cold": trickle_cold,
+        "trickle_batched": trickle_batched, "victims": res["victims"],
+        "reads_exact": sum(res["healthy"]) + sum(res["degraded"]),
+        "reads": len(res["healthy"]) + len(res["degraded"]),
+        "shards_vs_cpu_encode_checked": checked,
+        "shards_vs_cpu_encode_bad": bad[:5],
+        "launches_writes": lw,
+        "launches_healthy_reads": res["launches_healthy_reads"],
+        "launches": res["launches"], "service": svc["all"]}
+    print(json.dumps(out))
+    check(all(res["healthy"]) and all(res["degraded"]), "a read of the"
+          " liberation pool differs from the written bytes")
+    check(not bad and checked >= len(objs) * (XSCHED_K + 2), "a stored"
+          " shard or hinfo differs from the CPU twin's encode")
+    check(burst_batched >= XSCHED_BURST // 4 and burst_b >= 1
+          and max(int(s) for s in res["hist_after_burst"]) > 1,
+          "the router did not pack the burst into multi-object batches")
+    check(trickle_cold >= XSCHED_TRICKLE - 1 and trickle_batched <= 1,
+          "the spaced trickle did not stay inline")
+    check(lw["crc32c_blocks"] == 2 * hinfo_b, "crc32c_blocks did not"
+          " launch twice per packed batch")
+    check(hinfo_b <= lw["xor_sched_regions"]
+          <= hinfo_b + inline * stripes_max,
+          "xor_sched_regions launches do not match the packed batches and"
+          " the inline encodes")
+    check(lw["gf_matmul_spec"] == lw["gf_matmul_gen"] == 0,
+          "a GF matmul kernel launched on the liberation pool's writes")
+    check(res["launches"]["xor_sched_regions"] > lw["xor_sched_regions"],
+          "the degraded reads did not decode on xor_sched")
+    return {"launches": res["launches"], "summary": out}
+
+
+def xsched_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3n: (a) the xor_sched kernel's entries against their plain
+    versions and timed, (b) the bitmatrix trio through the codec and the
+    benchmark CLI (path `xsched_codec`), (c) the liberation pool in a live
+    cluster (path `xsched`).  Returns (a)'s numbers and the paths'
+    launches."""
+    t0 = time.perf_counter()
+    kernels = xsched_kernels(torch, dev, card)
+    t1 = time.perf_counter()
+    for fn in wrappers.values():
+        fn.launches = 0
+    xsched_codecs(torch, dev, card, wrappers)
+    codec_launches = {n: fn.launches for n, fn in wrappers.items()}
+    t2 = time.perf_counter()
+    cluster = xsched_cluster(torch, dev, card, wrappers)
+    t3 = time.perf_counter()
+    print(json.dumps({"phase": "xsched", "card": card, "seconds": {
+        "a_kernels": t1 - t0, "b_codecs": t2 - t1, "c_cluster": t3 - t2},
+        "launches": {"xsched_codec": codec_launches,
+                     "xsched": cluster["launches"]}}))
+    return {"kernels": kernels,
+            "launches": {"xsched_codec": codec_launches,
+                         "xsched": cluster["launches"]}}
+
+
 def main() -> None:
     import torch
 
@@ -5581,7 +6168,8 @@ def main() -> None:
         from ceph_tpu_torch.models import reed_solomon as rs
         from ceph_tpu_torch.ops import (_build, bloom_kernels, crc_kernels,
                                         crush_kernels, fold_kernels,
-                                        gf_kernels, score_kernels)
+                                        gf_kernels, score_kernels,
+                                        xor_kernels)
         from ceph_tpu_torch.ops import checksum as cks
         from ceph_tpu_torch.ops.gf import gf_matmul_ref
         from ceph_tpu_torch.osd import ec_util
@@ -5629,11 +6217,13 @@ def main() -> None:
                       "max_registers": max(regs) if regs else None,
                       "spill_store_bytes": spills,
                       "crc32c_dynamic_smem_bytes": crc_kernels.smem_bytes()}))
-    print(json.dumps({"phase": "build_ptxas", "source": "compress_score",
-                      "lines": [line.strip() for line in _build.build_logs()
-                                .get("compress_score", "").splitlines()
-                                if "registers" in line or "spill" in line
-                                or "smem" in line]}))
+    for source in ("compress_score", "xor_sched"):
+        print(json.dumps({"phase": "build_ptxas", "source": source,
+                          "lines": [line.strip() for line in
+                                    _build.build_logs().get(
+                                        source, "").splitlines()
+                                    if "registers" in line or "spill" in line
+                                    or "smem" in line]}))
     mark("1")
 
     wrappers = {"gf_matmul_spec": gf_kernels.gf_matmul_spec,
@@ -5642,7 +6232,14 @@ def main() -> None:
                 "crush_do_rule_batch": crush_kernels.crush_do_rule_batch,
                 "score_blocks": score_kernels.score_blocks_packed,
                 "gf_fold": fold_kernels.gf_fold,
-                "bloom_positions": bloom_kernels.bloom_positions}
+                "bloom_positions": bloom_kernels.bloom_positions,
+                "xor_sched_regions": xor_kernels.xor_sched_regions,
+                "xor_sched_gf": xor_kernels.xor_sched_gf}
+    if sys.argv[1:] == ["--phase", "xsched"]:
+        # phase 3n alone, after the build: no result line
+        print(json.dumps({"phase_only": "xsched", "launches": xsched_phase(
+            torch, dev, card, wrappers)["launches"]}))
+        return
     if sys.argv[1:] == ["--phase", "osd"]:
         # phases 3i, 3j and 3k alone, after the build: no result line
         print(json.dumps({"phase_only": "osd", "launches": osd_phase(
@@ -5865,6 +6462,10 @@ def main() -> None:
     # -- 3m. persistence in the live cluster --------------------------------
     persist_launches = persist_phase(torch, dev, card, wrappers)
     mark("3m")
+
+    # -- 3n. the XOR-schedule kernel and the bitmatrix codecs ----------------
+    xsched_state = xsched_phase(torch, dev, card, wrappers)
+    mark("3n")
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
@@ -5874,7 +6475,8 @@ def main() -> None:
                "store_cluster": store_state["store_cluster"],
                "compute": compute_state["launches"],
                "mon": mon_state["launches"], **osd_launches,
-               **rgw_launches, **persist_launches}
+               **rgw_launches, **persist_launches,
+               **xsched_state["launches"]}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)
@@ -6055,6 +6657,26 @@ def main() -> None:
         "max_abs_err": bloom["max_abs_err"], "ms": bloom["ms"],
         "plain_ms": bloom["plain_ms"], "bound_ms": bloom["bound_ms"],
         "bound_by": bloom["bound_by"], "library_ms": None})
+    # xor_sched at the packed batch of 512 one-stripe liberation objects
+    # (the region entry; both entries' launches; the GF entry's times at
+    # the MSR repair shapes are on the xsched_kernels line); no PyTorch
+    # call runs an XOR program, so no library call
+    packed = xsched_state["kernels"]["regions"]["packed 512 one-stripe"
+                                                " objects"]
+    xor_counts = {path: c.get("xor_sched_regions", 0)
+                  + c.get("xor_sched_gf", 0) for path, c in by_path.items()}
+    rows.append({
+        "name": "xor_sched", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/xor_sched.cu",
+        "replaces": "ceph_tpu/ec/plan.py:864",
+        "launches": sum(xor_counts.values()), "launches_by_path": xor_counts,
+        "launches_by_entry": {
+            name: path_launches(name)["launches"]
+            for name in ("xor_sched_regions", "xor_sched_gf")},
+        "max_abs_err": xsched_state["kernels"]["max_abs_err"],
+        "ms": packed["ms"], "plain_ms": packed["plain_ms"],
+        "bound_ms": packed["bound_ms"], "bound_by": packed["bound_by"],
+        "library_ms": None})
     mark("4")
     print(json.dumps({"phase_seconds": phase_seconds, "card": card}))
     print(json.dumps({"kernels": rows}))

@@ -339,12 +339,34 @@ def test_profile_errors_match_jax():
         assert isinstance(got, tuple), profile
 
 
-def test_bitmatrix_techniques_are_not_ported_yet():
-    for technique in ("liberation", "blaum_roth", "liber8tion"):
-        with pytest.raises(ErasureCodeError) as err:
-            create_erasure_code({"plugin": "jerasure", "technique": technique,
-                                 "k": "4", "m": "2", "device": "cpu"})
-        assert err.value.errno == 2
+@pytest.mark.parametrize("technique", ["liberation", "blaum_roth",
+                                       "liber8tion"])
+def test_bitmatrix_techniques_equal_jax(technique):
+    """The jerasure bitmatrix techniques build the port's bitmatrix codec
+    (once refused with errno 2): profile, geometry, every chunk and the
+    decode of every one- and two-erasure pattern equal the JAX codec's."""
+    profile = {"plugin": "jerasure", "technique": technique, "k": "4",
+               "m": "2", "packetsize": "64"}
+    tc = create_erasure_code({**profile, "device": "cpu"})
+    jc = jcreate(dict(profile))
+    assert type(tc).__name__ == "ErasureCodeTorchBitmatrix"
+    assert {k: v for k, v in tc.get_profile().items() if k != "device"} \
+        == jc.get_profile()
+    assert np.array_equal(tc.bitmatrix, jc.bitmatrix)
+    assert tc.get_alignment() == jc.get_alignment()
+    n = tc.get_chunk_count()
+    data = np.random.default_rng(SEED).bytes(2 * tc.get_alignment() + 17)
+    tchunks, jchunks = tc.encode(range(n), data), jc.encode(range(n), data)
+    assert [bytes(tchunks[i]) for i in range(n)] == \
+        [bytes(jchunks[i]) for i in range(n)]
+    size = len(jchunks[0])
+    for lost in itertools.chain.from_iterable(
+            itertools.combinations(range(n), r) for r in (1, 2)):
+        have = {i: bytes(jchunks[i]) for i in range(n) if i not in lost}
+        got = tc.decode(set(lost), have, size)
+        want = jc.decode(set(lost), have, size)
+        assert {i: bytes(got[i]) for i in lost} == \
+            {i: bytes(want[i]) for i in lost}, lost
 
 
 @pytest.mark.parametrize("name", PROFILES)

@@ -163,4 +163,5 @@ def test_benchmark_lines(capsys, argv):
     args = tecb.parse_args(argv)
     assert int(kib) == args.iterations * (args.size // 1024)
     assert err.strip().splitlines()[-1] == (
-        "launches: gf_matmul_spec=0 gf_matmul_gen=0 crc32c_blocks=0")
+        "launches: gf_matmul_spec=0 gf_matmul_gen=0 crc32c_blocks=0"
+        " xor_sched_regions=0 xor_sched_gf=0")

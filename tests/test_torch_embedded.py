@@ -214,20 +214,42 @@ def test_remove_and_list_match_jax(written):
     assert _stores(clusters["port"]) == _stores(clusters["jax"])
 
 
-def test_refusals(tmp_path):
-    """What the port does not run yet raises: a pool of a bitmatrix
-    technique (liberation).  A TPUStore-backed cluster is no refusal any
-    more: its OSDs hold TPUStores on the cluster's device."""
+def test_tpustores_and_bitmatrix_pools(tmp_path):
+    """Once refusals, both run now: a TPUStore-backed cluster's OSDs hold
+    TPUStores on the cluster's device, and a pool of a bitmatrix
+    technique (liberation) is created, written, read back healthy and
+    with two shards' OSDs down, and holds the JAX cluster's stores."""
     c = temb.LocalCluster(num_osds=6, store_path=str(tmp_path), device="cpu")
     assert all(type(s).__name__ == "TPUStore" and s.device.type == "cpu"
                for s in c.stores.values())
     c.shutdown()
-    c = temb.LocalCluster(num_osds=8, osds_per_host=2, device="cpu")
-    with pytest.raises(ErasureCodeError, match="liberation"):
-        c.create_erasure_pool("libpool", {"plugin": "jerasure",
-                                          "technique": "liberation",
-                                          "k": "4", "m": "2"}, pg_num=8)
-    assert c.osdmap.lookup_pool("libpool") == -1
+    profile = {"plugin": "jerasure", "technique": "liberation", "k": "4",
+               "m": "2", "packetsize": "64", "crush-failure-domain": "osd"}
+    rng = np.random.default_rng(SEED)
+    objs = {f"lib-{size}": rng.bytes(size) for size in SIZES}
+    clusters = {"jax": jemb.LocalCluster(num_osds=8, osds_per_host=2),
+                "port": temb.LocalCluster(num_osds=8, osds_per_host=2,
+                                          device="cpu")}
+    for c in clusters.values():
+        c.create_erasure_pool("libpool", dict(profile), pg_num=8)
+        io = c.open_ioctx("libpool")
+        for name, data in objs.items():
+            io.write_full(name, data)
+    try:
+        assert _stores(clusters["port"]) == _stores(clusters["jax"])
+        assert clusters["port"].osdmap.encode() == \
+            clusters["jax"].osdmap.encode()
+        name = f"lib-{1 << 20}"
+        for c in clusters.values():
+            io = c.open_ioctx("libpool")
+            assert all(io.read(n) == d for n, d in objs.items())
+            acting, _primary = io.acting(io.object_pg(name))
+            for osd in acting[:2]:
+                c.mark_osd_down(osd)
+            assert bytes(io.read(name)) == objs[name]
+    finally:
+        for c in clusters.values():
+            c.shutdown()
 
 
 def test_profiles_in_the_map_carry_no_device():
