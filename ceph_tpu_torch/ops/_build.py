@@ -53,9 +53,11 @@ _SIGNATURES = {
         "bloom_positions": (_P, _P, _LL, _I, ctypes.c_uint, _I, _P),
     },
     "xor_sched": {
-        "xor_sched_regions": (_P, _I, _I, _P, _LL, _I, _LL, _I, _I, _I, _P),
+        "xor_sched_regions": (_P, _I, _I, _I, _P, _LL, _I, _LL, _I, _I, _I,
+                              _P),
         "xor_sched_gf": (_P, _I, _I, _P, _P, _LL, _I, _I, _LL, _I, _I, _P),
-        "xor_sched_threads": (_I, _I),
+        "xor_sched_column_bytes": (_I, _I, _I, _I),
+        "xor_sched_gf_fits": (_I, _I, _I),
     },
     "crush": {
         "crush_do_rule_batch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

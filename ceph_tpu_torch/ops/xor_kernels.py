@@ -18,10 +18,13 @@ launch the kernel once:
   bit planes of (..., K, S) bytes and returns (..., R, S): the product
   `gf_matmul(m, data)`, with S % 4 == 0 on the card.
 
-On a CUDA tensor each entry launches the kernel or raises; on a CPU
-tensor it runs the plain version below, one PyTorch op per tape op (the
-`_sched_impl` lowering, which is what a kernel-less port would launch on
-the card).  Each entry counts its launches.
+The kernel runs the program's branch-free tape (`branch_free_tape`: every
+op r[dst] = r[a] ^ r[b], with one always-zero region, in shared-memory
+byte offsets), lowered once per program and column width and cached with
+its upload.  On a CUDA tensor each entry launches the kernel or raises;
+on a CPU tensor it runs the plain version below, one PyTorch op per tape
+op (the `_sched_impl` lowering, which is what a kernel-less port would
+launch on the card).  Each entry counts its launches.
 """
 
 from __future__ import annotations
@@ -29,24 +32,79 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from ceph_tpu_torch.ops import _build
 
-# the tapes on the card, one upload per (program, device)
+# csrc/xor_sched.cu: the columns of a tile (XS_THREADS), the unit the
+# device tape is padded to (XS_BATCH) and a bit-plane region's bytes in the
+# GF entry (XS_GF_STRIDE)
+THREADS = 32
+BATCH = 8
+GF_STRIDE = 4 * THREADS
+
+
+def branch_free_tape(prog, stride: int) -> np.ndarray:
+    """The tape as the kernel runs it: (n, 4) int32 rows (dst, a, b, 0),
+    each r[dst] = r[a] ^ r[b] over the program's regions and one region
+    Z = n_regions that is always zero (a copy is a ^ Z, an accumulate
+    dst ^ a, a zero fill Z ^ Z), every region index scaled to its byte
+    offset (index x stride), in tape order, padded with Z ^ Z ops to a
+    multiple of BATCH."""
+    t = np.asarray(prog.tape, dtype=np.int64).reshape(-1, 3)
+    dst, a, b = t[:, 0], t[:, 1], t[:, 2]
+    z = prog.n_regions
+    xor, acc = b >= 0, b == -2
+    copy = ~xor & ~acc & (a >= 0)
+    out = np.full((-(-len(t) // BATCH) * BATCH, 4), z, dtype=np.int64)
+    out[:len(t), 0] = dst
+    out[:len(t), 1] = np.where(xor | copy, a, np.where(acc, dst, z))
+    out[:len(t), 2] = np.where(xor, b, np.where(acc, a, z))
+    out[:, :3] *= stride
+    out[:, 3] = 0
+    return np.ascontiguousarray(out, dtype=np.int32)
+
+
+# the branch-free tapes on the card, one lowering and upload per
+# (program, device, column bytes)
 _tapes: OrderedDict = OrderedDict()
 _tapes_lock = threading.Lock()
 _TAPES_CAP = 256
 
 
-def _device_tape(prog, device: torch.device) -> torch.Tensor:
-    key = (prog.sig, prog.n_regions, prog.n_ops, device)
+def _stream(device: torch.device) -> int:
+    """The handle of the device's current stream.  (torch.cuda.
+    current_stream builds a Stream object a call, which took most of a
+    launch's host time.)"""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _device_tape(prog, device: torch.device, widest: int) -> tuple:
+    """(column bytes, device tape) of a program: for the region entry the
+    widest column of at most `widest` bytes (16, 4 or 1) whose working set
+    fits a block, for the GF entry (`widest` 0) its 4-byte plane words;
+    ValueError when the program does not fit."""
+    key = (prog.sig, prog.n_regions, prog.n_ops, device, widest)
     with _tapes_lock:
         got = _tapes.get(key)
         if got is not None:
             _tapes.move_to_end(key)
             return got
-    got = torch.from_numpy(prog.tape.copy()).to(device)
+    lib = _build.load()["xor_sched"]
+    n_pad = -(-prog.n_ops // BATCH) * BATCH
+    if widest:
+        vb = lib.xor_sched_column_bytes(prog.n_regions, prog.n_in, n_pad,
+                                        widest)
+        stride = vb * THREADS
+    else:
+        vb = 4 if lib.xor_sched_gf_fits(prog.n_regions, n_pad,
+                                        prog.n_in // 8) else 0
+        stride = GF_STRIDE
+    if vb == 0:
+        raise ValueError(f"a program of {prog.n_regions} regions does not"
+                         " fit a thread block's shared memory")
+    got = (vb, torch.from_numpy(branch_free_tape(prog, stride)).to(device))
     with _tapes_lock:
         _tapes[key] = got
         if len(_tapes) > _TAPES_CAP:
@@ -90,25 +148,22 @@ def xor_sched_regions(prog, arena: torch.Tensor) -> torch.Tensor:
     (output regions written): one kernel launch on a CUDA tensor, the
     plain version on a CPU tensor.  Returns the arena."""
     a = _arena_view(prog, arena)
-    if arena.device.type == "cpu":
+    dev = arena.device
+    if dev.type == "cpu":
         return xor_sched_regions_plain(prog, arena)
     n_objects, n_regions, rbytes = a.shape
     if n_objects == 0 or rbytes == 0:
         return arena
+    ptr = a.data_ptr()
+    widest = (16 if rbytes % 16 == 0 and ptr % 16 == 0 else
+              4 if rbytes % 4 == 0 and ptr % 4 == 0 else 1)
+    vb, tape = _device_tape(prog, dev, widest)
     lib = _build.load()["xor_sched"]
-    vb = 4 if rbytes % 4 == 0 else 1
-    if lib.xor_sched_threads(n_regions, vb) == 0:
-        raise ValueError(f"a program of {n_regions} regions does not fit a"
-                         " thread block's shared memory")
-    if vb == 4 and a.data_ptr() % 4:
-        raise ValueError("the arena must be 4-byte aligned")
-    tape = _device_tape(prog, arena.device)
     xor_sched_regions.launches += 1
     _build.check(lib.xor_sched_regions(
-        tape.data_ptr(), prog.n_ops, arena.device.index or 0, a.data_ptr(),
-        n_objects, n_regions, rbytes, prog.n_in, prog.out_base, prog.n_out,
-        torch.cuda.current_stream(arena.device).cuda_stream),
-        "xor_sched_regions")
+        tape.data_ptr(), len(tape), vb, dev.index, ptr, n_objects,
+        n_regions, rbytes, prog.n_in, prog.out_base, prog.n_out,
+        _stream(dev)), "xor_sched_regions")
     return arena
 
 
@@ -168,16 +223,14 @@ def xor_sched_gf(prog, data: torch.Tensor,
     b = data.numel() // (k * s)
     if b == 0:
         return out
+    dev = data.device
+    _vb, tape = _device_tape(prog, dev, 0)
     lib = _build.load()["xor_sched"]
-    if lib.xor_sched_threads(prog.n_regions, 4) == 0:
-        raise ValueError(f"a program of {prog.n_regions} regions does not"
-                         " fit a thread block's shared memory")
-    tape = _device_tape(prog, data.device)
     xor_sched_gf.launches += 1
     _build.check(lib.xor_sched_gf(
-        tape.data_ptr(), prog.n_ops, data.device.index or 0, data.data_ptr(),
+        tape.data_ptr(), len(tape), dev.index, data.data_ptr(),
         out.data_ptr(), b, k, r, s, prog.n_regions, prog.out_base,
-        torch.cuda.current_stream(data.device).cuda_stream), "xor_sched_gf")
+        _stream(dev)), "xor_sched_gf")
     return out
 
 

@@ -2,9 +2,8 @@
 """Time the port's kernels at the shapes the main path gives them, on one
 CUDA card.
 
-    python3 ceph_tpu_torch/tools/kernel_shapes.py {crc,gf,crush,score}
-                                                  [--root DIR] [--sass]
-                                                  [--cuts]
+    python3 ceph_tpu_torch/tools/kernel_shapes.py
+        {crc,gf,crush,score,xsched} [--root DIR] [--sass] [--cuts]
 
 `--root` names the checkout whose ceph_tpu_torch is built and timed
 (default: the one holding this script), so that two versions of a kernel
@@ -85,6 +84,17 @@ the checkout's csrc/compress_score.cu with parts cut out (SCORE_CUTS: the
 histogram's atomics, the lag counts, both), beside the library, and prints
 each copy's kernel_ms at both shapes through the wrapper: what each part
 costs.  Their results are wrong by design and are not checked.
+
+xsched: phase 3n (a) of this script's chip_smoke.py (`xsched_kernels`)
+run on the root's package: xor_sched's region entry on the trio's encode
+and decode arenas of a 1 MiB object, the one-stripe arena (1, 45, 2048)
+and the packed batch (512, 45, 2048), its GF entry at the MSR repair
+shapes beside gf_matmul_gen, each checked against its plain version and
+timed alone, back to back and queued behind a spin kernel ("queued_ms":
+the card's own time a call, the host's hidden) beside its bound (the
+phase's own JSON line comes first);
+then "host_us", the host microseconds a region-entry call takes on the
+one-stripe arena (HOST_REPS calls enqueued without a wait).
 """
 
 from __future__ import annotations
@@ -221,6 +231,26 @@ def back_to_back_ms(fn, reps: int = REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int = REPS, spin_cycles: int = 5_000_000):
+    """Mean device ms a call when `reps` calls wait in the queue behind a
+    spin kernel (torch.cuda._sleep): the card then runs them back to back
+    at its own pace, whatever the host's time a call, so this is the
+    kernel's time and the card's gap between kernels.  None when the card
+    reached the calls before the host had queued them all."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / reps if queued else None
 
 
 def times(fn, n_bytes: int) -> dict:
@@ -922,9 +952,46 @@ def crush_sass(build) -> dict:
             "DRAW_FMA_OPS": DRAW_FMA_OPS}
 
 
+def xsched_shapes(dev) -> tuple:
+    """chip_smoke.py's phase 3n (a) on the package first on sys.path, as
+    shape rows, and the host microseconds of a region-entry call."""
+    import importlib.util
+
+    from ceph_tpu_torch.ec import xsched
+    from ceph_tpu_torch.ec.registry import create_erasure_code
+    from ceph_tpu_torch.ops import xor_kernels
+    # the phase times with this script's helpers whatever the root's
+    # copy of this module holds: chip_smoke imports them by module name
+    sys.modules["ceph_tpu_torch.tools.kernel_shapes"] = sys.modules[__name__]
+    script = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("xsched_chip_smoke",
+                                                  script)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    got = smoke.xsched_kernels(torch, dev, card_name())
+    rows = [{"entry": entry, "name": name, "exact": r["max_abs_err"] == 0,
+             **{key: r[key] for key in ("ms", "back_to_back_ms",
+                                        "queued_ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
+             **({"gen_ms": r["gf_matmul_gen_ms"],
+                 "gen_back_to_back_ms": r["gf_matmul_gen_back_to_back_ms"],
+                 "gen_queued_ms": r["gf_matmul_gen_queued_ms"]}
+                if entry == "gf" else {})}
+            for entry in ("regions", "gf")
+            for name, r in got[entry].items()]
+    codec = create_erasure_code({**smoke.XSCHED_PROFILES["liberation"],
+                                 "device": str(dev)})
+    prog = xsched.lower_program(xsched.compile_matrix(codec.bitmatrix,
+                                                      sig=codec._sig))
+    arena = torch.zeros((1, prog.n_regions, smoke.XSCHED_PS),
+                        dtype=torch.uint8, device=dev)
+    return rows, host_us(lambda: xor_kernels.xor_sched_regions(prog, arena))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("kernel", choices=("crc", "gf", "crush", "score"))
+    ap.add_argument("kernel", choices=("crc", "gf", "crush", "score",
+                                       "xsched"))
     ap.add_argument("--root", default=str(Path(__file__).resolve()
                                           .parents[2]))
     ap.add_argument("--cuts", action="store_true",
@@ -957,6 +1024,11 @@ def main() -> None:
             or "spill" in line]
         if args.sass:
             res["sass"] = crush_sass(_build)
+    elif args.kernel == "xsched":
+        res["shapes"], res["host_us"] = xsched_shapes(dev)
+        res["ptxas"] = [line.strip() for line in _build.build_logs().get(
+            "xor_sched", "").splitlines() if "registers" in line
+            or "spill" in line or "smem" in line]
     elif args.kernel == "score":
         res["shapes"] = score_shapes(dev)
         if args.cuts:

@@ -3,26 +3,37 @@
 // build.
 //
 // xsched_device.inc is csrc/xor_sched.cu up to its host launchers: the
-// block-size choice (xs_threads) and the two kernels.  The CUDA builtins
-// they use are defined below: a thread block is blockDim.x fibers
-// (ucontext) on one OS thread, switched round robin whenever one waits at
-// __syncthreads; the dynamic shared memory is one static array.  The grid
-// is min(tiles, TARGET) blocks, run one at a time in reverse order, so a
-// small TARGET makes blocks walk several tiles.
+// shared-memory sizing (xs_region_buffers, xs_gf_smem) and the kernels.
+// The CUDA names they use are defined below: a thread block is XS_THREADS
+// fibers (ucontext) on one OS thread, switched round robin whenever one
+// waits at __syncthreads; the dynamic shared memory is one static array;
+// uint4 and int4 are 16-byte structs; __byte_perm picks bytes as the card
+// does.  An asynchronous copy (__pipeline_memcpy_async) is a memcpy that
+// lands, per job, either when it is issued ("early") or only when the
+// thread waits for its group (__pipeline_wait_prior, "late"): a kernel
+// that reads a buffer before waiting for it fails the late run, one that
+// copies into a buffer still in use fails the early run, and a copy still
+// pending when a thread ends is an error.  The grid is min(tiles, TARGET)
+// blocks, run one at a time in reverse order, so a small TARGET makes
+// blocks walk several tiles.
 //
 //   xsched_emulate INPUT OUTPUT
 //
-// INPUT holds an int64 job count, then per job ten int64 (kind: 0 regions,
-// 1 gf; n_ops, n_regions, n_in, out_base, n_out, target, and for regions
-// n_objects, region_bytes, 0, for gf b, k * 2^32 + r, s), the n_ops x 3
-// int32 tape, then the arena (regions: n_objects x n_regions x
-// region_bytes) or the data (gf: b x k x s).  OUTPUT gets per job the
-// arena after the launch or the (b, r, s) product, then two int64: the
-// threads and the blocks of the launch.
+// INPUT holds an int64 job count, then per job twelve int64 (kind: 0
+// regions, 1 gf; n_ops, n_regions, n_in, out_base, n_out, target; for
+// regions n_objects, region_bytes, 0, for gf b, k * 2^32 + r, s; then the
+// column bytes of a regions job (16, 4 or 1; 0 for gf), and 1 for early
+// copies or 0 for late), the n_ops x 4 int32 branch-free tape, then the
+// arena (regions: n_objects x n_regions x region_bytes) or the data (gf:
+// b x k x s).  OUTPUT gets per job the arena after the launch or the (b,
+// r, s) product, then four int64: the threads and blocks of the launch,
+// the column bytes (regions) or copy bytes (gf), and the input buffers
+// (regions; 1 for gf).
 
 #include <setjmp.h>
 #include <ucontext.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -30,6 +41,7 @@
 #include <vector>
 
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __global__
 #define __launch_bounds__(...)
@@ -37,10 +49,28 @@
 #define __shared__
 #define __align__(n) __attribute__((aligned(n)))
 
+using std::min;
+
+struct alignas(16) uint4 {
+  uint32_t x, y, z, w;
+};
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+
+// bytes of {y:x} picked by the low three bits of each selector nibble
+static inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  uint32_t r = 0;
+  for (int n = 0; n < 4; ++n)
+    r |= (uint32_t)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+}
+
 struct Dim {
   unsigned x;
 };
-constexpr int kMaxThreads = 128;
+constexpr int kMaxThreads = 32;
 static Dim g_thread[kMaxThreads], blockIdx, gridDim, blockDim;
 static int g_cur;  // the fiber running now
 #define threadIdx (g_thread[g_cur])
@@ -48,6 +78,48 @@ static int g_cur;  // the fiber running now
 template <class T>
 static inline T __ldg(const T* p) {
   return *p;
+}
+
+// the asynchronous copies: per thread, the copies not landed yet with
+// their group (the count of commits before them)
+struct Copy {
+  void* dst;
+  const void* src;
+  size_t n;
+  long long group;
+};
+static std::vector<Copy> g_pending[kMaxThreads];
+static long long g_commits[kMaxThreads];
+static bool g_early;  // copies land when issued
+
+static void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t zfill = 0) {
+  if ((n != 4 && n != 8 && n != 16) || zfill != 0 ||
+      reinterpret_cast<uintptr_t>(dst) % n ||
+      reinterpret_cast<uintptr_t>(src) % n) {
+    fprintf(stderr, "bad async copy of %zu bytes\n", n);
+    exit(3);
+  }
+  if (g_early)
+    memcpy(dst, src, n);
+  else
+    g_pending[g_cur].push_back(Copy{dst, src, n, g_commits[g_cur]});
+}
+
+static void __pipeline_commit() { ++g_commits[g_cur]; }
+
+// every group but the newest `prior` committed ones has landed
+static void __pipeline_wait_prior(size_t prior) {
+  std::vector<Copy>& p = g_pending[g_cur];
+  const long long upto = g_commits[g_cur] - (long long)prior;
+  std::vector<Copy> left;
+  for (const Copy& c : p) {
+    if (c.group < upto)
+      memcpy(c.dst, c.src, c.n);
+    else
+      left.push_back(c);
+  }
+  p.swap(left);
 }
 
 // a fiber is entered once through makecontext/swapcontext and switched
@@ -85,30 +157,43 @@ __attribute__((aligned(16))) unsigned char xs_smem[XS_SMEM_MAX];
 
 // the launch a fiber runs
 static struct {
-  int kind, n_ops, n_regions, n_in, out_base, n_out, k, r;
-  const int* tape;
+  int kind, n_ops, n_regions, n_in, out_base, n_out, k, r, vb, nbuf;
+  const int4* tape;
   uint8_t* arena;
   const uint8_t* data;
   uint8_t* out;
-  long long n_objects, cols, b, words;
+  long long n_objects, cols, b, s;
 } g_args;
 
 static void fiber_main() {
-  if (g_args.kind == 0 && g_args.k == 4)  // k: the value bytes
+  if (g_args.kind == 0 && g_args.vb == 16)
+    xs_regions_kernel<uint4>(
+        g_args.tape, g_args.n_ops, reinterpret_cast<uint4*>(g_args.arena),
+        g_args.n_objects, g_args.n_regions, g_args.cols, g_args.n_in,
+        g_args.out_base, g_args.n_out, g_args.nbuf);
+  else if (g_args.kind == 0 && g_args.vb == 4)
     xs_regions_kernel<uint32_t>(
         g_args.tape, g_args.n_ops, reinterpret_cast<uint32_t*>(g_args.arena),
         g_args.n_objects, g_args.n_regions, g_args.cols, g_args.n_in,
-        g_args.out_base, g_args.n_out);
+        g_args.out_base, g_args.n_out, g_args.nbuf);
   else if (g_args.kind == 0)
     xs_regions_kernel<uint8_t>(g_args.tape, g_args.n_ops, g_args.arena,
                                g_args.n_objects, g_args.n_regions,
                                g_args.cols, g_args.n_in, g_args.out_base,
-                               g_args.n_out);
+                               g_args.n_out, g_args.nbuf);
+  else if (g_args.vb == 16)
+    xs_gf_kernel<16>(g_args.tape, g_args.n_ops, g_args.data, g_args.out,
+                     g_args.b, g_args.k, g_args.r, g_args.s,
+                     g_args.n_regions, g_args.out_base);
   else
-    xs_gf_kernel(g_args.tape, g_args.n_ops,
-                 reinterpret_cast<const uint32_t*>(g_args.data),
-                 reinterpret_cast<uint32_t*>(g_args.out), g_args.b, g_args.k,
-                 g_args.r, g_args.words, g_args.out_base);
+    xs_gf_kernel<4>(g_args.tape, g_args.n_ops, g_args.data, g_args.out,
+                    g_args.b, g_args.k, g_args.r, g_args.s, g_args.n_regions,
+                    g_args.out_base);
+  if (!g_pending[g_cur].empty()) {
+    fprintf(stderr, "thread %d ended with %zu copies pending\n", g_cur,
+            g_pending[g_cur].size());
+    exit(3);
+  }
   g_done[g_cur] = true;
   _longjmp(g_sched_jb, 1);  // never returns through uc_link
 }
@@ -124,6 +209,8 @@ static void run_block(unsigned block, int nt, std::vector<char>& stacks) {
     g_done[t] = false;
     g_started[t] = false;
     g_wait_bar[t] = nullptr;
+    g_pending[t].clear();
+    g_commits[t] = 0;
     getcontext(&g_fiber[t]);
     g_fiber[t].uc_stack.ss_sp = stacks.data() + t * stack;
     g_fiber[t].uc_stack.ss_size = stack;
@@ -178,7 +265,7 @@ int main(int argc, char** argv) {
   std::vector<char> stacks((size_t)kMaxThreads * (64 << 10));
   const long long jobs = take<long long>(f, 1)[0];
   for (long long n = 0; n < jobs; ++n) {
-    const std::vector<long long> h = take<long long>(f, 10);
+    const std::vector<long long> h = take<long long>(f, 12);
     g_args.kind = (int)h[0];
     g_args.n_ops = (int)h[1];
     g_args.n_regions = (int)h[2];
@@ -186,42 +273,53 @@ int main(int argc, char** argv) {
     g_args.out_base = (int)h[4];
     g_args.n_out = (int)h[5];
     const long long target = h[6];
-    const std::vector<int> tape = take<int>(f, 3LL * g_args.n_ops);
+    g_early = h[11] != 0;
+    // 16-byte aligned, as the card's allocations are
+    const std::vector<int4> tape = take<int4>(f, g_args.n_ops);
     g_args.tape = tape.data();
-    int nt = 0;
     long long tiles = 0;
-    std::vector<uint32_t> buf, out;  // 4-byte aligned, as on the card
+    std::vector<uint4> buf, out;
+    bool fits = g_args.n_ops % XS_BATCH == 0;
     if (g_args.kind == 0) {
       g_args.n_objects = h[7];
       const long long rbytes = h[8];
-      const int vb = rbytes % 4 == 0 ? 4 : 1;
-      g_args.k = vb;
-      g_args.cols = rbytes / vb;
-      nt = xs_threads(g_args.n_regions, vb);
+      g_args.vb = (int)h[10];
+      fits = fits && (g_args.vb == 16 || g_args.vb == 4 || g_args.vb == 1) &&
+             rbytes % g_args.vb == 0;
+      g_args.nbuf = fits ? xs_region_buffers(g_args.n_regions, g_args.n_in,
+                                             g_args.n_ops, g_args.vb)
+                         : 0;
+      fits = fits && g_args.nbuf > 0;
+      g_args.cols = fits ? rbytes / g_args.vb : 0;
       const long long bytes = g_args.n_objects * g_args.n_regions * rbytes;
-      buf.assign((size_t)(bytes + 3) / 4, 0);
+      buf.assign((size_t)(bytes + 15) / 16, uint4{0, 0, 0, 0});
       const std::vector<uint8_t> raw = take<uint8_t>(f, bytes);
       memcpy(buf.data(), raw.data(), (size_t)bytes);
       g_args.arena = reinterpret_cast<uint8_t*>(buf.data());
-      tiles = g_args.n_objects * ((g_args.cols + nt - 1) / (nt ? nt : 1));
+      tiles = g_args.n_objects *
+              ((g_args.cols + XS_THREADS - 1) / XS_THREADS);
     } else {
       g_args.b = h[7];
       g_args.k = (int)(h[8] >> 32);
       g_args.r = (int)(h[8] & 0xffffffff);
-      const long long s = h[9];
-      g_args.words = s / 4;
-      nt = xs_threads(g_args.n_regions, 4);
-      const long long bytes = g_args.b * g_args.k * s;
-      buf.assign((size_t)bytes / 4, 0);
+      g_args.s = h[9];
+      g_args.vb = g_args.s % 16 == 0 ? 16 : 4;  // the copy bytes
+      g_args.nbuf = 1;
+      fits = fits && g_args.s % 4 == 0 &&
+             xs_gf_smem(g_args.n_regions, g_args.n_ops, g_args.k) <=
+                 XS_SMEM_MAX;
+      const long long bytes = g_args.b * g_args.k * g_args.s;
+      buf.assign((size_t)(bytes + 15) / 16, uint4{0, 0, 0, 0});
       const std::vector<uint8_t> raw = take<uint8_t>(f, bytes);
       memcpy(buf.data(), raw.data(), (size_t)bytes);
       g_args.data = reinterpret_cast<const uint8_t*>(buf.data());
-      out.assign((size_t)(g_args.b * g_args.r * s / 4), 0);
+      out.assign((size_t)(g_args.b * g_args.r * g_args.s + 15) / 16,
+                 uint4{0, 0, 0, 0});
       g_args.out = reinterpret_cast<uint8_t*>(out.data());
-      tiles = g_args.b * ((g_args.words + nt - 1) / (nt ? nt : 1));
+      tiles = g_args.b * ((g_args.s + XS_GF_TILE - 1) / XS_GF_TILE);
     }
-    if (nt == 0 || target < 1) {
-      fprintf(stderr, "job %lld: %d regions fit no block\n", n,
+    if (!fits || target < 1) {
+      fprintf(stderr, "job %lld: no launch of %d regions fits\n", n,
               g_args.n_regions);
       return 2;
     }
@@ -229,14 +327,13 @@ int main(int argc, char** argv) {
     gridDim = Dim{(unsigned)blocks};
     memset(xs_smem, 0xA5, sizeof xs_smem);  // no stale zeros to lean on
     for (long long blk = blocks; blk-- > 0;)
-      run_block((unsigned)blk, nt, stacks);
+      run_block((unsigned)blk, XS_THREADS, stacks);
     if (g_args.kind == 0)
-      put(o, g_args.arena,
-          g_args.n_objects * g_args.n_regions * g_args.cols * g_args.k);
+      put(o, g_args.arena, g_args.n_objects * g_args.n_regions * h[8]);
     else
-      put(o, g_args.out, g_args.b * g_args.r * g_args.words * 4);
-    const long long tail[2] = {nt, blocks};
-    put(o, tail, 2);
+      put(o, g_args.out, g_args.b * g_args.r * g_args.s);
+    const long long tail[4] = {XS_THREADS, blocks, g_args.vb, g_args.nbuf};
+    put(o, tail, 4);
   }
   fclose(f);
   return fclose(o) == 0 ? 0 : 2;

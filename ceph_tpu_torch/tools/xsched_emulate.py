@@ -2,14 +2,20 @@
 
 A CUDA kernel has no interpret mode, and a CPU test run has no card.
 `emulate_many` compiles csrc/xor_sched.cu's device code with the host's
-g++ against xsched_emulate.cpp, which defines the CUDA builtins the kernels
-use: a thread block is blockDim.x fibers on one OS thread and
-`__syncthreads` a barrier of all of them.  It runs xs_regions_kernel and
-xs_gf_kernel themselves with the block size the launcher picks
-(xs_threads) on a grid of min(tiles, target) blocks, so the CPU tests
-hold the tape staging (resident and chunked), the 4- and 1-byte columns,
-the ragged last tile and blocks that walk several tiles against the plain
-versions (tests/test_torch_xsched.py).
+g++ against xsched_emulate.cpp, which defines the CUDA names the kernels
+use: a thread block is 32 fibers on one OS thread, `__syncthreads` a
+barrier of all of them, the 16-byte vector types plain structs,
+`__byte_perm` the card's byte pick, and an asynchronous copy
+(`__pipeline_memcpy_async`) a memcpy that lands when it is issued
+("early") or only when the thread waits for its group ("late").  It runs
+xs_regions_kernel and xs_gf_kernel themselves on the branch-free tape
+that ops/xor_kernels.py lowers for the card (`branch_free_tape`), with
+the shared-memory layout the launcher picks (column bytes, one or two
+input buffers, a resident or chunked tape) on a grid of min(tiles,
+target) blocks, so the CPU tests hold the 16-, 4- and 1-byte columns,
+the ragged last tile, the chunked tape, blocks that walk several tiles
+through both input buffers and the bit-sliced GF entry at any S % 4 == 0
+against the plain versions (tests/test_torch_xsched.py).
 """
 
 from __future__ import annotations
@@ -23,14 +29,13 @@ from pathlib import Path
 
 import numpy as np
 
+from ceph_tpu_torch.ops import xor_kernels
+
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE.parent / "csrc" / "xor_sched.cu"
 _MAIN = _HERE / "xsched_emulate.cpp"
 _BUILD = _HERE.parent / "_build" / "emulate"
 _CUT = "namespace {"    # xor_sched.cu's host launchers start here
-
-# blocks an H100 holds at once of 128-thread blocks (2048 threads an SM)
-H100_TARGET = 132 * 16
 
 
 def build() -> Path:
@@ -47,9 +52,10 @@ def build() -> Path:
     if not exe.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         (_BUILD / "xsched_device.inc").write_text(device)
-        # xor_sched.cu's one CUDA header: xsched_emulate.cpp defines what
-        # it uses
-        (_BUILD / "cuda_runtime.h").write_text("#pragma once\n")
+        # xor_sched.cu's CUDA headers: xsched_emulate.cpp defines what it
+        # uses
+        for header in ("cuda_runtime.h", "cuda_pipeline.h"):
+            (_BUILD / header).write_text("#pragma once\n")
         tmp = exe.with_name(f"{exe.name}.{os.getpid()}.tmp")
         # -U_FORTIFY_SOURCE: the fibers _longjmp between stacks, which a
         # fortified longjmp would refuse
@@ -64,31 +70,45 @@ def build() -> Path:
     return exe
 
 
-def emulate_many(jobs) -> list:
+def _widest(region_bytes: int) -> int:
+    return 16 if region_bytes % 16 == 0 else 4 if region_bytes % 4 == 0 \
+        else 1
+
+
+def emulate_many(jobs, detail: bool = False) -> list:
     """jobs: ("regions", prog, arena (n_objects, n_regions, bytes) uint8,
-    target) or ("gf", prog, data (B, K, S) uint8, target) -> [(result,
-    threads, blocks), ...]: the arena after the launch, or the (B, R, S)
-    product, as the card computes them on a grid of min(tiles, target)
-    blocks."""
+    target[, options]) or ("gf", prog, data (B, K, S) uint8, target[,
+    options]) -> [(result, threads, blocks), ...]: the arena after the
+    launch, or the (B, R, S) product, as the card computes them on a grid
+    of min(tiles, target) blocks.  options: "column_bytes" (a regions
+    job's column width, 16, 4 or 1; default the widest its region bytes
+    allow), "copies" ("late", the default, or "early").  With `detail`,
+    each result also carries the column bytes (regions) or copy bytes
+    (gf) and the input buffers of the launch."""
     parts = [np.array([len(jobs)], dtype=np.int64)]
     shapes = []
-    for kind, prog, arr, target in jobs:
+    for kind, prog, arr, target, *rest in jobs:
+        opts = rest[0] if rest else {}
         arr = np.ascontiguousarray(arr, dtype=np.uint8)
-        head = [prog.n_ops, prog.n_regions, prog.n_in, prog.out_base,
-                prog.n_out, target]
+        early = {"late": 0, "early": 1}[opts.get("copies", "late")]
         if kind == "regions":
             n_obj, n_reg, rbytes = arr.shape
             if n_reg != prog.n_regions:
                 raise ValueError("arena regions differ from the program's")
-            head = [0, *head, n_obj, rbytes, 0]
+            vb = opts.get("column_bytes", _widest(rbytes))
+            stride = vb * xor_kernels.THREADS
+            tail = [n_obj, rbytes, 0, vb, early]
             shapes.append(arr.shape)
         else:
             b, k, s = arr.shape
             r = prog.n_out // 8
-            head = [1, *head, b, (k << 32) | r, s]
+            stride = xor_kernels.GF_STRIDE
+            tail = [b, (k << 32) | r, s, 0, early]
             shapes.append((b, r, s))
-        parts += [np.array(head, dtype=np.int64),
-                  np.ascontiguousarray(prog.tape, dtype=np.int32), arr]
+        tape = xor_kernels.branch_free_tape(prog, stride)
+        head = [0 if kind == "regions" else 1, len(tape), prog.n_regions,
+                prog.n_in, prog.out_base, prog.n_out, target, *tail]
+        parts += [np.array(head, dtype=np.int64), tape, arr]
     with tempfile.TemporaryDirectory() as tmp:
         inp, outp = Path(tmp) / "in.bin", Path(tmp) / "out.bin"
         inp.write_bytes(b"".join(a.tobytes() for a in parts))
@@ -100,9 +120,10 @@ def emulate_many(jobs) -> list:
         n = int(np.prod(shape))
         out = np.frombuffer(raw, np.uint8, n, at).reshape(shape)
         at += n
-        threads, blocks = np.frombuffer(raw, np.int64, 2, at)
-        at += 16
-        res.append((out, int(threads), int(blocks)))
+        threads, blocks, width, bufs = np.frombuffer(raw, np.int64, 4, at)
+        at += 32
+        res.append((out, int(threads), int(blocks), int(width), int(bufs))
+                   if detail else (out, int(threads), int(blocks)))
     if at != len(raw):
         raise RuntimeError(f"emulator wrote {len(raw)} bytes, expected {at}")
     return res

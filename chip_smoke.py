@@ -327,13 +327,17 @@ Phases; any failure exits nonzero and prints no result line:
    against its plain version (output regions equal, inputs kept) on the
    compiled encode and (0, 1)-decode tapes of jerasure liberation k=4 w=7,
    blaum_roth k=4 w=6 and liber8tion k=4 (w=8) at packetsize 2048 over
-   the arena of a 1 MiB object (BASELINE config 1's shape) and on a packed
-   batch of 512 one-stripe liberation objects; its GF entry against its
+   the arena of a 1 MiB object (BASELINE config 1's shape), on the arena
+   of one one-stripe liberation object (1, 45, 2048: an inline encode of
+   the pool's writes, the shape most of the entry's launches take) and on
+   a packed batch of 512 of them; its GF entry against its
    plain version and gf_matmul_gen's plain version at MSR 4/3/6's (3 x 6)
    rebuilds (lost 0 over one 4 MiB object's fragments, lost 6 over four)
-   and MSR 5/5/9's (1 x 5) projection; each timed alone and back to back
-   beside its bound and its plain version, gf_matmul_gen at the same
-   repair shapes.  (b) The counts zeroed: each technique's codec on the
+   and MSR 5/5/9's (1 x 5) projection; each timed alone, back to back and
+   queued behind a spin kernel (the card's own time a call) beside its
+   bound (the GF entry's operations: one 32-bit XOR a tape op
+   per 32 bytes of a column) and its plain version, gf_matmul_gen at the
+   same repair shapes.  (b) The counts zeroed: each technique's codec on the
    card encodes a 1 MiB object (chunks against a device="cpu" twin) and
    decodes every two-erasure pattern, one launch a call; encode and decode
    GiB/s; the port's erasure_code_benchmark (encode, decode -e 2) on it.
@@ -5688,10 +5692,11 @@ def xsched_ops(prog, n_objects: int, region_bytes: int) -> int:
 
 
 def xsched_gf_ops(prog, b: int, s: int) -> int:
-    """32-bit lane operations of the GF entry: per word of a column, a
-    shift a bit plane, the tape's ops, and a mask, a shift and an OR per
-    output plane."""
-    return b * (s // 4) * (prog.n_in + prog.n_ops + 3 * prog.n_out)
+    """32-bit lane operations of the GF entry, the least work the schedule
+    needs: one 32-bit XOR a tape op for every 32 bytes of a column (a bit
+    plane of 32 bytes is one word); the bytes in and out once are the
+    bytes bound's."""
+    return b * -(-s // 32) * prog.n_ops
 
 
 def xsched_kernels(torch, dev, card: str) -> dict:
@@ -5703,7 +5708,9 @@ def xsched_kernels(torch, dev, card: str) -> dict:
     from ceph_tpu_torch.ec.registry import create_erasure_code
     from ceph_tpu_torch.models import bitmatrix as bmx
     from ceph_tpu_torch.ops import gf, gf_kernels, xor_kernels
-    from ceph_tpu_torch.tools.kernel_shapes import alone_ms, back_to_back_ms
+    from ceph_tpu_torch.tools.kernel_shapes import (alone_ms,
+                                                    back_to_back_ms,
+                                                    queued_ms)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 21)
@@ -5730,6 +5737,8 @@ def xsched_kernels(torch, dev, card: str) -> dict:
             regions[f"{tech} {label}"] = (prog, rand(1, prog.n_regions, rb))
         if tech == "liberation":
             prog = regions["liberation encode"][0]
+            regions["one-stripe arena"] = (
+                prog, rand(1, prog.n_regions, XSCHED_PS))
             regions["packed 512 one-stripe objects"] = (
                 prog, rand(XSCHED_PACKED, prog.n_regions, XSCHED_PS))
     out = {"regions": {}, "gf": {}}
@@ -5753,6 +5762,8 @@ def xsched_kernels(torch, dev, card: str) -> dict:
             "ms": alone_ms(lambda: xor_kernels.xor_sched_regions(prog,
                                                                  arena)),
             "back_to_back_ms": back_to_back_ms(
+                lambda: xor_kernels.xor_sched_regions(prog, arena)),
+            "queued_ms": queued_ms(
                 lambda: xor_kernels.xor_sched_regions(prog, arena)),
             "plain_ms": alone_ms(lambda: xor_kernels.xor_sched_regions_plain(
                 prog, plain), reps=5, warmup=1),
@@ -5795,12 +5806,16 @@ def xsched_kernels(torch, dev, card: str) -> dict:
                                                             out=out_t)),
             "back_to_back_ms": back_to_back_ms(
                 lambda: xor_kernels.xor_sched_gf(prog, data, out=out_t)),
+            "queued_ms": queued_ms(
+                lambda: xor_kernels.xor_sched_gf(prog, data, out=out_t)),
             "plain_ms": alone_ms(lambda: xor_kernels.xor_sched_gf_plain(
                 prog, data), reps=5, warmup=1),
             "bound_ms": b_ms, "bound_by": by,
             "gf_matmul_gen_ms": alone_ms(lambda: gf_kernels.gf_matmul_gen(
                 mat, data, out=out_t)),
             "gf_matmul_gen_back_to_back_ms": back_to_back_ms(
+                lambda: gf_kernels.gf_matmul_gen(mat, data, out=out_t)),
+            "gf_matmul_gen_queued_ms": queued_ms(
                 lambda: gf_kernels.gf_matmul_gen(mat, data, out=out_t))}
         check(e == 0, f"xor_sched_gf disagrees with its plain version and"
               f" gf_matmul_gen on {name}")

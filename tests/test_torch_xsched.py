@@ -13,9 +13,13 @@ outputs, slot counts, XOR counts, tapes and the pick are equal.
 against the reference's, and the `xor_sched` kernel's own code (through
 ceph_tpu_torch/tools/xsched_emulate.py, g++) against its plain versions
 on the trio's encode and decode tapes, the MSR repair programs, a tape
-longer than the kernel stages at once, 1-byte columns, a zero row and a
-single-copy row, and grids whose blocks walk several tiles.  Everything
-compared is bytes or integers: the tolerance is exact equality.
+longer than the kernel stages at once, 16-, 4- and 1-byte columns, ragged
+last tiles, one and two input buffers, copies that land early or late, a
+zero row and a single-copy row, GF chunk sizes that are no multiple of 32,
+and grids whose blocks walk several tiles.  The branch-free tape the
+kernel runs is held against the original tape on random tapes
+(hypothesis) and on the trio's and MSR's programs.  Everything compared is
+bytes or integers: the tolerance is exact equality.
 """
 
 import itertools
@@ -24,6 +28,8 @@ import shutil
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from ceph_tpu.ec import plan as jplan
 from ceph_tpu.ec import xsched as jxsched
@@ -351,3 +357,201 @@ def test_gf_entry_emulated_equals_gf_product():
         assert np.array_equal(got, want), name
         plain = xor_kernels.xor_sched_gf(prog, torch.from_numpy(data))
         assert np.array_equal(plain.numpy(), want), name
+
+
+# -- the branch-free tape and the redesigned kernel, emulated -------------
+
+def _run_branch_free(dtape: np.ndarray, stride: int, a: torch.Tensor) -> None:
+    """The kernel's tape over a (N, n_regions + 1, L) tensor whose last
+    region is Z: r[dst] = r[a] ^ r[b], byte offsets back to regions."""
+    for dst, x, y, _pad in dtape.tolist():
+        a[:, dst // stride] = a[:, x // stride] ^ a[:, y // stride]
+
+
+def _same_as_run_tape(prog, stride: int, seed: int) -> None:
+    dtape = xor_kernels.branch_free_tape(prog, stride)
+    z = prog.n_regions
+    assert dtape.dtype == np.int32 and dtape.shape[1] == 4
+    assert len(dtape) % xor_kernels.BATCH == 0
+    assert len(dtape) - prog.n_ops < xor_kernels.BATCH
+    assert (dtape[:, :3] % stride == 0).all() and (dtape[:, 3] == 0).all()
+    assert (dtape[prog.n_ops:, :3] == z * stride).all()
+    assert (dtape[:, 0] != z * stride)[:prog.n_ops].all()  # Z stays zero
+    rng = np.random.default_rng(seed)
+    want = torch.from_numpy(rng.integers(0, 256, (2, z + 1, 5),
+                                         dtype=np.uint8))
+    want[:, z] = 0
+    got = want.clone()
+    xor_kernels._run_tape(prog.tape, want[:, :z])
+    _run_branch_free(dtape, stride, got)
+    assert torch.equal(got[:, :z], want[:, :z])
+    assert not got[:, z].any()
+
+
+@st.composite
+def _random_programs(draw):
+    """Tapes of every form: XORs, copies, accumulates and zero fills, with
+    dst drawn from the operands' own regions as often as not."""
+    n_in = draw(st.integers(0, 6))
+    n_slots = draw(st.integers(0, 4))
+    n_out = draw(st.integers(1, 4))
+    n_regions = n_in + n_slots + n_out
+    writable = list(range(n_in, n_regions))
+    region = st.integers(0, n_regions - 1)
+    ops = []
+    for _ in range(draw(st.integers(0, 40))):
+        kind = draw(st.sampled_from(("xor", "copy", "acc", "zero")))
+        a, b = draw(region), draw(region)
+        dst = draw(st.sampled_from(writable))
+        if draw(st.booleans()) and kind != "zero":
+            alias = [r for r in ((a, b) if kind == "xor" else (a,))
+                     if r >= n_in]
+            dst = draw(st.sampled_from(alias)) if alias else dst
+        ops.append({"xor": (dst, a, b), "copy": (dst, a, -1),
+                    "acc": (dst, a, -2), "zero": (dst, -1, -1)}[kind])
+    tape = np.asarray(ops, dtype=np.int32).reshape(-1, 3)
+    return xsched.XorProgram(sig=f"random-{len(ops)}", n_in=n_in,
+                             n_out=n_out, n_slots=n_slots,
+                             n_regions=n_regions, tape=tape,
+                             n_ops=len(ops))
+
+
+@settings(max_examples=200, deadline=None)
+@given(prog=_random_programs(), stride=st.sampled_from((32, 128, 512)),
+       seed=st.integers(0, 2**32 - 1))
+def test_branch_free_tape_equals_run_tape_on_random_tapes(prog, stride,
+                                                          seed):
+    """Every op form, dst aliasing a or b, in tape order: the kernel's
+    tape computes what the original tape computes, region for region."""
+    _same_as_run_tape(prog, stride, seed)
+
+
+def _named_programs() -> dict:
+    progs = {}
+    for technique, k in TRIO_SPACE:
+        bm = _bitmatrix(technique, k)
+        w = TRIO[technique]
+        have = tuple(range(2, k + 2))
+        for label, rows in (("encode", bm), ("decode 0 1",
+                                             bmx.decode_bitmatrix(
+                                                 bm, k, w, have, (0, 1)))):
+            progs[f"{technique} {k} {label}"] = xsched.lower_program(
+                xsched.compile_matrix(rows))
+        progs[f"{technique} {k} naive"] = xsched.naive_program(
+            bm, f"naive-{technique}-{k}")
+    for name, mat in GF_MATRICES.items():
+        sched = plan._sched_for(mat)
+        if sched is not None:
+            progs[name] = xsched.lower_program(sched)
+    return progs
+
+
+NAMED_PROGRAMS = _named_programs()
+
+
+@pytest.mark.parametrize("name", sorted(NAMED_PROGRAMS))
+def test_branch_free_tape_equals_run_tape_on_programs(name):
+    """The trio's encode, decode and naive tapes and the MSR and RS
+    programs of the GF pick, at the region entry's 16-byte stride and the
+    GF entry's plane stride."""
+    prog = NAMED_PROGRAMS[name]
+    for stride in (16 * xor_kernels.THREADS, xor_kernels.GF_STRIDE):
+        _same_as_run_tape(prog, stride, SEED)
+
+
+_LIB = REGION_JOBS["liberation encode"][0]
+_DENSE_PROG = REGION_JOBS["naive tape past a staged chunk"][0]
+# 220 inputs: two 16-byte input buffers do not fit a block, one does
+_WIDE_PROG = xsched.naive_program(
+    np.random.default_rng(SEED + 1).integers(0, 2, (24, 220),
+                                             dtype=np.uint8),
+    "emulated-wide-one-buffer")
+# name: (program, (objects, region bytes), target, options, expected
+# (column bytes, input buffers))
+REDESIGN_REGION_JOBS = {
+    "16-byte columns, ragged last tile": (_LIB, (3, 800), 4, {}, (16, 2)),
+    "4-byte columns, ragged last tile": (_LIB, (2, 180), 3, {}, (4, 2)),
+    "4-byte columns on a 16-byte arena": (_LIB, (2, 2048), 5,
+                                          {"column_bytes": 4}, (4, 2)),
+    "1-byte columns, ragged last tile": (_LIB, (3, 77), 2, {}, (1, 2)),
+    "one-stripe arena (1, 45, 2048)": (_LIB, (1, 2048), 132, {}, (16, 2)),
+    "packed batch, blocks walk tiles through both buffers": (
+        _LIB, (40, 2048), 7, {}, (16, 2)),
+    "tape longer than the resident chunk": (_DENSE_PROG, (3, 1040), 2, {},
+                                            (16, 2)),
+    "one input buffer, chunked tape": (_WIDE_PROG, (2, 1040), 3, {},
+                                       (16, 1)),
+}
+
+
+@needs_gxx
+@pytest.mark.parametrize("copies", ["late", "early"])
+@pytest.mark.parametrize("name", sorted(REDESIGN_REGION_JOBS))
+def test_region_entry_redesign_emulated(name, copies):
+    """xs_regions_kernel on its branch-free tape, at each column width and
+    layout the launcher picks, with the asynchronous copies landing as
+    late or as early as the card may land them: outputs equal the plain
+    version, inputs and temporaries untouched."""
+    prog, (objects, rbytes), target, opts, (width, bufs) = \
+        REDESIGN_REGION_JOBS[name]
+    rng = np.random.default_rng(SEED + len(name))
+    arena = rng.integers(0, 256, (objects, prog.n_regions, rbytes),
+                         dtype=np.uint8)
+    [(got, threads, blocks, got_width, got_bufs)] = \
+        xsched_emulate.emulate_many(
+            [("regions", prog, arena, target, {**opts, "copies": copies})],
+            detail=True)
+    plain = torch.from_numpy(arena.copy())
+    xor_kernels.xor_sched_regions_plain(prog, plain)
+    base = prog.out_base
+    assert np.array_equal(got[:, base:], plain.numpy()[:, base:])
+    assert np.array_equal(got[:, :base], arena[:, :base])
+    tiles = objects * -(-(rbytes // width) // xor_kernels.THREADS)
+    assert (threads, blocks) == (xor_kernels.THREADS, min(tiles, target))
+    assert (got_width, got_bufs) == (width, bufs)
+    if name.startswith(("tape longer", "one input")):
+        assert prog.n_ops * bufs > 512  # past XS_TAPE_CHUNK
+
+
+_GF_DENSE = np.random.default_rng(SEED + 2).integers(1, 256, (6, 8),
+                                                     dtype=np.uint8)
+# name: (matrix, (B, S), target, expected copy bytes)
+REDESIGN_GF_JOBS = {
+    "S % 32 == 16, 16-byte copies": (GF_MATRICES["msr 4/3/6 rebuild 0"],
+                                     (2, 1040), 3, 16),
+    "S % 16 == 8, 4-byte copies, blocks walk tiles": (
+        GF_MATRICES["msr 4/3/6 rebuild 6"], (3, 1000), 2, 4),
+    "S % 16 == 4 over several tiles": (GF_MATRICES["msr 5/5/9 project 9"],
+                                       (1, 3092), 2, 4),
+    "S = 4": (GF_MATRICES["rs 4+2"], (5, 4), 3, 4),
+    "S = 3 x 1024, whole tiles": (GF_MATRICES["msr 4/3/6 rebuild 4"],
+                                  (2, 3072), 4, 16),
+    "tape longer than the resident chunk": (_GF_DENSE, (2, 2064), 3, 16),
+}
+
+
+@needs_gxx
+@pytest.mark.parametrize("copies", ["late", "early"])
+@pytest.mark.parametrize("name", sorted(REDESIGN_GF_JOBS))
+def test_gf_entry_bitsliced_emulated(name, copies):
+    """xs_gf_kernel, bit-sliced, on chunk sizes that are no multiple of 32
+    (a ragged last tile, 4-byte copies that stop at the row's end), whole
+    tiles and a chunked tape: equal to the GF product of the reference's
+    host fold and to the plain version."""
+    mat, (b, s), target, cp = REDESIGN_GF_JOBS[name]
+    sched = xsched.compile_matrix(gf.gf_matrix_to_bits(mat),
+                                  sig=f"emulated-gf-{name}")
+    prog = xsched.lower_program(sched)
+    if name.startswith("tape longer"):
+        assert prog.n_ops > 512  # past XS_TAPE_CHUNK
+    rng = np.random.default_rng(SEED + len(name))
+    data = rng.integers(0, 256, (b, mat.shape[1], s), dtype=np.uint8)
+    [(got, threads, blocks, got_cp, _bufs)] = xsched_emulate.emulate_many(
+        [("gf", prog, data, target, {"copies": copies})], detail=True)
+    want = np.stack([jgf.gf_matmul_host(mat, d) for d in data])
+    assert np.array_equal(got, want)
+    plain = xor_kernels.xor_sched_gf_plain(prog, torch.from_numpy(data))
+    assert np.array_equal(plain.numpy(), want)
+    assert got_cp == cp
+    assert (threads, blocks) == (xor_kernels.THREADS,
+                                 min(b * -(-s // 1024), target))
