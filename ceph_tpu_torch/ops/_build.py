@@ -51,6 +51,9 @@ _SIGNATURES = {
     },
     "hitset_bloom": {
         "bloom_positions": (_P, _P, _LL, _I, ctypes.c_uint, _I, _P),
+        "bloom_seal": (_P, _P, _P, _I, _LL, _I, ctypes.c_uint, _I, _P),
+        "bloom_seal_staged": (_P, _P, _LL, _P, _P, _I, _LL, _I,
+                              ctypes.c_uint, _I, _P),
     },
     "xor_sched": {
         "xor_sched_regions": (_P, _I, _I, _I, _P, _LL, _I, _LL, _I, _I, _I,

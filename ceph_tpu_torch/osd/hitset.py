@@ -11,20 +11,22 @@ evict decisions.  Two implementations, as in the reference:
 
 A batch of object hashes maps to its k bloom bit positions through the
 rjenkins hash CRUSH uses (`hash32_2(h, i) % nbits`, probe i salted by seed
-i).  `positions_for` keeps the reference's policy: a batch of fewer than
-DEVICE_MIN_BATCH hashes is hashed on the host; a larger one goes to the
-device the caller names (CUDA unless told otherwise, and never silently the
-host).  On a CUDA device that is one launch of the kernel of
-csrc/hitset_bloom.cu (ops/bloom_kernels.py): one copy in, one copy of the
-uint32 positions back.  On the CPU device `bloom_positions_torch`, the
-kernel's plain version, computes it with ops/rjenkins.hash32_2_torch.  The
-host hashes a handful
-in Python integers and memoizes each hash's positions per geometry, so a
-hit-count probe of a hot object (one per archived set and read) is a
-dictionary lookup, where the reference pays numpy's per-call cost; the
-numpy `bloom_positions` is the oracle of both.  All three are equal bit for
-bit.  There is no breaker and no compile cache: a device call runs or
-raises.
+i).  `positions_for` (the query side) and `seal_bits` (the insert side)
+keep the reference's policy: a batch of fewer than DEVICE_MIN_BATCH hashes
+is hashed on the host; a larger one goes to the device the caller names
+(CUDA unless told otherwise, and never silently the host).  On a CUDA
+device each is one launch of a kernel of csrc/hitset_bloom.cu
+(ops/bloom_kernels.py) with one pinned copy each way: `positions_for`
+brings back the uint32 positions, `seal_bits` the set's bitset, built on
+the card (where the reference brings back positions and scatter-ORs them
+on the host).  On the CPU device the kernels' plain versions compute the
+same (`bloom_positions_torch`, on ops/rjenkins.hash32_2_torch, and
+bloom_kernels.bloom_seal_plain).  The host hashes a handful in Python
+integers and memoizes each hash's positions per geometry, so a hit-count
+probe of a hot object (one per archived set and read) is a dictionary
+lookup, where the reference pays numpy's per-call cost; the numpy
+`bloom_positions` is the oracle of all three.  All are equal bit for bit.
+There is no breaker and no compile cache: a device call runs or raises.
 
 Object names enter as the 32-bit Jenkins string hash the PG mapper uses
 (`ceph_str_hash_rjenkins`), so the hot-set key space is the reference's
@@ -104,14 +106,24 @@ def positions_for(hashes, nbits: int, nhash: int,
     if arr.size < DEVICE_MIN_BATCH:
         return np.array([_positions_one(int(h), nbits, nhash) for h in arr],
                         dtype=np.uint32)
-    dev = resolve_device(device)
-    if dev.type == "cpu":
-        t = torch.from_numpy(arr.astype(np.int64))
-        return bloom_positions_torch(t, nbits, nhash).numpy().astype(
-            np.uint32)
-    t = torch.from_numpy(arr.view(np.int32)).to(dev)
-    return bloom_kernels.bloom_positions(t, nbits, nhash).cpu().numpy() \
-        .view(np.uint32)
+    return bloom_kernels.positions_host(arr, nbits, nhash,
+                                        resolve_device(device))
+
+
+def seal_bits(hashes, nbits: int, nhash: int, device=None) -> np.ndarray:
+    """[N] uint32 hashes -> the (nbits + 7) // 8 uint8 bitset
+    BloomHitSet.insert_batch builds from them in an empty set, with
+    positions_for's policy: the host under DEVICE_MIN_BATCH, else one seal
+    on resolve_device(device) (one launch on a card)."""
+    arr = np.asarray(hashes, dtype=np.uint32).reshape(-1)
+    if arr.size >= DEVICE_MIN_BATCH:
+        return bloom_kernels.seal_host(arr, (0, arr.size), nbits, nhash,
+                                       resolve_device(device))[0]
+    bits = np.zeros((nbits + 7) // 8, dtype=np.uint8)
+    for h in arr:
+        for p in _positions_one(int(h), nbits, nhash):
+            bits[p >> 3] |= 1 << (p & 7)
+    return bits
 
 
 class BloomHitSet:
@@ -137,12 +149,7 @@ class BloomHitSet:
         arr = np.asarray(hashes, dtype=np.uint32).reshape(-1)
         if arr.size == 0:
             return
-        pos = positions_for(arr, self.nbits, self.nhash,
-                            device=device).reshape(-1)
-        # scatter-OR on the host bitset (reads answer synchronously; the
-        # device's job was the hashing)
-        np.bitwise_or.at(self.bits, pos >> 3,
-                         (1 << (pos & 7)).astype(np.uint8))
+        self.bits |= seal_bits(arr, self.nbits, self.nhash, device=device)
         self.count += int(arr.size)
 
     def insert(self, h: int) -> None:

@@ -3,7 +3,7 @@
 CUDA card.
 
     python3 ceph_tpu_torch/tools/kernel_shapes.py
-        {crc,gf,crush,score,xsched} [--root DIR] [--sass] [--cuts]
+        {crc,gf,crush,score,xsched,bloom} [--root DIR] [--sass] [--cuts]
 
 `--root` names the checkout whose ceph_tpu_torch is built and timed
 (default: the one holding this script), so that two versions of a kernel
@@ -95,6 +95,24 @@ the card's own time a call, the host's hidden) beside its bound (the
 phase's own JSON line comes first);
 then "host_us", the host microseconds a region-entry call takes on the
 one-stripe arena (HOST_REPS calls enqueued without a wait).
+
+bloom: the hit-set kernels at the tier's geometry (6,385 bits, nhash 4),
+each checked against its plain version and numpy: bloom_positions at
+65,536 hashes, a seal of 16 hashes (a PG's median in phase 3g) and a
+rotation wave (phase 3g's last period of its Zipf trace, 128 sets of 2,150
+hashes in all), first as one bloom_positions launch a set of at least
+DEVICE_MIN_BATCH hashes, then, where the package has bloom_seal, as one
+seal launch for every set (the kernel's multi-set form; the tier seals PG
+by PG).  Per route "queued_ms" (the card's own time a call or a wave,
+queued behind a spin kernel), "kernel_ms" (each kernel's own device time,
+median, torch.profiler), "host_us" (the host's time a call of the wrappers
+on device tensors), "insert_batch_ms" (one BloomHitSet.insert_batch a set
+from host hashes, copies and synchronisation included, as the tier's
+rotation makes them: the parent's positions and host scatter-OR, or the
+change's one seal a set) or "seal_host_ms" (bloom_kernels.seal_host of
+every set from host hashes), and the bound; "empty_kernel_queued_ms", an
+empty kernel launched through ctypes the same way: the card's floor
+between queued kernels.
 """
 
 from __future__ import annotations
@@ -988,10 +1006,180 @@ def xsched_shapes(dev) -> tuple:
     return rows, host_us(lambda: xor_kernels.xor_sched_regions(prog, arena))
 
 
+EMPTY_SOURCE = """#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+BLOOM_SEAL = 16             # a seal's hashes: the median PG of a 3g period
+BLOOM_BIG = 65536
+WAVE_SPIN = 200_000_000     # cycles the card waits before a queued wave loop
+
+
+def empty_library(build):
+    """An empty kernel behind a plain C entry, built with the checkout's
+    flags beside its libraries and loaded with ctypes, as the port's
+    kernels are."""
+    build.load()
+    src = build.BUILD_DIR / "empty.cu"
+    lib = build.BUILD_DIR / "empty.so"
+    src.write_text(EMPTY_SOURCE)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True, timeout=600)
+    cdll = ctypes.CDLL(str(lib))
+    cdll.empty_launch.argtypes = (ctypes.c_void_p,)
+    cdll.empty_launch.restype = ctypes.c_int
+    return cdll
+
+
+def bloom_shapes(dev) -> dict:
+    """The hit-set kernels of the root's package at the tier's geometry
+    (6,385 bits, nhash 4), each checked against its plain version and numpy
+    and timed queued, by its own device time and by the host's time a
+    call: bloom_positions at 65,536 hashes, a seal of 16 hashes and a
+    rotation wave (chip_smoke.py phase 3g's last period of its Zipf trace,
+    one set a PG), the wave as the tier seals it (one insert_batch a set)
+    and, where the package has it, as one bloom_seal launch
+    (bloom_kernels.seal_host); with the queued time of an empty kernel
+    launched through ctypes the same way."""
+    import importlib.util
+
+    from ceph_tpu_torch.ops import _build, bloom_kernels
+    from ceph_tpu_torch.osd import hitset
+
+    script = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("bloom_chip_smoke", script)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    nbits, nhash = hitset.bloom_geometry(1024, 0.05)
+    has_seal = hasattr(bloom_kernels, "bloom_seal")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    empty = empty_library(_build)
+    res = {"nbits": nbits, "nhash": nhash, "has_seal": has_seal,
+           "empty_kernel_queued_ms": queued_ms(
+               lambda: empty.empty_launch(stream)),
+           "empty_kernel_host_us": host_us(
+               lambda: empty.empty_launch(stream))}
+    rng = np.random.default_rng(SEED)
+    trace = smoke.zipf_indices(1.1, smoke.TIER_OIDS, smoke.TIER_READS,
+                               seed=smoke.SEED)
+    pgs = [hitset.hash_oid(f"obj{i}") % smoke.TIER_PGS
+           for i in range(smoke.TIER_OIDS)]
+    shapes = {
+        f"{BLOOM_BIG}x{nhash}": [rng.integers(0, 1 << 32, BLOOM_BIG,
+                                              dtype=np.uint64)
+                                 .astype(np.uint32)],
+        f"seal of {BLOOM_SEAL}": [rng.integers(0, 1 << 32, BLOOM_SEAL,
+                                               dtype=np.uint64)
+                                  .astype(np.uint32)],
+        "wave": smoke.period_sets(trace, pgs,
+                                  smoke.TIER_READS - smoke.TIER_ROTATE)}
+    rows = []
+    for shape, sets in shapes.items():
+        n = sum(h.size for h in sets)
+        words, values = smoke.seal_numpy_words(hitset, sets, nbits, nhash)
+        dense = np.zeros(len(sets) * ((nbits + 31) // 32), dtype=np.int32)
+        dense[words] = values
+        numpy_bits = dense.view(np.uint8).reshape(len(sets), -1)[
+            :, :(nbits + 7) // 8]
+        # the parent's route: one positions launch a set of at least
+        # DEVICE_MIN_BATCH hashes, and insert_batch a set on the host clock
+        big = [torch.from_numpy(h.view(np.int32)).to(dev) for h in sets
+               if h.size >= hitset.DEVICE_MIN_BATCH]
+        outs = [torch.empty((t.shape[0], nhash), dtype=torch.int32,
+                            device=dev) for t in big]
+
+        def positions():
+            for t, o in zip(big, outs):
+                bloom_kernels.bloom_positions(t, nbits, nhash, out=o)
+
+        exact = all(torch.equal(bloom_kernels.bloom_positions(t, nbits,
+                                                              nhash),
+                                bloom_kernels.bloom_positions_plain(
+                                    t, nbits, nhash)) for t in big)
+
+        def insert_each():
+            for h in sets:
+                hitset.BloomHitSet(nbits=nbits, nhash=nhash).insert_batch(
+                    h, device=dev)
+
+        got = []
+        for h in sets:
+            hs = hitset.BloomHitSet(nbits=nbits, nhash=nhash)
+            hs.insert_batch(h, device=dev)
+            got.append(hs.bits)
+        exact = exact and np.array_equal(np.array(got), numpy_bits)
+        pos_bytes = 4 * n + 4 * n * nhash
+        t_bytes = pos_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n * nhash * smoke.BLOOM_OPS_PER_POSITION / INT_OPS_PER_S * 1e3
+        wave = len(sets) > 1
+        rows.append({
+            "shape": shape, "route": "bloom_positions a set", "sets":
+            len(sets), "hashes": n, "launches": len(big), "exact": exact,
+            "queued_ms": queued_ms(positions, reps=5 if wave else REPS,
+                                   spin_cycles=WAVE_SPIN if wave
+                                   else 5_000_000),
+            "kernel_ms": kernel_ms(positions, "bloom_positions_kernel"),
+            "host_us": host_us(positions, reps=50 if wave else HOST_REPS),
+            "insert_batch_ms": statistics.median(
+                _host_ms(insert_each) for _ in range(REPS)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        if not has_seal:
+            continue
+        sizes = [h.size for h in sets]
+        offsets = np.zeros(len(sets) + 1, dtype=np.int32)
+        np.cumsum(sizes, out=offsets[1:])
+        t_h = torch.from_numpy(np.concatenate(sets).view(np.int32)).to(dev)
+        t_o = torch.from_numpy(offsets).to(dev)
+        out = torch.empty((len(sets), bloom_kernels.seal_words(nbits)),
+                          dtype=torch.int32, device=dev)
+
+        def seal():
+            bloom_kernels.bloom_seal(t_h, t_o, nbits, nhash, max(sizes),
+                                     out=out)
+
+        seal()
+        nbytes = (nbits + 7) // 8
+        words = out.cpu().numpy().view(np.uint8)
+        exact = (torch.equal(out, bloom_kernels.bloom_seal_plain(
+            t_h, t_o, nbits, nhash)) and not words[:, nbytes:].any()
+            and np.array_equal(words[:, :nbytes], numpy_bits)
+            and np.array_equal(bloom_kernels.seal_host(
+                np.concatenate(sets), offsets, nbits, nhash, dev),
+                numpy_bits))
+        seal_bytes = 4 * n + 4 * (len(sets) + 1) + out.numel() * 4
+        t_bytes = seal_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n * nhash * smoke.SEAL_OPS_PER_POSITION / INT_OPS_PER_S * 1e3
+        rows.append({
+            "shape": shape, "route": "bloom_seal", "sets": len(sets),
+            "hashes": n, "launches": 1, "exact": exact,
+            "queued_ms": queued_ms(seal),
+            "kernel_ms": kernel_ms(seal, "bloom_seal_kernel"),
+            "host_us": host_us(seal),
+            "seal_host_ms": statistics.median(
+                _host_ms(lambda: bloom_kernels.seal_host(
+                    np.concatenate(sets), offsets, nbits, nhash, dev))
+                for _ in range(REPS)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    res["shapes"] = rows
+    return res
+
+
+def _host_ms(fn) -> float:
+    """Host ms of one call of fn that ends in a synchronisation."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("kernel", choices=("crc", "gf", "crush", "score",
-                                       "xsched"))
+                                       "xsched", "bloom"))
     ap.add_argument("--root", default=str(Path(__file__).resolve()
                                           .parents[2]))
     ap.add_argument("--cuts", action="store_true",
@@ -1028,6 +1216,11 @@ def main() -> None:
         res["shapes"], res["host_us"] = xsched_shapes(dev)
         res["ptxas"] = [line.strip() for line in _build.build_logs().get(
             "xor_sched", "").splitlines() if "registers" in line
+            or "spill" in line or "smem" in line]
+    elif args.kernel == "bloom":
+        res.update(bloom_shapes(dev))
+        res["ptxas"] = [line.strip() for line in _build.build_logs().get(
+            "hitset_bloom", "").splitlines() if "registers" in line
             or "spill" in line or "smem" in line]
     elif args.kernel == "score":
         res["shapes"] = score_shapes(dev)

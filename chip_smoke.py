@@ -7,13 +7,13 @@ Run from the repository root:
 
 (`python3 chip_smoke.py --phase osd` builds the kernels and runs phases 3i,
 3j and 3k alone, with their checks, and prints no result line;
-`--phase rgw` does the same for phase 3l, `--phase persist` for 3m,
-`--phase xsched` for 3n.)
+`--phase compute` does the same for phase 3g, `--phase rgw` for 3l,
+`--phase persist` for 3m, `--phase xsched` for 3n.)
 
 Phases; any failure exits nonzero and prints no result line:
 
 1. Build the CUDA kernels from ceph_tpu_torch/csrc (GF, crc, scoring, the
-   CRUSH placement kernel, the GF fold, the hit-set hash and the XOR
+   CRUSH placement kernel, the GF fold, the hit-set kernels and the XOR
    schedule, one nvcc per source, started together) and print the seconds
    it took and what ptxas reports (registers per source, spills).
 2. Hold every kernel against its plain PyTorch version on the card at the
@@ -155,18 +155,29 @@ Phases; any failure exits nonzero and prints no result line:
    streams 0 and 0, 3 lost under the 0.05 budget (served within it, or
    refused where the structural bound exceeds it, as on the CPU twin);
    a TierAgent with the reference's defaults (hit sets rotated by call
-   every 10,000 reads) over 100,000 Zipf(1.1) reads of 10,000 oids in 128
-   PGs, every decision and the counters against a device="cpu" twin, both
-   rates printed; bloom_positions against its plain version and numpy
-   before the path (B in 8, 37, 1024, 65536, 65536 + 17; nhash 1, 4, 7,
-   32; nbits 8, 6236, 1048573, 2^31 - 1), and positions_for on the card
-   against numpy at 8, 1024 and 65536 hashes, one CUDA kernel a call
-   (torch.profiler).  Host
-   times: the scan split into gather, stage, fold, decode and combine, and
-   its GiB/s of shard bytes; queries per second per model; gf_fold alone,
-   back to back and its device time beside its byte bound and its plain
-   version; positions_for at 1024 and 65536 hashes, its CUDA kernels and
-   the kernel alone.
+   every 10,000 reads, rotate_all sealing PG by PG as the reference does,
+   one bloom_seal launch a set of 8 hashes or more) over 100,000 Zipf(1.1)
+   reads of 10,000 oids in 128 PGs, then the newest sealed set of 8 PGs
+   queried for every oid (contains_batch, one bloom_positions launch each:
+   a kernel exercise, since no OSD path queries a set so and
+   bloom_positions has no caller on the main path); every decision, sealed
+   set, answer and the counters against a device="cpu" twin, both rates
+   printed, and the launches held to one seal a set of 8 hashes or more
+   and 8 position launches; before the path, bloom_positions against its
+   plain version and numpy (B in 8, 37, 1024, 65536, 65536 + 17; nhash 1,
+   4, 7, 32; nbits 8, 6236, 1048573, 2^31 - 1), and bloom_seal against its
+   plain version and numpy's scatter-OR on those cases cut into up to 128
+   sets, on an empty set, 1 and 7 hashes, duplicates, 128 sets, a set of three
+   blocks and a bitset past the shared-memory budget; after it
+   positions_for on the card against numpy at 8, 1024 and 65536 hashes,
+   and positions_for and one PG's insert_batch each one copy in, one
+   kernel and one copy out a call (torch.profiler).  Host times: the
+   scan split into gather, stage, fold, decode and combine, and its GiB/s
+   of shard bytes; queries per second per model; gf_fold alone, back to
+   back and its device time beside its byte bound and its plain version;
+   positions_for at 1024 and 65536 hashes, the kernel alone and its own
+   time; a PG's seal (the last period's median set) alone, its own time,
+   queued, its host time a call and insert_batch's whole call.
 3h. The monitors: three `python -m ceph_tpu_torch.mon` processes (and a
    standalone signed one) on the 10,000-OSD cluster (10 OSDs a host), their
    SQLite stores seeded with its first map (every OSD up and in), signed,
@@ -189,7 +200,7 @@ Phases; any failure exits nonzero and prints no result line:
    one port mon and 12 port OSDs on the card in one loop, pools rgw.data
    (EC 8+3, 64 KiB stripe units) and rgw.meta (size 3); the launch
    counters zeroed, a 64 MiB PUT as 16 objects of 4 MiB in four parts in
-   flight (3 trials), meta objects, every object read back, a ranged read,
+   flight (2 trials), meta objects, every object read back, a ranged read,
    an unaligned 1 MiB overwrite, one traced 4 MiB write_full, then one and
    three OSDs killed, marked down and every object read; the counters
    read.  Checks: every read exact, every shard's hinfo against
@@ -266,7 +277,7 @@ Phases; any failure exits nonzero and prints no result line:
    port RGWLite (rgw.data EC 8+3, rgw.meta replicated), its counts zeroed
    once the pools are active.  Over HTTP, each request signed by
    sign_request (SigV4): a bucket; the 64 MiB multipart PUT as four 16
-   MiB parts in flight together (one connection each), 3 trials of their
+   MiB parts in flight together (one connection each), 2 trials of their
    own keys, the first warming; every object GET whole, one by a range,
    the listing; a 9 MB atomic PUT, its GET, its DELETE; 16 object-ACL
    flips (bucket-index updates).  Outside HTTP: numops add through
@@ -312,7 +323,7 @@ Phases; any failure exits nonzero and prints no result line:
    and BrokenCommitStore caught.  (c) `python -m ceph_tpu_torch.tools.vstart
    --mons 1 --osds 12`: 12 TPUStore OSD processes on the card; through `python
    -m ceph_tpu_torch.tools.rados`: an EC 8+3 pool (mkpool --ec-profile), a
-   64 MiB put and get, bench 3 write and seq (4 MiB, 16 threads), bench 3 seq
+   64 MiB put and get, bench 2 write and seq (4 MiB, 16 threads), bench 2 seq
    --tenants 8 (read=0.7,write=0.3) at half the seq rate, scan gf_fold with
    and without CEPH_TPU_COMPUTE; one OSD process holding data shards
    SIGKILLed (a process kill, not a power cut) and marked down, the get
@@ -375,7 +386,8 @@ Phases; any failure exits nonzero and prints no result line:
    recovery, recovery_msr, split, osd_compute, rgw, persist, persist_sweep,
    xsched_codec, xsched) and their sum;
    bloom_positions' row is timed at the tier's geometry and 65536 hashes,
-   xor_sched's at the packed batch (its launches both entries').
+   bloom_seal's at one PG's seal of the tier, xor_sched's at
+   the packed batch (its launches both entries').
 
 The line before the last is {"kernels": [...]}, the one before it each
 phase's wall seconds ({"phase_seconds": {...}}); the last is
@@ -1896,6 +1908,17 @@ BLOOM_NBITS = (8, 6236, 1048573, (1 << 31) - 1)
 # the magic-reciprocal remainder (IMAD.HI, two shifts, an add, a subtract,
 # an IMAD)
 BLOOM_OPS_PER_POSITION = 3 * 9 * 3 + 1 + 6
+# the seal against its plain version and numpy: each BLOOM_* case cut into
+# up to SEAL_MAX_SETS sets (at most SEAL_MAX_BYTES of rows a case), then
+# edge cases at the tier's geometry; SEAL_SHARED_BITS is the largest bitset
+# the kernel builds in shared memory (227 KB)
+SEAL_MAX_SETS = 128
+SEAL_MAX_BYTES = 64 << 20
+SEAL_SHARED_BITS = 232448 // 4 * 32
+# a seal's lane instructions a position at least: the hash's, then the
+# bit's shift, its word's address and the OR
+SEAL_OPS_PER_POSITION = BLOOM_OPS_PER_POSITION + 3
+TIER_QUERY_PGS = 8          # PGs whose newest sealed set 3g queries
 
 
 def scan_objects(size: int) -> dict:
@@ -1935,9 +1958,91 @@ def zipf_indices(theta: float, n: int, count: int,
     return np.searchsorted(cdf, u).astype(np.int64)
 
 
-def drive_tier(agent, trace, pgs, sizes) -> list:
+def cut_sets(h: np.ndarray, nbits: int, seed: int) -> list:
+    """`h` cut at seeded points into as many as SEAL_MAX_SETS sets (about
+    16 hashes a set, at most SEAL_MAX_BYTES of bitsets in all)."""
+    n = max(1, min(SEAL_MAX_SETS, h.size // 16,
+                   SEAL_MAX_BYTES // ((nbits + 7) // 8)))
+    cuts = np.sort(np.random.default_rng(seed).integers(0, h.size + 1,
+                                                        n - 1))
+    return np.split(h, cuts)
+
+
+def seal_numpy_words(hitset, sets, nbits: int, nhash: int) -> tuple:
+    """The reference BloomHitSet.insert_batch's bits for each set (numpy
+    positions scattered with np.bitwise_or.at), as the flat indices and
+    int32 values of the nonzero 32-bit words of [S, ceil(nbits / 32)]
+    rows."""
+    nwords = (nbits + 31) // 32
+    parts, bits = [], []
+    for row, h in enumerate(sets):
+        if h.size:
+            pos = hitset.bloom_positions(h, nbits, nhash).reshape(-1)
+            parts.append(row * nwords + (pos >> 5).astype(np.int64))
+            bits.append(np.left_shift(np.uint32(1), pos & np.uint32(31)))
+    if not parts:
+        return np.zeros(0, np.int64), np.zeros(0, np.int32)
+    words, inverse = np.unique(np.concatenate(parts), return_inverse=True)
+    values = np.zeros(words.size, dtype=np.uint32)
+    np.bitwise_or.at(values, inverse, np.concatenate(bits))
+    return words, values.view(np.int32)
+
+
+def staged_sets(torch, dev, sets) -> tuple:
+    """(hashes, offsets) of `sets` as the seal takes them on `dev`, and
+    the largest set."""
+    sizes = [h.size for h in sets]
+    offsets = np.zeros(len(sets) + 1, dtype=np.int32)
+    np.cumsum(sizes, out=offsets[1:])
+    flat = np.concatenate(sets) if sets else np.zeros(0, np.uint32)
+    return (torch.from_numpy(flat.astype(np.uint32).view(np.int32)).to(dev),
+            torch.from_numpy(offsets).to(dev), max(sizes, default=0))
+
+
+def period_sets(trace, pgs, start: int) -> list:
+    """Each PG's unique oid hashes of the TIER_ROTATE reads from `start`,
+    PG by PG as the tier's stacks hold them: one rotate_all's sets."""
+    from ceph_tpu_torch.osd import hitset
+
+    per_pg: dict = {}
+    for i in trace[start:start + TIER_ROTATE]:
+        per_pg.setdefault(pgs[i], {})[hitset.hash_oid(f"obj{i}")] = None
+    return [np.fromiter(d, dtype=np.uint32, count=len(d))
+            for d in per_pg.values()]
+
+
+def profile_calls(torch, fn, kernel: str, calls: int = 8) -> list:
+    """The CUDA work of `calls` calls of fn from torch.profiler, call by
+    call: the device events in start order cut at each host-to-device copy
+    (a call's first), named "copy" or "kernel" (`kernel` in the name) or
+    by their own name.  The first cut is dropped, since a profile's first
+    events can go missing (one call lost its first events and the next
+    call whole in one run of five)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    on_card = sorted(
+        (e.time_range.start, e.name) for e in prof.events()
+        if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    cut, cur = [], None
+    for _start, name in on_card:
+        if name.startswith("Memcpy HtoD"):
+            cur = []
+            cut.append(cur)
+        if cur is not None:
+            cur.append("kernel" if kernel in name else "copy"
+                       if name.startswith(("Memcpy", "Memset")) else name)
+    return cut[1:]
+
+
+def drive_tier(agent, trace, pgs, sizes, rotations=None) -> list:
     """The OSD read path's tier calls for each read of `trace`, hit sets
-    rotated every TIER_ROTATE reads; returns every decision."""
+    rotated every TIER_ROTATE reads; returns every decision.  Each
+    rotate_all's host seconds go on `rotations`."""
     log = []
     for n, i in enumerate(trace):
         oid, pg = f"obj{i}", pgs[i]
@@ -1953,7 +2058,10 @@ def drive_tier(agent, trace, pgs, sizes) -> list:
                     agent.end_promote(pg, oid, bytes(sizes[i]))
         log.append((hc, data is not None, wants, began))
         if (n + 1) % TIER_ROTATE == 0:
+            t0 = time.perf_counter()
             agent.rotate_all()
+            if rotations is not None:
+                rotations.append(time.perf_counter() - t0)
             log.append([(pg, seq, s.to_dict())
                         for pg, seq, s in agent.pop_sealed()])
     return log
@@ -1980,7 +2088,8 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
     from ceph_tpu_torch.osd.tier import TierAgent
     from ceph_tpu_torch.rados.embedded import LocalCluster, shard_collection
     from ceph_tpu_torch.tools.kernel_shapes import (alone_ms, back_to_back_ms,
-                                                    host_us, kernel_ms)
+                                                    host_us, kernel_ms,
+                                                    queued_ms)
 
     phase_t0 = time.perf_counter()
     sync = torch.cuda.synchronize
@@ -2016,6 +2125,7 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
                       "card": card}))
     check(fold_err == 0, f"gf_fold disagrees with its plain version:"
           f" {fold_cases}")
+    bloom_t0 = time.perf_counter()
     bloom_cases = {}
     for batch in BLOOM_BATCHES:
         h = np.random.default_rng(SEED + batch).integers(
@@ -2033,9 +2143,61 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
     bloom_err = max(bloom_cases.values())
     print(json.dumps({"phase": "bloom_kernel_vs_plain",
                       "cases": len(bloom_cases), "mismatches": sum(
-                          bloom_cases.values()), "card": card}))
+                          bloom_cases.values()),
+                      "seconds": time.perf_counter() - bloom_t0,
+                      "card": card}))
+    seal_t0 = time.perf_counter()
     check(bloom_err == 0, f"bloom_positions disagrees with its plain"
           f" version or numpy: {bloom_cases}")
+
+    def seal_case(sets, nbits, nhash) -> int:
+        """Mismatches of the kernel's rows against the plain version's
+        and against numpy's scatter-OR of the numpy positions, compared
+        word by word where numpy set bits, and by the count of nonzero
+        words everywhere else (rows of 2^31 bits stay on the card)."""
+        t_h, t_o, most = staged_sets(torch, dev, sets)
+        a = bloom_kernels.bloom_seal(t_h, t_o, nbits, nhash, most)
+        b = bloom_kernels.bloom_seal_plain(t_h, t_o, nbits, nhash)
+        words, values = seal_numpy_words(hitset, sets, nbits, nhash)
+        got = a.view(-1)[torch.from_numpy(words).to(dev)].cpu().numpy()
+        return (int((a != b).sum()) + int((got != values).sum())
+                + abs(int(torch.count_nonzero(a)) - words.size))
+
+    seal_cases = {}
+    for batch in BLOOM_BATCHES:
+        h = np.random.default_rng(SEED + batch).integers(
+            0, 1 << 32, batch, dtype=np.uint64).astype(np.uint32)
+        for nhash in BLOOM_NHASH:
+            for nbits in BLOOM_NBITS:
+                sets = cut_sets(h, nbits, SEED + nhash)
+                seal_cases[f"{batch} {nhash} {nbits} in {len(sets)}"] = \
+                    seal_case(sets, nbits, nhash)
+    tier_nbits, tier_nhash = hitset.bloom_geometry(1024, 0.05)
+    rng = np.random.default_rng(SEED + 3)
+
+    def some(n: int):
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+
+    many = [some(int(n)) for n in rng.integers(0, 41, SEAL_MAX_SETS)]
+    for name, sets, nbits in (
+            ("empty set", [some(0)], tier_nbits),
+            ("1 hash", [some(1)], tier_nbits),
+            ("7 hashes", [some(7)], tier_nbits),
+            ("duplicates", [np.repeat(some(5), 13)], tier_nbits),
+            ("128 sets", many, tier_nbits),
+            ("1100 hashes, 3 blocks a set", [some(1100), some(7)],
+             tier_nbits),
+            ("past the shared budget", many, SEAL_SHARED_BITS + 1)):
+        seal_cases[name] = seal_case(sets, nbits, tier_nhash)
+    sync()
+    seal_err = max(seal_cases.values())
+    print(json.dumps({"phase": "bloom_seal_vs_plain",
+                      "cases": len(seal_cases), "mismatches": sum(
+                          seal_cases.values()),
+                      "seconds": time.perf_counter() - seal_t0,
+                      "card": card}))
+    check(seal_err == 0, f"bloom_seal disagrees with its plain version or"
+          f" numpy: {seal_cases}")
 
     # -- 2. the main path: writes, the scan, decodes, kernels, models, tier --
     for fn in wrappers.values():
@@ -2127,10 +2289,25 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
     sizes = [4096 * (1 + i % 16) for i in range(TIER_OIDS)]
     agent = TierAgent("osd.0", cfg, device=dev)
     t0 = time.perf_counter()
-    tier_log = drive_tier(agent, trace, pgs, sizes)
+    tier_rot: list = []
+    tier_log = drive_tier(agent, trace, pgs, sizes, tier_rot)
     tier_s = time.perf_counter() - t0
+    # the query side: the newest sealed set of a few PGs asked for every
+    # oid of the trace, one positions_for launch a set (no OSD path asks a
+    # set so: this keeps bloom_positions launching beside the path)
+    oid_hashes = np.array([hitset.hash_oid(f"obj{i}")
+                           for i in range(TIER_OIDS)], dtype=np.uint32)
+    query_pgs = sorted(agent.stacks)[:TIER_QUERY_PGS]
+    queries = [agent.stacks[pg].archived[-1].contains_batch(
+        oid_hashes, device=dev) for pg in query_pgs]
     sync()
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    # rotate_all seals PG by PG: one launch a set of DEVICE_MIN_BATCH
+    # hashes or more, the smaller ones on the host
+    device_seals = sum(
+        h.size >= hitset.DEVICE_MIN_BATCH for start in range(
+            0, TIER_READS, TIER_ROTATE)
+        for h in period_sets(trace, pgs, start))
 
     # -- 3. checks against the host oracle and the CPU twins ---------------
     cpu_codec = create_erasure_code({**EC_PROFILE, "device": "cpu"})
@@ -2191,10 +2368,14 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
 
     twin_agent = TierAgent("osd.0", cfg, device="cpu")
     t0 = time.perf_counter()
-    twin_log = drive_tier(twin_agent, trace, pgs, sizes)
+    twin_rot: list = []
+    twin_log = drive_tier(twin_agent, trace, pgs, sizes, twin_rot)
     tier_twin_s = time.perf_counter() - t0
     tier_ok = twin_log == tier_log and agent.counters() == \
         twin_agent.counters()
+    queries_ok = all(np.array_equal(got, twin_agent.stacks[pg].archived[-1]
+                                    .contains_batch(oid_hashes, device="cpu"))
+                     for pg, got in zip(query_pgs, queries))
     bloom_ok = {}
     nbits, nhash = hitset.bloom_geometry(cfg["osd_hit_set_target_size"],
                                          cfg["osd_hit_set_bloom_fpp"])
@@ -2216,6 +2397,9 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
               "score_blocks_launches": score_launches,
               "inference": infer, "inference_rtol": INFER_RTOL,
               "tier": {"reads": TIER_READS, "same_as_cpu_twin": tier_ok,
+                       "queries_same_as_cpu_twin": queries_ok,
+                       "rotate_all_calls": TIER_READS // TIER_ROTATE,
+                       "device_seals": device_seals,
                        "counters": agent.counters(), "seconds": tier_s,
                        "twin_seconds": tier_twin_s},
               "bloom_positions_vs_numpy": bloom_ok,
@@ -2249,11 +2433,19 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
           "the linear scorer was not served with data streams lost")
     check(tier_ok, "the tier agent on the card decided otherwise than its"
           " CPU twin")
+    check(queries_ok, "a sealed set on the card answered a query"
+          " otherwise than its CPU twin")
     check(all(bloom_ok.values()), f"bloom positions on the card: {bloom_ok}")
     for name in ("gf_fold", "gf_matmul_spec", "gf_matmul_gen",
-                 "score_blocks", "bloom_positions"):
+                 "score_blocks", "bloom_positions", "bloom_seal"):
         check(launches[name] > 0, f"{name} never launched on the compute"
               f" path: {launches}")
+    check(launches["bloom_seal"] == device_seals
+          and launches["bloom_positions"] == len(query_pgs),
+          f"the tier's hit sets took {launches['bloom_seal']} seals for"
+          f" {device_seals} sets of {hitset.DEVICE_MIN_BATCH} hashes or more"
+          f" and {launches['bloom_positions']} position launches for"
+          f" {len(query_pgs)} queries")
 
     # -- 4. times ------------------------------------------------------------
     kern = compute.get_kernel("gf_fingerprint")
@@ -2318,61 +2510,69 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
     for batch in (1024, 65536):
         h = np.random.default_rng(batch).integers(
             0, 1 << 32, batch, dtype=np.uint64).astype(np.uint32)
-        # CUDA work per positions_for call, from torch.profiler: eight
-        # calls, the device events in start order cut at each host-to-device
-        # copy (a call's first); the first cut is dropped, since a session's
-        # first events can go missing (one call lost its first events and
-        # the next call whole in one run of five), and every other must be
-        # one copy in, the bloom kernel, one copy out
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            for _ in range(8):
-                hitset.positions_for(h, nbits, nhash, device=dev)
-            sync()
-        on_card = sorted(
-            (e.time_range.start, e.name) for e in prof.events()
-            if str(getattr(e, "device_type", "")).endswith("CUDA"))
-        calls, cur = [], None
-        for _start, name in on_card:
-            if name.startswith("Memcpy HtoD"):
-                cur = []
-                calls.append(cur)
-            if cur is not None:
-                cur.append(name)
-        calls = calls[1:]
-        per_call = [[("bloom" if "bloom_positions_kernel" in n else
-                      "copy" if n.startswith(("Memcpy", "Memset")) else n)
-                     for n in c] for c in calls]
-        cuda_kernels = (sum(len(c) - c.count("copy") for c in per_call)
-                        / max(len(per_call), 1))
-        cuda_copies = (sum(c.count("copy") for c in per_call)
-                       / max(len(per_call), 1))
+        # CUDA work per positions_for call: one copy in, the bloom kernel,
+        # one copy out
+        per_call = profile_calls(torch, lambda: hitset.positions_for(
+            h, nbits, nhash, device=dev), "bloom_positions_kernel")
         profile_ok = len(per_call) >= 3 and all(
-            c == ["copy", "bloom", "copy"] for c in per_call)
-        if not profile_ok:
-            print(json.dumps({"positions_for_profile": [n for _s, n in
-                                                        on_card]}))
+            c == ["copy", "kernel", "copy"] for c in per_call)
         t_dev = torch.from_numpy(h.astype(np.int64)).to(dev)
         t_32 = torch.from_numpy(h.view(np.int32)).to(dev)
         out_32 = torch.empty((batch, nhash), dtype=torch.int32, device=dev)
+
+        def launch():
+            bloom_kernels.bloom_positions(t_32, nbits, nhash, out=out_32)
+
         hashes[batch] = {
             "positions_for_ms": host_median_s(
                 torch, lambda: hitset.positions_for(h, nbits, nhash,
                                                     device=dev),
                 reps=20) * 1e3,
-            "kernel_ms": alone_ms(lambda: bloom_kernels.bloom_positions(
-                t_32, nbits, nhash, out=out_32)),
+            "ms": alone_ms(launch),
+            "kernel_ms": kernel_ms(launch, "bloom_positions_kernel"),
             "plain_on_device_ms": alone_ms(
                 lambda: hitset.bloom_positions_torch(t_dev, nbits, nhash)),
             "host_numpy_ms": host_median_s(
                 torch, lambda: hitset.bloom_positions(h, nbits, nhash),
                 reps=20) * 1e3,
-            "cuda_kernels": cuda_kernels, "cuda_copies": cuda_copies}
+            "cuda_work_per_call": per_call[:2]}
         check(profile_ok, f"positions_for at {batch} hashes: the CUDA"
               f" work of its calls was {per_call}, not one copy in, the"
               f" bloom kernel and one copy out")
+    # one PG's seal as rotate_all makes it (the last period's median set):
+    # insert_batch, one copy in, the seal kernel, one copy out
+    period = sorted(period_sets(trace, pgs, TIER_READS - TIER_ROTATE),
+                    key=len)
+    pg_set = period[len(period) // 2]
+    per_call = profile_calls(torch, lambda: hitset.BloomHitSet(
+        nbits=nbits, nhash=nhash).insert_batch(pg_set, device=dev),
+        "bloom_seal_kernel")
+    check(len(per_call) >= 3 and all(c == ["copy", "kernel", "copy"]
+                                     for c in per_call),
+          f"a PG's seal's CUDA work was {per_call}, not one copy in, the"
+          " seal kernel and one copy out")
+    w_h, w_o, w_most = staged_sets(torch, dev, [pg_set])
+    w_out = torch.empty((1, bloom_kernels.seal_words(nbits)),
+                        dtype=torch.int32, device=dev)
+
+    def seal_launch():
+        bloom_kernels.bloom_seal(w_h, w_o, nbits, nhash, w_most, out=w_out)
+
+    b_ms, by = bound(4 * pg_set.size + 8 + w_out.numel() * 4,
+                     pg_set.size * nhash * SEAL_OPS_PER_POSITION)
+    seal_row = {
+        "hashes": int(pg_set.size),
+        "ms": alone_ms(seal_launch),
+        "kernel_ms": kernel_ms(seal_launch, "bloom_seal_kernel"),
+        "queued_ms": queued_ms(seal_launch),
+        "host_us": host_us(seal_launch),
+        "insert_batch_ms": host_median_s(torch, lambda: hitset.BloomHitSet(
+            nbits=nbits, nhash=nhash).insert_batch(pg_set, device=dev),
+            reps=20) * 1e3,
+        "plain_ms": alone_ms(lambda: bloom_kernels.bloom_seal_plain(
+            w_h, w_o, nbits, nhash), reps=5, warmup=1),
+        "bound_ms": b_ms, "bound_by": by, "max_abs_err": seal_err,
+        "cuda_work_per_call": per_call[:2]}
     # what phase 3k holds its OSD scan and queries against
     PHASE_RESULTS["compute"] = {
         "answers": {kname: {name: ans for (name, lost), ans
@@ -2385,10 +2585,12 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
                       "shard_gib": shard_gib, "inference_qps": qps,
                       "gf_fold": fold_times,
                       "bloom": {"nbits": nbits, "nhash": nhash,
-                                "by_batch": hashes},
+                                "by_batch": hashes, "seal_one_pg": seal_row},
                       "tier_reads_per_s": TIER_READS / tier_s,
                       "tier_twin_reads_per_s": TIER_READS / tier_twin_s,
                       "tier_rate_vs_twin": tier_twin_s / tier_s,
+                      "tier_rotate_all_s": sum(tier_rot),
+                      "tier_twin_rotate_all_s": sum(twin_rot),
                       "seconds_in_phase": time.perf_counter() - phase_t0,
                       "card": card}))
     # the kernels-line row: the tier's geometry at 65,536 hashes
@@ -2399,14 +2601,18 @@ def compute_phase(torch, dev, card: str, wrappers: dict) -> dict:
     out_32 = torch.empty((big, nhash), dtype=torch.int32, device=dev)
     b_ms, by = bound(4 * big + 4 * big * nhash,
                      big * nhash * BLOOM_OPS_PER_POSITION)
+    def launch_big():
+        bloom_kernels.bloom_positions(t_32, nbits, nhash, out=out_32)
+
     bloom_row = {
-        "ms": alone_ms(lambda: bloom_kernels.bloom_positions(
-            t_32, nbits, nhash, out=out_32)),
+        "ms": alone_ms(launch_big),
+        "kernel_ms": kernel_ms(launch_big, "bloom_positions_kernel"),
+        "queued_ms": queued_ms(launch_big),
         "plain_ms": alone_ms(lambda: bloom_kernels.bloom_positions_plain(
             t_32, nbits, nhash), reps=5, warmup=1),
         "bound_ms": b_ms, "bound_by": by, "max_abs_err": bloom_err}
     return {"launches": launches, "fold_err": fold_err,
-            "fold_times": fold_times, "bloom": bloom_row}
+            "fold_times": fold_times, "bloom": bloom_row, "seal": seal_row}
 
 
 # phase 3h: the monitors.  Three port mons as processes on the 10,000-OSD
@@ -2864,7 +3070,7 @@ OSD_PROFILE = {"plugin": "ec_torch", "technique": "reed_sol_van",
                "k": str(K), "m": str(M), "crush-failure-domain": "osd",
                "stripe_unit": "65536"}
 OSD_PUT, OSD_PART, OSD_OBJECT = 64 << 20, 16 << 20, 4 << 20
-OSD_TRIALS = 3              # the first warms
+OSD_TRIALS = 2              # the first warms; two, for the time limit
 OSD_META_OBJECTS = 8
 OSD_CONFIG = {"osd_heartbeat_interval": 3.0, "osd_heartbeat_grace": 20.0}
 OSD_MON_CONFIG = {"mon_osd_min_down_reporters": 1}
@@ -3056,7 +3262,7 @@ def service_growth(everyone: dict, base: dict) -> dict:
 
 def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     """Phase 3i: the port's OSD daemons and RADOS client on the card.  The
-    PUT in three trials, meta objects, every object read back, a ranged
+    PUT in OSD_TRIALS trials, meta objects, every object read back, a ranged
     read and an unaligned 1 MiB overwrite (RMW), then one non-primary OSD
     holding data shards killed and marked down, all 16 objects of a trial
     read, two more killed (3 = m lost) and read again.  Every read against
@@ -3122,7 +3328,7 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
         return [b for part_objs in got for b in part_objs]
 
     async def writes(io, mio):
-        """Three PUTs, then the meta objects.  Returns each PUT's
+        """OSD_TRIALS PUTs, then the meta objects.  Returns each PUT's
         seconds."""
         put_s = []
         for trial in range(OSD_TRIALS):
@@ -4371,7 +4577,7 @@ def osd_compute_report(dev, card: str, k3: dict, twin: dict,
 # phase 3l: config 5 through the gateway, on a fresh cluster of 3i's shape
 # (bench.py:3252-3300): the port's S3Frontend on loopback over a port
 # RGWLite, the 64 MiB multipart PUT over HTTP (SigV4 by sign_request) as four
-# 16 MiB parts in flight together, 3 trials (the first warms), each trial its
+# 16 MiB parts in flight together, 2 trials (the first warms), each trial its
 # own key; GETs whole and by a range, the listing, a 9 MB atomic PUT and a
 # DELETE; outside HTTP, numops add on each pool, hello record_hello (an
 # object-class write down the EC path) and a watch/notify round trip between
@@ -4711,7 +4917,7 @@ def rgw_phase(torch, dev, card: str, wrappers: dict) -> dict:
                 "launches_in_index_burst": index_launches,
                 "encode_service": svc, "encode_service_healthy": svc_healthy,
                 "hash_ms_16mib": hash_ms,
-                "part_s_median_trials_2_3": {
+                "part_s_median_after_the_first_trial": {
                     k: statistics.median(v[n_parts:])
                     for k, v in part_s.items()},
                 "seconds": {"put": put_s, "get": get_s,
@@ -4868,7 +5074,7 @@ PERSIST_WAL_EDIT = 200          # its small overwrite: a deferred WAL entry
 PERSIST_TIMEOUT = 300.0
 SWEEP_TXNS = 24
 VSTART_OSDS = 12
-VSTART_BENCH_S = 3
+VSTART_BENCH_S = 2          # seconds a bench runs; two, for the time limit
 VSTART_BENCH_THREADS = 16
 VSTART_TENANTS = 8
 VSTART_TENANT_OBJECTS = 16
@@ -6248,8 +6454,15 @@ def main() -> None:
                 "score_blocks": score_kernels.score_blocks_packed,
                 "gf_fold": fold_kernels.gf_fold,
                 "bloom_positions": bloom_kernels.bloom_positions,
+                "bloom_seal": bloom_kernels.bloom_seal,
                 "xor_sched_regions": xor_kernels.xor_sched_regions,
                 "xor_sched_gf": xor_kernels.xor_sched_gf}
+    if sys.argv[1:] == ["--phase", "compute"]:
+        # phase 3g alone, after the build: no result line
+        state = compute_phase(torch, dev, card, wrappers)
+        print(json.dumps({"phase_only": "compute", **{
+            key: state[key] for key in ("launches", "bloom", "seal")}}))
+        return
     if sys.argv[1:] == ["--phase", "xsched"]:
         # phase 3n alone, after the build: no result line
         print(json.dumps({"phase_only": "xsched", "launches": xsched_phase(
@@ -6661,8 +6874,9 @@ def main() -> None:
         "max_abs_err": compute_state["fold_err"], "ms": fold["ms"],
         "plain_ms": fold["plain_ms"], "bound_ms": fold["bound_ms"],
         "bound_by": fold["bound_by"], "library_ms": None})
-    # bloom_positions at the tier's geometry and 65,536 hashes; no PyTorch
-    # call computes the rjenkins hash, so no library call
+    # bloom_positions at the tier's geometry and 65,536 hashes; its path
+    # launches are 3g's queries, a kernel exercise (no OSD path calls it);
+    # no PyTorch call computes the rjenkins hash, so no library call
     bloom = compute_state["bloom"]
     rows.append({
         "name": "bloom_positions", "route": "cuda",
@@ -6670,8 +6884,22 @@ def main() -> None:
         "replaces": "ceph_tpu/osd/hitset.py:70",
         **path_launches("bloom_positions"),
         "max_abs_err": bloom["max_abs_err"], "ms": bloom["ms"],
+        "kernel_ms": bloom["kernel_ms"], "queued_ms": bloom["queued_ms"],
         "plain_ms": bloom["plain_ms"], "bound_ms": bloom["bound_ms"],
         "bound_by": bloom["bound_by"], "library_ms": None})
+    # bloom_seal at one PG's seal of the tier (the trace's last period's
+    # median set); no PyTorch call computes the rjenkins hash, so no
+    # library call
+    seal = compute_state["seal"]
+    rows.append({
+        "name": "bloom_seal", "route": "cuda",
+        "source": "ceph_tpu_torch/csrc/hitset_bloom.cu",
+        "replaces": "ceph_tpu/osd/hitset.py:164",
+        **path_launches("bloom_seal"),
+        "max_abs_err": seal["max_abs_err"], "ms": seal["ms"],
+        "kernel_ms": seal["kernel_ms"], "queued_ms": seal["queued_ms"],
+        "plain_ms": seal["plain_ms"], "bound_ms": seal["bound_ms"],
+        "bound_by": seal["bound_by"], "library_ms": None})
     # xor_sched at the packed batch of 512 one-stripe liberation objects
     # (the region entry; both entries' launches; the GF entry's times at
     # the MSR repair shapes are on the xsched_kernels line); no PyTorch

@@ -1,13 +1,23 @@
-"""The hit-set hash kernel's own code (csrc/hitset_bloom.cu), run on the CPU
+"""The hit-set kernels' own code (csrc/hitset_bloom.cu), run on the CPU
 through its g++ emulation (ceph_tpu_torch/tools/bloom_emulate.py), against
-the numpy bloom_positions of both packages.
+the numpy bloom_positions and BloomHitSet.insert_batch of the JAX package.
 
-The cases are chip_smoke.py phase 3g's: B in {8, 37, 1024, 65536,
+bloom_positions: chip_smoke.py phase 3g's cases, B in {8, 37, 1024, 65536,
 65536 + 17}, nhash in {1, 4, 7, 32} and nbits in {8, 6236, 1048573,
 2^31 - 1}; then the magic reciprocal's edges (nbits 1, 2, 3, powers of two
 and their neighbours, 2^32 - 1) against Python's integers, on dividends
 that cross every power of two, and the grid-stride loop on a batch larger
 than one launch's threads.  Every position is held bit for bit.
+
+bloom_seal: each row's bytes against the bits the JAX BloomHitSet's
+insert_batch sets in an empty set, byte for byte, trailing bits zero, with
+a block's threads run in rising and in falling order between barriers:
+empty sets, 1, 7 and 8 hashes, sets past a block's 256 threads and past a
+block's 512-hash chunk (several blocks a set), duplicate hashes, S = 1 and
+S = 128, nbits 8, 6,236, 6,385 (the tier's default geometry), 1,048,573
+and one past the shared-memory budget (the global-memory path), nhash 1, 4
+and 32.  Then copies of the kernel with a barrier or the bitset's zeroing
+cut out must give wrong rows.
 """
 
 import numpy as np
@@ -74,3 +84,95 @@ def test_grid_stride_covers_a_batch_past_one_launch():
     (got, info), = bloom_emulate.emulate_many([(h, 9586, 7)])
     assert info["blocks"] == 132 * 16
     np.testing.assert_array_equal(got, hs.bloom_positions(h, 9586, 7))
+
+
+# the seal's shared bitset holds BLOOM_SEAL_SMEM_WORDS (227 KB / 4) words
+SHARED_WORDS = 232448 // 4
+SEAL_NBITS = (8, 6236, 6385, 1048573, SHARED_WORDS * 32 + 1)
+SEAL_NHASH = (1, 4, 32)
+ORDERS = ("rising", "falling")
+
+
+def _seal_sets(seed: int, sizes) -> list:
+    rng = np.random.default_rng(seed)
+    sets = [_hashes(n, int(rng.integers(1 << 30))) for n in sizes]
+    # duplicates: five hashes, each many times over
+    sets.append(np.repeat(_hashes(5, seed + 1), 13))
+    return sets
+
+
+def _jax_bits(hashes, nbits: int, nhash: int) -> np.ndarray:
+    ref = jhs.BloomHitSet(nbits=nbits, nhash=nhash)
+    ref.insert_batch(hashes, device=False)
+    return ref.bits
+
+
+def _assert_rows(rows, sets, nbits: int, nhash: int) -> None:
+    nbytes = (nbits + 7) // 8
+    assert rows.shape == (len(sets), (nbits + 31) // 32)
+    for i, (row, h) in enumerate(zip(rows, sets)):
+        got = row.view(np.uint8)
+        np.testing.assert_array_equal(got[:nbytes], _jax_bits(h, nbits,
+                                                              nhash),
+                                      err_msg=f"set {i} of {len(h)} hashes")
+        assert not got[nbytes:].any()
+        assert not (nbits % 8 and got[nbytes - 1] >> (nbits % 8))
+
+
+@pytest.mark.parametrize("nhash", SEAL_NHASH)
+@pytest.mark.parametrize("nbits", SEAL_NBITS)
+def test_seal_equals_jax_insert_batch(nbits, nhash):
+    """One launch over 128 sets (the tier's wave: sizes 0 to 40, and 0, 1,
+    7, 8, 300 and duplicates), one over a single set of 8, one whose
+    1,100-hash set takes three blocks, each in both thread orders."""
+    wave = _seal_sets(SEED + nbits + nhash, [0, 1, 7, 8, 300] + list(
+        np.random.default_rng(nbits).integers(0, 41, 122)))
+    assert len(wave) == 128
+    one = [_hashes(8, SEED + 3)]
+    chunked = _seal_sets(SEED + 4, [1100, 7])
+    jobs = [(sets, nbits, nhash, order) for sets in (wave, one, chunked)
+            for order in ORDERS]
+    shared = nbits <= SHARED_WORDS * 32
+    for (sets, _nb, _nh, order), (rows, info) in zip(
+            jobs, bloom_emulate.emulate_seals(jobs)):
+        _assert_rows(rows, sets, nbits, nhash)
+        assert info["shared"] == shared
+        assert info["chunks"] == (3 if sets is chunked else 1)
+        assert info["zeroed"] == (not shared or sets is chunked)
+        assert info["smem"] == (4 * ((nbits + 31) // 32) if shared else 0)
+
+
+# (text of csrc/hitset_bloom.cu, replacement): each cut must give wrong rows
+SEAL_MUTATIONS = {
+    "no barrier after zeroing": (
+        "      bloom_seal_bits[w] = 0;\n    __syncthreads();\n",
+        "      bloom_seal_bits[w] = 0;\n"),
+    "no barrier before the write-out": (
+        "  if (!shared) return;\n  __syncthreads();\n",
+        "  if (!shared) return;\n"),
+    "bitset not zeroed": (
+        "      bloom_seal_bits[w] = 0;\n", "      (void)w;\n"),
+}
+
+
+@pytest.mark.parametrize("mutation", list(SEAL_MUTATIONS))
+def test_seal_mutations_are_caught(mutation, tmp_path):
+    """A copy of the device code with a barrier or the zeroing cut out,
+    built outside the checkout, gives rows that differ from the JAX bits
+    in at least one thread order; the real code gives the right ones."""
+    text, new = SEAL_MUTATIONS[mutation]
+    src = bloom_emulate.device_source()
+    assert src.count(text) == 1
+    nbits, nhash = 6385, 4
+    sets = _seal_sets(SEED + 5, [16, 27, 9, 300, 3])
+    want = [_jax_bits(h, nbits, nhash) for h in sets]
+    jobs = [(sets, nbits, nhash, order) for order in ORDERS]
+    nbytes = (nbits + 7) // 8
+
+    def right(results) -> bool:
+        return all(np.array_equal(row.view(np.uint8)[:nbytes], w)
+                   for rows, _info in results for row, w in zip(rows, want))
+
+    assert right(bloom_emulate.emulate_seals(jobs))
+    assert not right(bloom_emulate.emulate_seals(
+        jobs, source=src.replace(text, new), build_dir=tmp_path))

@@ -8,7 +8,9 @@ numpy host path, over geometries whose nbits is and is not a power of two,
 at batch sizes on both sides of DEVICE_MIN_BATCH.  Sets built by the same
 inserts serialize to the same bytes, and cross both ways through
 to_dict/from_dict; HitSetStack rotation and decay give the same hit counts,
-read frequencies and archived sets.
+read frequencies and archived sets.  The seal (`bloom_seal_plain`, the
+kernel's plain version, many sets at once or one through `seal_bits`)
+gives the bytes the JAX insert_batch sets, on the host or device path.
 """
 
 import json
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from ceph_tpu.osd import hitset as jhs
+from ceph_tpu_torch.ops import bloom_kernels
 from ceph_tpu_torch.osd import hitset as hs
 
 SEED = 20261020
@@ -212,3 +215,86 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
             "nhash": (t, 100, 33), "nbits": (t, 0, 4)}[bad]
     with pytest.raises(ValueError):
         bloom_kernels.bloom_positions(*args)
+
+
+def _jax_bits(hashes, nbits: int, nhash: int) -> np.ndarray:
+    ref = jhs.BloomHitSet(nbits=nbits, nhash=nhash)
+    ref.insert_batch(hashes, device=False)
+    return ref.bits
+
+
+def _wave(seed: int) -> list:
+    """Sets as a rotation wave has them: empty, under DEVICE_MIN_BATCH,
+    larger, and one of duplicates."""
+    sizes = (0, 1, 7, 8, 16, 300, 0, 1000)
+    return [_hashes(n, seed + i) for i, n in enumerate(sizes)] + [
+        np.repeat(_hashes(4, seed), 9)]
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES + ((1024, 0.05),), ids=str)
+def test_seal_equals_jax_insert_batch(geometry):
+    """bloom_seal_plain (and the wrapper on CPU tensors, which counts no
+    launch) and seal_host on the CPU device give each set of a wave the
+    bytes the JAX insert_batch sets in an empty set, trailing bits and
+    words zero; seal_bits and insert_batch do so set by set."""
+    nbits, nhash = hs.bloom_geometry(*geometry)
+    sets = _wave(SEED + nbits)
+    want = [_jax_bits(h, nbits, nhash) for h in sets]
+    offsets = np.cumsum([0] + [h.size for h in sets])
+    flat = torch.from_numpy(np.concatenate(sets).astype(np.int64))
+    before = bloom_kernels.bloom_seal.launches
+    for rows in (bloom_kernels.bloom_seal_plain(
+            flat, torch.from_numpy(offsets), nbits, nhash),
+            bloom_kernels.bloom_seal(flat.to(torch.int32), torch.from_numpy(
+                offsets.astype(np.int32)), nbits, nhash, 1000)):
+        assert rows.dtype == torch.int32
+        assert tuple(rows.shape) == (len(sets), (nbits + 31) // 32)
+        got = rows.numpy().view(np.uint8)
+        assert not got[:, len(want[0]):].any()
+        for row, w in zip(got, want):
+            np.testing.assert_array_equal(row[:len(w)], w)
+    assert bloom_kernels.bloom_seal.launches == before
+    for row, w in zip(bloom_kernels.seal_host(
+            np.concatenate(sets), offsets, nbits, nhash,
+            torch.device("cpu")), want):
+        np.testing.assert_array_equal(row, w)
+    for h, w in zip(sets, want):
+        np.testing.assert_array_equal(
+            hs.seal_bits(h, nbits, nhash, device="cpu"), w)
+    for h in sets:
+        p = hs.BloomHitSet(nbits=nbits, nhash=nhash)
+        r = jhs.BloomHitSet(nbits=nbits, nhash=nhash)
+        for one in (p, r):
+            one.insert(7)
+        p.insert_batch(h, device="cpu")
+        r.insert_batch(h, device=False)
+        assert p.to_dict() == r.to_dict()
+
+
+def test_seal_bits_takes_the_device_from_eight_hashes(monkeypatch):
+    """A set of fewer than DEVICE_MIN_BATCH hashes seals on the host; from
+    it on, on the resolved device, and with no device named and no card
+    that raises (never a silent host path)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    nbits, nhash = hs.bloom_geometry(1024, 0.05)
+    for h in (_hashes(3, 1), np.zeros(0, np.uint32), _hashes(7, 2)):
+        np.testing.assert_array_equal(hs.seal_bits(h, nbits, nhash),
+                                      _jax_bits(h, nbits, nhash))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hs.seal_bits(_hashes(8, 3), nbits, nhash)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hs.BloomHitSet(1024, 0.05).insert_batch(_hashes(8, 4))
+
+
+@pytest.mark.parametrize("bad", ["offsets shape", "offsets dtype",
+                                 "offsets device", "nhash", "nbits"])
+def test_seal_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    t = torch.zeros(16, dtype=torch.int32)
+    offsets = torch.tensor([0, 8, 16], dtype=torch.int32)
+    args = {"offsets shape": (t, offsets.view(1, 3), 100, 4, 8),
+            "offsets dtype": (t, offsets.to(torch.float32), 100, 4, 8),
+            "offsets device": (t, offsets.to("meta"), 100, 4, 8),
+            "nhash": (t, offsets, 100, 0, 8),
+            "nbits": (t, offsets, 0, 4, 8)}[bad]
+    with pytest.raises(ValueError):
+        bloom_kernels.bloom_seal(*args)

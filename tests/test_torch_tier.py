@@ -10,6 +10,10 @@ the promote decision, begin and end), with byte-pressure eviction, failed
 promotions and their backoff, invalidations, drop_pg, an object larger than
 the whole budget and sealed-set draining mixed in.  Every decision, the
 sealed hit sets, the hit-set dumps and the final counters must be equal.
+The port seals a bloom set of DEVICE_MIN_BATCH hashes or more in one
+`bloom_seal` (its plain version here) where the reference hashes on the
+device and scatter-ORs on the host; rotate_all waves mix empty PGs, PGs
+under DEVICE_MIN_BATCH hashes and explicit_hash stacks.
 """
 
 import time
@@ -19,7 +23,8 @@ import pytest
 from ceph_tpu.osd import tier as jtier
 from ceph_tpu.tools.rados import zipf_indices
 from ceph_tpu_torch.common import flags
-from ceph_tpu_torch.osd import tier
+from ceph_tpu_torch.ops import bloom_kernels
+from ceph_tpu_torch.osd import hitset, tier
 
 OIDS, PGS = 2000, 32
 
@@ -180,3 +185,42 @@ def test_kill_switch_through_the_port_flags(monkeypatch):
     assert flags.registry()["CEPH_TPU_TIER"]["default"] == "1"
     with pytest.raises(flags.UnregisteredFlag):
         flags.get("CEPH_TPU_NO_SUCH_FLAG")
+
+
+@pytest.mark.parametrize("kind,rotate_every", [
+    ("bloom", 5), ("bloom", 40), ("bloom", 700), ("explicit_hash", 40)])
+def test_rotate_all_equals_the_reference(monkeypatch, kind, rotate_every):
+    """rotate_all every 5 reads (most of the 32 PGs empty, the rest under
+    DEVICE_MIN_BATCH hashes), 40 (PGs of a few hashes, all under it) and
+    700 (some over it): the same
+    decisions, sealed dicts, counters and dumps as the reference's per-PG
+    loop; every non-empty bloom seal is one seal_bits call, and one from
+    DEVICE_MIN_BATCH hashes on reaches the device's seal_host."""
+    sizes, staged = [], []
+    seal_bits, seal_host = hitset.seal_bits, bloom_kernels.seal_host
+
+    def counted_bits(hashes, *args, **kw):
+        sizes.append(len(hashes))
+        return seal_bits(hashes, *args, **kw)
+
+    def counted_host(hashes, *args, **kw):
+        staged.append(len(hashes))
+        return seal_host(hashes, *args, **kw)
+
+    monkeypatch.setattr(hitset, "seal_bits", counted_bits)
+    monkeypatch.setattr(bloom_kernels, "seal_host", counted_host)
+    trace = zipf_indices(1.1, OIDS, 2800, seed=5)
+    port, ref, got, want = _both(
+        monkeypatch, {"osd_hit_set_period": 0.0, "osd_hit_set_count": 3,
+                      "osd_hit_set_type": kind}, trace,
+        rotate_every=rotate_every)
+    _assert_same(port, ref, got, want)
+    assert [(pg, seq, s.to_dict()) for pg, seq, s in port.pop_sealed()] == \
+        [(pg, seq, s.to_dict()) for pg, seq, s in ref.pop_sealed()]
+    assert port.counters()["hitset_rotations"] >= len(trace) // rotate_every
+    if kind != "bloom":
+        assert sizes == staged == []
+        return
+    assert sizes and all(sizes)
+    assert staged == [n for n in sizes if n >= hitset.DEVICE_MIN_BATCH]
+    assert bool(staged) == (rotate_every == 700)
