@@ -59,18 +59,16 @@ class MethodContext:
     """The objclass.h surface handed to a running method: object I/O
     routed through the hosting OSD's op engine (cls_cxx_read,
     cls_cxx_write_full, cls_cxx_getxattr, cls_cxx_map_* roles).
-    Write access requires the method's WR flag.
-
-    Snapshots are not ported (ROADMAP A7): a method never runs under a
-    write snap context, so the writes carry none."""
+    Write access requires the method's WR flag."""
 
     def __init__(self, daemon, state, pool, oid: str,
-                 admit_epoch: int, flags: int):
+                 admit_epoch: int, snapc, flags: int):
         self._d = daemon
         self._state = state
         self._pool = pool
         self.oid = oid
         self._admit_epoch = admit_epoch
+        self._snapc = snapc
         self._flags = flags
 
     def _need_wr(self) -> None:
@@ -128,7 +126,7 @@ class MethodContext:
         self._need_wr()
         rc, _out = await self._d._op_write_full(
             self._state, self._pool, self.oid, data,
-            self._admit_epoch)
+            self._admit_epoch, self._snapc)
         if rc != 0:
             raise ClsError(rc, "write_full")
 
@@ -136,7 +134,7 @@ class MethodContext:
         self._need_wr()
         rc = await self._d._op_write(
             self._state, self._pool, self.oid, offset, data,
-            self._admit_epoch)
+            self._admit_epoch, self._snapc)
         if rc != 0:
             raise ClsError(rc, "write")
 
@@ -144,7 +142,7 @@ class MethodContext:
         self._need_wr()
         rc = await self._d._op_setxattr(
             self._state, self._pool, self.oid, name, value,
-            self._admit_epoch)
+            self._admit_epoch, self._snapc)
         if rc != 0:
             raise ClsError(rc, f"setxattr {name!r}")
 
@@ -154,7 +152,7 @@ class MethodContext:
         self._need_wr()
         rc = await self._d._op_omap_write(
             self._state, self._pool, self.oid, "omap_set",
-            encode_kv_map(kv), self._admit_epoch)
+            encode_kv_map(kv), self._admit_epoch, self._snapc)
         if rc != 0:
             raise ClsError(rc, "omap_set")
 
@@ -164,14 +162,16 @@ class MethodContext:
         self._need_wr()
         rc = await self._d._op_omap_write(
             self._state, self._pool, self.oid, "omap_rm",
-            encode_str_list(list(keys)), self._admit_epoch)
+            encode_str_list(list(keys)), self._admit_epoch,
+            self._snapc)
         if rc != 0:
             raise ClsError(rc, "omap_rm_keys")
 
     async def remove(self) -> None:
         self._need_wr()
         rc = await self._d._op_remove(self._state, self._pool,
-                                      self.oid, self._admit_epoch)
+                                      self.oid, self._admit_epoch,
+                                      self._snapc)
         if rc != 0:
             raise ClsError(rc, "remove")
 

@@ -1,6 +1,6 @@
 """OSD daemon: the data-plane node (port of the client write, read,
-degraded-read, recovery, backfill, scrub, PG split, coded-compute and
-coded-inference slice of ceph_tpu/osd/daemon.py).
+degraded-read, snapshot, recovery, backfill, scrub, PG split,
+coded-compute and coded-inference slice of ceph_tpu/osd/daemon.py).
 
 Reference parity: ceph-osd (the reference's src/osd/OSD.cc,
 PrimaryLogPG.cc, ECBackend.cc, ReplicatedBackend.cc) re-designed on an
@@ -52,9 +52,12 @@ split's rehash of objects, are per PG on the host; everything else is
 host control-plane.
 
 Omap, object classes and watch/notify are served as in the reference
-(omap on replicated pools only; EC pools answer EOPNOTSUPP).  Not in
-this slice (ROADMAP A7, A8): snapshots and the admin socket; snap
-writes and snap reads answer EOPNOTSUPP before any op runs.  A
+(omap on replicated pools only; EC pools answer EOPNOTSUPP), and so are
+self-managed snapshots: a write under a snap context clones the head on
+the host store of every shard first (make_writeable), a read at a snap
+resolves to the head or a clone, a remove of a head with clones leaves
+a whiteout, and the primary trims clones of removed snaps in the
+background.  Not in this slice (ROADMAP A8): the admin socket.  A
 decode that raises is not retried on a host twin or object by object: a
 recovery leaves the object missing for the next interval to retry, and a
 scan's result-domain decode answers EIO for its wave's objects.
@@ -186,6 +189,10 @@ HITSET_OMAP_PREFIX = "hitset_"
 USER_ATTR_PREFIX = "u:"
 
 
+def clone_name(oid: str, cloneid: int) -> str:
+    return f"{oid}{SNAP_SEP}{cloneid}"
+
+
 def is_internal_name(name: str) -> bool:
     """Names clients may not address and pgls must not list."""
     return name.startswith(RB_PREFIX) or SNAP_SEP in name
@@ -234,6 +241,9 @@ class PGState:
         # objects recovery could not reconstruct yet (pg_missing with no
         # found location); re-peered when the up set changes
         self.unfound = False
+        # snap ids this primary has already trimmed from its objects
+        self.trimmed_snaps: Set[int] = set()
+        self.trim_task: Optional[asyncio.Task] = None
         # in-place recovery retry for unfound leftovers (no interval
         # change to trigger re-peering)
         self._unfound_retry: Optional[asyncio.Task] = None
@@ -1573,6 +1583,7 @@ class OSDDaemon:
                     state.peering_task = \
                         asyncio.get_running_loop().create_task(
                             self._peer_pg(state, pool))
+                self._note_trim_candidates(state, pool)
 
     # -- heartbeats --------------------------------------------------------
 
@@ -2733,8 +2744,149 @@ class OSDDaemon:
                 return oi, self._decode_ss(at)
         return oi, {"seq": 0, "clones": []}
 
-    # -- scrub (daemon-side scheduled scrub; PG.cc scrub + be_deep_scrub
-    # roles) ---------------------------------------------------------------
+    async def _snap_clone_prep(
+            self, state: PGState, pool, oid: str,
+            snapc_seq: int, snapc_snaps: List[int],
+            head: Optional[Tuple[Optional[dict], Dict[str, Any]]] = None
+    ) -> Tuple[List[ShardOp], Optional[bytes]]:
+        """make_writeable: if the object predates the newest snap,
+        emit clone ops (prepended to the write on every shard) and the
+        updated SnapSet attr bytes.  Returns ([], None) when no snap
+        bookkeeping applies to this write.  Callers that already hold
+        the head's (oi, ss) pass them via `head` to skip the re-read
+        (both reads happen under the same object lock)."""
+        if snapc_seq <= 0:
+            return [], None
+        oi, ss = head if head is not None \
+            else await self._head_info(state, pool, oid)
+        # never mutate a caller-held SnapSet (the clones list would
+        # alias through a shallow copy)
+        ss = {**ss, "clones": list(ss.get("clones", []))}
+        clone_ops: List[ShardOp] = []
+        if oi is not None and not oi.get("whiteout") and \
+                ss.get("seq", 0) < snapc_seq:
+            covered = sorted(s for s in snapc_snaps
+                             if s > ss.get("seq", 0))
+            if covered:
+                cloneid = covered[-1]
+                clone_ops.append(
+                    ShardOp("clone", name=clone_name(oid, cloneid)))
+                ss.setdefault("clones", []).append(
+                    {"cloneid": cloneid, "snaps": covered,
+                     "size": oi.get("size", 0)})
+        ss["seq"] = max(ss.get("seq", 0), snapc_seq)
+        return clone_ops, json.dumps(ss).encode()
+
+    async def _resolve_read_snap(self, state: PGState, pool, oid: str,
+                                 snap_id: int) -> Optional[str]:
+        """Map (oid, snap_id) -> the object holding that snap's data:
+        the head (data unchanged since the snap) or a clone.  None =
+        did not exist at that snap (PrimaryLogPG find_object_context
+        snap resolution)."""
+        oi, ss = await self._head_info(state, pool, oid)
+        if oi is None and not ss.get("clones"):
+            return None
+        prev = 0
+        for clone in sorted(ss.get("clones", []),
+                            key=lambda c: c["cloneid"]):
+            # a clone covers the snap range (prev_cloneid, cloneid],
+            # but only the snaps RECORDED in it existed with this
+            # object alive — a snap in the range but not in the list
+            # predates the object's creation (ENOENT at that snap)
+            if prev < snap_id <= clone["cloneid"]:
+                if snap_id in clone["snaps"]:
+                    return clone_name(oid, clone["cloneid"])
+                return None
+            prev = clone["cloneid"]
+        if oi is not None and not oi.get("whiteout") and \
+                snap_id > ss.get("seq", 0):
+            # no write has landed since that snap: head IS the snap.
+            # A snap <= seq with no covering clone predates the
+            # object's creation (the head was first written under a
+            # newer snap context) — ENOENT.
+            return oid
+        return None
+
+    def _note_trim_candidates(self, state: PGState, pool) -> None:
+        """Spawn a background trim when the pool's removed_snaps grew
+        (the snap trim role; scan-based SnapMapper-lite)."""
+        removed = set(getattr(pool, "removed_snaps", []))
+        pending = removed - state.trimmed_snaps
+        if not pending or state.primary != self.osd_id or \
+                state.state != "active" or state.trim_task is not None:
+            return
+        state.trim_task = asyncio.get_running_loop().create_task(
+            self._trim_pg_snaps(state, pool, pending))
+
+    async def _trim_pg_snaps(self, state: PGState, pool,
+                             pending: Set[int]) -> None:
+        try:
+            my_shard = state.my_shard(self.osd_id, pool.type)
+            # heads only: clones carry a STALE SnapSet copied by the
+            # store-level clone op and must never drive trim decisions
+            heads = [name for name in
+                     self._list_shard_objects(state.pg, my_shard)
+                     if not is_internal_name(name)]
+            for oid in heads:
+                async with state.obj_lock(oid):
+                    await self._trim_object(state, pool, oid, pending)
+            state.trimmed_snaps |= pending
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            log.exception("osd.%d: snap trim %s failed", self.osd_id,
+                          state.pg)
+        finally:
+            state.trim_task = None
+            # snaps removed WHILE this trim ran would otherwise wait
+            # for an unrelated map change: re-check immediately
+            if not self._stopping and self.osdmap is not None:
+                cur = self.osdmap.pools.get(state.pg.pool)
+                if cur is not None:
+                    self._note_trim_candidates(state, cur)
+
+    async def _trim_object(self, state: PGState, pool, oid: str,
+                           pending: Set[int]) -> None:
+        oi, ss = await self._head_info(state, pool, oid)
+        clones = ss.get("clones", [])
+        if not clones:
+            return
+        keep = []
+        doomed = []
+        for clone in clones:
+            live = [s for s in clone["snaps"] if s not in pending]
+            if live:
+                clone["snaps"] = live
+                keep.append(clone)
+            else:
+                doomed.append(clone)
+        if not doomed:
+            return
+        ss["clones"] = keep
+        n_shards = self._codec(pool.id).get_chunk_count() \
+            if pool.type == TYPE_ERASURE else 1
+        shards = range(n_shards) if pool.type == TYPE_ERASURE else [-1]
+        for clone in doomed:
+            entry = self._next_entry(
+                state, pool, clone_name(oid, clone["cloneid"]),
+                "delete")
+            await self._submit_shard_writes(
+                state, pool, clone_name(oid, clone["cloneid"]),
+                {s: [ShardOp("remove")] for s in shards}, entry)
+        if oi is not None and oi.get("whiteout") and not keep:
+            # deleted head kept alive only for its clones: finish it
+            entry = self._next_entry(state, pool, oid, "delete")
+            await self._submit_shard_writes(
+                state, pool, oid,
+                {s: [ShardOp("remove")] for s in shards}, entry)
+        elif oi is not None:
+            entry = self._next_entry(state, pool, oid, "modify",
+                                     oi.get("size", 0))
+            ss_raw = json.dumps(ss).encode()
+            await self._submit_shard_writes(
+                state, pool, oid,
+                {s: [ShardOp("setattr", name=SS_ATTR, value=ss_raw)]
+                 for s in shards}, entry)
 
     async def _fetch_omap_any(self, state: PGState, pool, oid: str
                               ) -> Optional[Dict[str, bytes]]:
@@ -4254,63 +4406,71 @@ class OSDDaemon:
             # rollback generations and snap clones are internal
             # bookkeeping, not client-addressable objects
             return EINVAL, b"", {}
-        if msg.snapc_seq > 0 or msg.snap_id > 0:
-            # snapshot writes and snap reads (ROADMAP A4b)
-            return EOPNOTSUPP, b"", {}
         # interval the op was admitted under: sub-writes are stamped
         # with this so a demoted primary's parked op cannot pass replica
         # fencing with a fresher live epoch
         state_admit_epoch = state.interval_epoch
+        snapc = (msg.snapc_seq, msg.snapc_snaps) \
+            if msg.snapc_seq > 0 else None
+        read_oid = msg.oid
+        if msg.snap_id > 0:
+            # snap reads resolve to the head or a clone server-side
+            resolved = await self._resolve_read_snap(
+                state, pool, msg.oid, msg.snap_id)
+            if resolved is None:
+                return ENOENT, b"", {}
+            read_oid = resolved
         for op in msg.ops:
             if op.op == "write_full":
                 rc, out = await self._op_write_full(state, pool,
                                                     msg.oid, op.data,
-                                                    state_admit_epoch)
+                                                    state_admit_epoch,
+                                                    snapc)
             elif op.op == "write":
                 rc = await self._op_write(state, pool, msg.oid,
                                           op.offset, op.data,
-                                          state_admit_epoch)
+                                          state_admit_epoch, snapc)
             elif op.op == "read":
-                rc, data = await self._op_read(state, pool, msg.oid,
+                rc, data = await self._op_read(state, pool, read_oid,
                                                op.offset, op.length)
             elif op.op == "stat":
-                rc, out = await self._op_stat(state, pool, msg.oid)
+                rc, out = await self._op_stat(state, pool, read_oid)
             elif op.op == "append":
                 rc = await self._op_write(state, pool, msg.oid,
                                           0, op.data,
-                                          state_admit_epoch,
+                                          state_admit_epoch, snapc,
                                           append=True)
             elif op.op == "remove":
                 rc = await self._op_remove(state, pool, msg.oid,
-                                           state_admit_epoch)
+                                           state_admit_epoch, snapc)
             elif op.op == "setxattr":
                 rc = await self._op_setxattr(state, pool, msg.oid,
                                              op.args["name"], op.data,
-                                             state_admit_epoch)
+                                             state_admit_epoch, snapc)
             elif op.op == "rmxattr":
                 rc = await self._op_setxattr(state, pool, msg.oid,
                                              op.args["name"], None,
-                                             state_admit_epoch)
+                                             state_admit_epoch, snapc)
             elif op.op == "getxattr":
                 rc, data = await self._op_getxattr(state, pool,
-                                                   msg.oid,
+                                                   read_oid,
                                                    op.args["name"])
             elif op.op == "getxattrs":
                 rc, out = await self._op_getxattrs(state, pool,
-                                                   msg.oid)
-            elif op.op == "pgls":
-                rc, out = self._op_pgls(state, pool)
+                                                   read_oid)
             elif op.op == "omap_set":
                 rc = await self._op_omap_write(state, pool, msg.oid,
                                                "omap_set", op.data,
-                                               state_admit_epoch)
+                                               state_admit_epoch,
+                                               snapc)
             elif op.op == "omap_rm":
                 rc = await self._op_omap_write(state, pool, msg.oid,
                                                "omap_rm", op.data,
-                                               state_admit_epoch)
+                                               state_admit_epoch,
+                                               snapc)
             elif op.op == "omap_get":
                 rc, data = await self._op_omap_get(state, pool,
-                                                   msg.oid)
+                                                   read_oid)
             elif op.op == "watch":
                 rc = self._op_watch(state, pool, msg, conn,
                                     op.args.get("cookie", 0),
@@ -4320,9 +4480,12 @@ class OSDDaemon:
                                                 op.data)
             elif op.op == "call":
                 rc, data = await self._op_call(
-                    state, pool, msg.oid, op.args.get("cls", ""),
+                    state, pool, read_oid, op.args.get("cls", ""),
                     op.args.get("method", ""), op.data,
-                    state_admit_epoch)
+                    state_admit_epoch, snapc,
+                    read_only=msg.snap_id > 0)
+            elif op.op == "pgls":
+                rc, out = self._op_pgls(state, pool)
             else:
                 rc = EINVAL
             if rc < 0:
@@ -4547,8 +4710,8 @@ class OSDDaemon:
 
     async def _op_write_full(self, state: PGState, pool, oid: str,
                              data: bytes,
-                             admit_epoch: Optional[int] = None
-                             ) -> Tuple[int, Dict[str, Any]]:
+                             admit_epoch: Optional[int] = None,
+                             snapc=None) -> Tuple[int, Dict[str, Any]]:
         # per-object lock on EVERY pool type: SnapSet updates are
         # read-modify-write and must not race other writes or trim.
         # Uncontended (the dominant small-write case), the lock is
@@ -4560,18 +4723,18 @@ class OSDDaemon:
                 if pool.type == TYPE_ERASURE:
                     state.extent_cache.pop(oid, None)
                 return await self._op_write_full_locked(
-                    state, pool, oid, data, admit_epoch)
+                    state, pool, oid, data, admit_epoch, snapc)
             finally:
                 ctx.exit_sync()
         async with ctx:
             if pool.type == TYPE_ERASURE:
                 state.extent_cache.pop(oid, None)
             return await self._op_write_full_locked(
-                state, pool, oid, data, admit_epoch)
+                state, pool, oid, data, admit_epoch, snapc)
 
     async def _op_write_full_locked(
             self, state: PGState, pool, oid: str, data: bytes,
-            admit_epoch: Optional[int] = None
+            admit_epoch: Optional[int] = None, snapc=None
     ) -> Tuple[int, Dict[str, Any]]:
         if isinstance(data, bytearray) or (
                 isinstance(data, memoryview) and not data.readonly):
@@ -4580,6 +4743,11 @@ class OSDDaemon:
             # a client reusing its buffer would corrupt durable shards
             # under already-recorded hinfo crcs
             data = bytes(data)
+        clone_ops: List[ShardOp] = []
+        ss_raw: Optional[bytes] = None
+        if snapc is not None:
+            clone_ops, ss_raw = await self._snap_clone_prep(
+                state, pool, oid, snapc[0], snapc[1])
         out: Dict[str, Any] = {}
         if pool.type == TYPE_ERASURE:
             codec = self._codec(pool.id)
@@ -4629,15 +4797,29 @@ class OSDDaemon:
                     ShardOp("write", 0, buf),
                     ShardOp("setattr", name=OI_ATTR, value=oi),
                     ShardOp("setattr", name=HINFO_ATTR, value=hinfo_raw)]
+        self._apply_snap_ops(shard_ops, clone_ops, ss_raw)
         rc = await self._submit_shard_writes(state, pool, oid,
                                              shard_ops, entry,
                                              admit_epoch)
         return rc, out
 
+    @staticmethod
+    def _apply_snap_ops(shard_ops: Dict[int, List[ShardOp]],
+                        clone_ops: List[ShardOp],
+                        ss_raw: Optional[bytes]) -> None:
+        """Prepend the clone (captures pre-write state) and append the
+        updated SnapSet attr on every shard's op list."""
+        for ops in shard_ops.values():
+            if clone_ops:
+                ops[:0] = list(clone_ops)
+            if ss_raw is not None:
+                ops.append(ShardOp("setattr", name=SS_ATTR,
+                                   value=ss_raw))
+
     async def _op_write(self, state: PGState, pool, oid: str,
                         offset: int, data: bytes,
                         admit_epoch: Optional[int] = None,
-                        append: bool = False) -> int:
+                        snapc=None, append: bool = False) -> int:
         """Partial-extent write.  Replicated: direct range write.
         EC: stripe-level read-modify-write (the start_rmw pipeline).
         Both under the per-object lock (SnapSet RMW must not race).
@@ -4656,7 +4838,12 @@ class OSDDaemon:
                     if oi is not None and not oi.get("whiteout") else 0
             if pool.type == TYPE_ERASURE:
                 return await self._ec_rmw(state, pool, oid, offset,
-                                          data, admit_epoch)
+                                          data, admit_epoch, snapc)
+            clone_ops: List[ShardOp] = []
+            ss_raw: Optional[bytes] = None
+            if snapc is not None:
+                clone_ops, ss_raw = await self._snap_clone_prep(
+                    state, pool, oid, snapc[0], snapc[1])
             # stat BEFORE the version allocation: _next_entry consumes
             # state.next_version, and a suspension between allocation
             # and _submit_shard_writes would let a cancellation strand
@@ -4674,13 +4861,15 @@ class OSDDaemon:
                    ShardOp("write", offset, data),
                    ShardOp("setattr", name=OI_ATTR, value=oi)]
             shard_ops = {-1: ops}
+            self._apply_snap_ops(shard_ops, clone_ops, ss_raw)
             return await self._submit_shard_writes(state, pool, oid,
                                                    shard_ops, entry,
                                                    admit_epoch)
 
     async def _ec_rmw(self, state: PGState, pool, oid: str,
                       offset: int, data: bytes,
-                      admit_epoch: Optional[int]) -> int:
+                      admit_epoch: Optional[int],
+                      snapc=None) -> int:
         """Stripe-level EC read-modify-write (ECBackend start_rmw ->
         try_state_to_reads -> try_reads_to_commit,
         the reference's src/osd/ECBackend.cc:1858-2087, with the
@@ -4701,6 +4890,11 @@ class OSDDaemon:
         k = codec.get_data_chunk_count()
         n = codec.get_chunk_count()
 
+        clone_ops: List[ShardOp] = []
+        ss_raw: Optional[bytes] = None
+        if snapc is not None:
+            clone_ops, ss_raw = await self._snap_clone_prep(
+                state, pool, oid, snapc[0], snapc[1])
 
         start, span = sinfo.offset_len_to_stripe_bounds(
             (offset, len(data)))
@@ -4802,6 +4996,7 @@ class OSDDaemon:
                 ShardOp("write", chunk_off, frag),
                 ShardOp("setattr", name=OI_ATTR, value=oi_raw),
                 ShardOp("setattr", name=HINFO_ATTR, value=hinfo_raw)]
+        self._apply_snap_ops(shard_ops, clone_ops, ss_raw)
         rc = await self._submit_shard_writes(state, pool, oid,
                                              shard_ops, entry,
                                              admit_epoch)
@@ -5210,23 +5405,44 @@ class OSDDaemon:
                    "version": oi.get("version")}
 
     async def _op_remove(self, state: PGState, pool, oid: str,
-                         admit_epoch: Optional[int] = None) -> int:
+                         admit_epoch: Optional[int] = None,
+                         snapc=None) -> int:
         async with state.obj_lock(oid):
             state.extent_cache.pop(oid, None)
-            # a remove must never orphan live clones
+            # the whiteout decision depends on the HEAD's SnapSet, not
+            # on whether the deleting client supplied a snap context: a
+            # snapless client's remove must never orphan live clones
             oi, ss = await self._head_info(state, pool, oid)
             if oi is None or oi.get("whiteout"):
                 return ENOENT
-            if ss.get("clones"):
-                # snapshots still reference this object's data: the
-                # reference turns the head into a whiteout; snapshots
-                # are not ported yet (ROADMAP A4b)
-                return EOPNOTSUPP
+            clone_ops: List[ShardOp] = []
+            ss_raw: Optional[bytes] = None
+            if snapc is not None:
+                clone_ops, ss_raw = await self._snap_clone_prep(
+                    state, pool, oid, snapc[0], snapc[1],
+                    head=(oi, ss))
+                if ss_raw is not None:
+                    ss = json.loads(ss_raw)
             if pool.type == TYPE_REPLICATED:
                 shards = [-1]
             else:
                 shards = list(
                     range(self._codec(pool.id).get_chunk_count()))
+            if clone_ops or ss.get("clones"):
+                # snapshots still reference this object's data: the
+                # head becomes a WHITEOUT carrying the SnapSet until
+                # every clone is trimmed (the snapdir/whiteout role)
+                entry = self._next_entry(state, pool, oid, "modify")
+                oi_raw = json.dumps(
+                    {"size": 0, "whiteout": True,
+                     "version": entry["version"]}).encode()
+                ops = [ShardOp("truncate", size=0),
+                       ShardOp("setattr", name=OI_ATTR, value=oi_raw)]
+                shard_ops = {s: list(ops) for s in shards}
+                self._apply_snap_ops(shard_ops, clone_ops,
+                                     ss_raw or json.dumps(ss).encode())
+                return await self._submit_shard_writes(
+                    state, pool, oid, shard_ops, entry, admit_epoch)
             entry = self._next_entry(state, pool, oid, "delete")
             shard_ops = {s: [ShardOp("remove")] for s in shards}
             return await self._submit_shard_writes(state, pool, oid,
@@ -5237,7 +5453,8 @@ class OSDDaemon:
 
     async def _op_setxattr(self, state: PGState, pool, oid: str,
                            name: str, value: Optional[bytes],
-                           admit_epoch: Optional[int]) -> int:
+                           admit_epoch: Optional[int],
+                           snapc=None) -> int:
         """Set (value) or remove (value=None) a USER xattr — a logged,
         versioned write on every shard (attrs are object metadata and
         ride with the object through snapshots and recovery)."""
@@ -5246,6 +5463,12 @@ class OSDDaemon:
             oi, _ss = await self._head_info(state, pool, oid)
             if oi is None or oi.get("whiteout"):
                 return ENOENT
+            clone_ops: List[ShardOp] = []
+            ss_raw: Optional[bytes] = None
+            if snapc is not None:
+                clone_ops, ss_raw = await self._snap_clone_prep(
+                    state, pool, oid, snapc[0], snapc[1],
+                    head=(oi, _ss))
             entry = self._next_entry(state, pool, oid, "modify",
                                      oi.get("size", 0))
             oi_raw = json.dumps({"size": oi.get("size", 0),
@@ -5262,6 +5485,7 @@ class OSDDaemon:
             else:
                 n = self._codec(pool.id).get_chunk_count()
                 shard_ops = {s: list(ops) for s in range(n)}
+            self._apply_snap_ops(shard_ops, clone_ops, ss_raw)
             return await self._submit_shard_writes(state, pool, oid,
                                                    shard_ops, entry,
                                                    admit_epoch)
@@ -5313,17 +5537,24 @@ class OSDDaemon:
 
     async def _op_omap_write(self, state: PGState, pool, oid: str,
                              kind: str, payload: bytes,
-                             admit_epoch: Optional[int]) -> int:
+                             admit_epoch: Optional[int],
+                             snapc=None) -> int:
         """omap set/rm — REPLICATED pools only, like the reference
-        (EC pools reject omap: PrimaryLogPG EOPNOTSUPP).  Snapshots are
-        not ported (ROADMAP A7): a snap-context write answers
-        EOPNOTSUPP in _execute_ops before reaching here, so there is no
-        write snap context and no make_writeable clone."""
+        (EC pools reject omap: PrimaryLogPG EOPNOTSUPP).  Honors the
+        write snap context like data writes do (make_writeable clones
+        before ANY mutation, omap included — the store-level clone op
+        copies omap, so snap reads of the clone see the old keys)."""
         if pool.type == TYPE_ERASURE:
             return EOPNOTSUPP
         async with state.obj_lock(oid):
             await self._wait_for_degraded(state, pool, oid)
-            oi, _ss = await self._head_info(state, pool, oid)
+            oi, ss = await self._head_info(state, pool, oid)
+            clone_ops: List[ShardOp] = []
+            ss_raw: Optional[bytes] = None
+            if snapc is not None:
+                clone_ops, ss_raw = await self._snap_clone_prep(
+                    state, pool, oid, snapc[0], snapc[1],
+                    head=(oi, ss))
             size = oi.get("size", 0) \
                 if oi is not None and not oi.get("whiteout") else 0
             entry = self._next_entry(state, pool, oid, "modify", size)
@@ -5332,8 +5563,10 @@ class OSDDaemon:
             ops = [ShardOp("create"),
                    ShardOp(kind, data=payload),
                    ShardOp("setattr", name=OI_ATTR, value=oi_raw)]
+            shard_ops = {-1: ops}
+            self._apply_snap_ops(shard_ops, clone_ops, ss_raw)
             return await self._submit_shard_writes(state, pool, oid,
-                                                   {-1: ops}, entry,
+                                                   shard_ops, entry,
                                                    admit_epoch)
 
     async def _op_omap_get(self, state: PGState, pool, oid: str
@@ -5389,7 +5622,8 @@ class OSDDaemon:
 
     async def _op_call(self, state: PGState, pool, oid: str,
                        cls: str, method: str, data: bytes,
-                       admit_epoch: int) -> Tuple[int, bytes]:
+                       admit_epoch: int, snapc,
+                       read_only: bool = False) -> Tuple[int, bytes]:
         """`exec` op: run a registered object-class method
         (ClassHandler::ClassMethod::exec, PrimaryLogPG::do_osd_ops
         CEPH_OSD_OP_CALL).  Concurrent calls on one object serialize
@@ -5397,12 +5631,7 @@ class OSDDaemon:
         (numops, lock) are atomic against each other; each inner op
         additionally takes the normal object lock on its own.  A WR
         method's writes go down the pool's own write path, so on an
-        EC pool they encode through the encode service.
-
-        Snapshots are not ported (ROADMAP A7): a call never runs at a
-        snap (snap reads answer EOPNOTSUPP in _execute_ops), so the
-        reference's read_only/EROFS case and the method context's snap
-        context do not exist here."""
+        EC pool they encode through the encode service."""
         from ceph_tpu_torch.cls import ClsError, MethodContext
 
         # method input stays the wire decode's zero-copy view: class
@@ -5413,7 +5642,15 @@ class OSDDaemon:
         if entry is None:
             return EINVAL, b""
         fn, flags = entry
-        ctx = MethodContext(self, state, pool, oid, admit_epoch, flags)
+        from ceph_tpu_torch.cls import WR as CLS_WR
+
+        if read_only and flags & CLS_WR:
+            # a WR method at a snap would mutate the immutable clone
+            # the read resolved to (the reference's -EROFS for writes
+            # at a non-head snapid)
+            return -30, b""  # EROFS
+        ctx = MethodContext(self, state, pool, oid, admit_epoch,
+                            snapc, flags)
         async with state.obj_lock(f"_cls_\x00{oid}"):
             try:
                 return 0, await fn(ctx, data)

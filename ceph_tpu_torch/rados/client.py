@@ -1,6 +1,6 @@
 """Networked RADOS client (Objecter + librados roles; port of the
-write, read, xattr, omap, object-class, watch/notify, listing,
-coded-compute and inference slice of ceph_tpu/rados/client.py).
+write, read, snapshot, xattr, omap, object-class, watch/notify,
+listing, coded-compute and inference slice of ceph_tpu/rados/client.py).
 
 Reference parity: Objecter (the reference's src/osdc/Objecter.cc) —
 placement computed client-side with the same CRUSH/OSDMap math the OSDs
@@ -16,8 +16,9 @@ read-then-compute legs of the kill switches (CEPH_TPU_COMPUTE=0,
 CEPH_TPU_INFERENCE=0), where a nonlinear kernel evaluates on the
 client's `device` (CUDA unless the caller names another).  Omap,
 object classes (`execute`) and watch/notify are served by the OSDs as
-in the reference; a watch's keepalive task ends with `shutdown`.  Not
-in this slice (ROADMAP A7): snapshots.
+in the reference; a watch's keepalive task ends with `shutdown`.  An
+IoCtx takes self-managed snapshots (snap ids from the mon) and puts its
+snap context and read snap on every op it submits.
 """
 
 from __future__ import annotations
@@ -614,6 +615,11 @@ class IoCtx:
     def __init__(self, client: RadosClient, pool_id: int):
         self.client = client
         self.pool_id = pool_id
+        # write-time snap context (librados set_snap_context role) and
+        # read-time snap id (snap_set_read role); 0 = head
+        self.snapc_seq = 0
+        self.snapc_snaps: List[int] = []
+        self.read_snap = 0
         # QoS tenant pinned to this IoCtx ("" = inherit the ambient
         # tenant_scope / CURRENT_TENANT)
         self.tenant = ""
@@ -621,6 +627,37 @@ class IoCtx:
     @property
     def pool(self):
         return self.client.osdmap.pools[self.pool_id]
+
+    # -- self-managed snapshots (librados selfmanaged_snap_* roles) --------
+
+    async def create_selfmanaged_snap(self) -> int:
+        """Allocate a snap id from the mon and fold it into this
+        IoCtx's snap context."""
+        rc, out = await self.client.mon_command({
+            "prefix": "osd pool mksnap", "name": self.pool.name})
+        if rc != 0:
+            raise RadosError(rc, str(out))
+        snap_id = out["snap_id"]
+        self.set_snap_context(snap_id, [snap_id] + self.snapc_snaps)
+        return snap_id
+
+    async def remove_selfmanaged_snap(self, snap_id: int) -> None:
+        rc, out = await self.client.mon_command({
+            "prefix": "osd pool rmsnap", "name": self.pool.name,
+            "snap_id": snap_id})
+        if rc != 0:
+            raise RadosError(rc, str(out))
+        self.set_snap_context(
+            self.snapc_seq,
+            [s for s in self.snapc_snaps if s != snap_id])
+
+    def set_snap_context(self, seq: int, snaps: List[int]) -> None:
+        self.snapc_seq = seq
+        self.snapc_snaps = sorted(snaps, reverse=True)
+
+    def snap_set_read(self, snap_id: int) -> None:
+        """Subsequent reads resolve at this snap (0 = head)."""
+        self.read_snap = snap_id
 
     def object_pg(self, name: str) -> PgId:
         ps = ceph_str_hash_rjenkins(name.encode())
@@ -690,6 +727,9 @@ class IoCtx:
             try:
                 msg = MOSDOp(tid, client.msgr.entity_name, pg, oid,
                              ops, osdmap.epoch,
+                             snapc_seq=self.snapc_seq,
+                             snapc_snaps=self.snapc_snaps,
+                             snap_id=self.read_snap,
                              tenant=tenant,
                              qos_delta=qos_delta,
                              qos_rho=qos_rho)

@@ -8,7 +8,8 @@ Run from the repository root:
 (`python3 chip_smoke.py --phase osd` builds the kernels and runs phases 3i,
 3j and 3k alone, with their checks, and prints no result line;
 `--phase compute` does the same for phase 3g, `--phase rgw` for 3l,
-`--phase persist` for 3m, `--phase xsched` for 3n.)
+`--phase persist` for 3m, `--phase xsched` for 3n, `--phase rbd` for
+3o.)
 
 Phases; any failure exits nonzero and prints no result line:
 
@@ -322,13 +323,16 @@ Phases; any failure exits nonzero and prints no result line:
    device="cpu" sweep's, crc launches in the image checks; BrokenBlockStore
    and BrokenCommitStore caught.  (c) `python -m ceph_tpu_torch.tools.vstart
    --mons 1 --osds 12`: 12 TPUStore OSD processes on the card; through `python
-   -m ceph_tpu_torch.tools.rados`: an EC 8+3 pool (mkpool --ec-profile), a
-   64 MiB put and get, bench 2 write and seq (4 MiB, 16 threads), bench 2 seq
-   --tenants 8 (read=0.7,write=0.3) at half the seq rate, scan gf_fold with
+   -m ceph_tpu_torch.tools.rados`: a 64 MiB put into an EC 8+3 pool (made
+   by a client in this process), bench 2 write and seq (4 MiB, 16
+   threads), bench 2 seq --tenants 8 (read=0.7,write=0.3) at half the seq
+   rate, scan gf_fold with
    and without CEPH_TPU_COMPUTE; one OSD process holding data shards
    SIGKILLed (a process kill, not a power cut) and marked down, the get
    exact; the OSD restarted on its store directory, the cluster clean (every
-   PG active on its primary, asked over the wire), the get exact; the
+   PG active on its primary, asked over the wire), the get exact (cut to
+   pay for 3o: the CLI's mkpool, which the CPU tests run, and a healthy
+   get, two process starts); the
    restarted OSD's perf dump through `rados tell` (journal_replays), the
    others' over a client, every EC primary with encode-service batches, no
    csum read failure, nvidia-smi listing every OSD process; vstart --stop.
@@ -367,6 +371,37 @@ Phases; any failure exits nonzero and prints no result line:
    launch on the writes, decode launches on the degraded reads.  Times:
    PUT and read GiB/s healthy and 2 down, the burst's writes/s, seconds to
    clean; the packed batch sizes, inline and packed counts.
+3o. Self-managed snapshots and RBD (path `rbd`) on a fresh cluster of 3i's
+   shape: a replicated pool `rbd` (size 3) for headers, directory, object
+   map and omap, and an EC 8+3 data pool `rbd.data` at 64 KiB units.  An
+   image `vol` of 1 GiB at order 22 (4 MiB objects) with exclusive lock
+   and object map, data on `rbd.data`, a numpy oracle per version (a tenth
+   of the 10 GiB image that the phase was drawn up for, which took 620 s;
+   a quarter of it written, not a tenth): (a) 256 MiB filled from offset
+   0 in 4 MiB writes, 16 in flight; (b) snap s1, then 512 distinct 4 KiB
+   writes over the written bytes, 16 in flight (2,048 a GiB); (c) snap
+   s2, s1 protected and cloned to `child` (data on `rbd.data`), 64 4 KiB
+   writes into the child (copy-ups), the child flattened; (d) `vol` read
+   whole at head, s1 and s2 and `child` whole (256 MiB a call, two in
+   flight); (e) one, then three OSDs holding data
+   shards killed (MemStores kept) and marked down, `vol` read whole at s1
+   and s2 each time, then the three revived and the cluster clean; (f)
+   through tools/rbd.py's `_dispatch` in this process: `export vol@s2`
+   into a FIFO that a thread holds against the oracle, `bench --io-type
+   write`, then `read` (4 KiB, 512 KiB in all, rand: the CLI's LCG, which
+   the oracle replays), `export vol`; (g) s1 unprotected and removed, its
+   clones trimmed from every store, the s2 clones unchanged, `vol` at s2
+   read whole again.  Checks: every read and export bit for bit; the
+   clones in the SnapSets, one under s1 per object (b) touched and one
+   under s2 per object the bench touched that existed before it;
+   gf_matmul_spec, gf_matmul_gen and crc32c_blocks each launched on the
+   path (counts zeroed at the phase's start) and each held against its
+   plain version on the inputs the path gave it (the first call of each
+   distinct shape and matrix, kept as it ran; the phase fails if one was
+   not kept).  Figures: fill GiB/s, random writes/s with p50 and p99 ms,
+   clones made, whole-image reads healthy and three down as GiB/s of the
+   written bytes and of the image (sparse: three quarters absent), flatten
+   and trim seconds, bench ops/s, the phase's seconds.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -2017,17 +2052,23 @@ def profile_calls(torch, fn, kernel: str, calls: int = 8) -> list:
     (a call's first), named "copy" or "kernel" (`kernel` in the name) or
     by their own name.  The first cut is dropped, since a profile's first
     events can go missing (one call lost its first events and the next
-    call whole in one run of five)."""
+    call whole in one run of five).  A window that recorded no device
+    event at all (the profiler has lost a whole window) is profiled
+    again, at most twice more."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    on_card = sorted(
-        (e.time_range.start, e.name) for e in prof.events()
-        if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    on_card: list = []
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        on_card = sorted(
+            (e.time_range.start, e.name) for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if on_card:
+            break
     cut, cur = [], None
     for _start, name in on_card:
         if name.startswith("Memcpy HtoD"):
@@ -5576,9 +5617,10 @@ async def pgs_active(client, pg_type) -> bool:
 
 def persist_processes(torch, dev, card: str, workdir: str) -> dict:
     """Phase 3m (c): real processes.  vstart starts one mon and 12
-    TPUStore OSD processes on the card; the rados CLI makes an EC 8+3
-    pool, puts and gets config 5's 64 MiB, benches (closed loop, write
-    and seq; open loop, 8 tenants), scans gf_fold with and without the
+    TPUStore OSD processes on the card; a client in this process makes an
+    EC 8+3 pool; the rados CLI puts config 5's 64 MiB, benches (closed
+    loop, write and seq; open loop, 8 tenants), scans gf_fold with and
+    without the
     pushdown; one OSD process holding data shards is SIGKILLed (a process
     kill: the OS keeps every write it was handed) and marked down, the get
     is exact; it restarts on its store, the cluster goes clean, the get is
@@ -5645,10 +5687,16 @@ def persist_processes(torch, dev, card: str, workdir: str) -> dict:
             os.path.join(data_dir, "big.out")
         with open(src, "wb") as f:
             f.write(big)
-        rados("mkpool", PERSIST_POOL, "--pg-num", str(PERSIST_PGS),
-              "--ec-profile", json.dumps(OSD_PROFILE))
+        async def mkpool():
+            client = RadosClient(mon, device=dev)
+            await client.connect()
+            try:
+                await client.create_ec_pool(PERSIST_POOL, dict(OSD_PROFILE),
+                                            pg_num=PERSIST_PGS)
+            finally:
+                await client.shutdown()
+        asyncio.run(asyncio.wait_for(mkpool(), PERSIST_TIMEOUT))
         _o, secs["put"] = rados("-p", PERSIST_POOL, "put", "big", src)
-        get_exact("get", big, dst)
         bench = {}
         for mode in ("write", "seq"):
             o, _s = rados("-p", PERSIST_POOL, "bench", str(VSTART_BENCH_S),
@@ -5782,7 +5830,10 @@ def persist_processes(torch, dev, card: str, workdir: str) -> dict:
             "osd_pids_on_card": all(on_card.values())
             and grew >= OSD_CONTEXT_MIB * len(osd_pids),
             "mib_per_s": {"put": OSD_PUT / (1 << 20) / secs["put"],
-                          "get": OSD_PUT / (1 << 20) / secs["get"],
+                          "get_1_down": OSD_PUT / (1 << 20)
+                          / secs["get_1_down"],
+                          "get_after_restart": OSD_PUT / (1 << 20)
+                          / secs["get_after_restart"],
                           "bench_write": bench["write"]["mib_per_sec"],
                           "bench_seq": bench["seq"]["mib_per_sec"]},
             "scan_gib_per_s_in_process": (OSD_PUT + VSTART_SCAN_BENCH_OBJECTS
@@ -6376,6 +6427,570 @@ def xsched_phase(torch, dev, card: str, wrappers: dict) -> dict:
                          "xsched": cluster["launches"]}}
 
 
+# phase 3o: self-managed snapshots and RBD on 3i's shape.  An image at order
+# 22 (4 MiB objects, the reference's rbd_default_order) with exclusive lock
+# and object map, its data on an EC 8+3 pool at 64 KiB units: a quarter of
+# it filled, snapshotted, overwritten at random, cloned, flattened, read at
+# every snap healthy and with one and three OSDs down, exported and benched
+# through the rbd CLI's dispatch, and its first snap trimmed.  Depth cut to
+# a tenth of a 10 GiB image (the bench in proportion): that history took
+# 620 s on the card, in host work that grows with the image's object count
+# (a read at a snap resolves each object on its primary through an EC
+# gather, present or not).  Random writes: 2,048 a written GiB.
+RBD_SIZE = 1 << 30
+RBD_ORDER = 22
+RBD_FILL = 256 << 20
+RBD_IO = 4096
+RBD_IN_FLIGHT = 16
+RBD_RANDOM_WRITES = 2048 * RBD_FILL >> 30
+RBD_CHILD_WRITES = 256 * RBD_FILL >> 30
+RBD_READ_WINDOW = 256 << 20     # bytes of image a read call asks for
+RBD_READS_IN_FLIGHT = 2
+RBD_BENCH_BYTES = 512 << 10     # `rbd bench --io-total`
+RBD_DATA_PGS, RBD_META_PGS = 8, 8   # 3i's: every map change re-places each PG
+RBD_PHASE_TIMEOUT = 300.0
+RBD_RECORDED_CALLS = 256        # distinct inputs kept per kernel, at most
+
+
+class _Recording:
+    """A kernel entry that keeps the inputs of its first call of each
+    distinct shape (matrix or block length included), then calls through;
+    `dropped` counts the distinct ones past RBD_RECORDED_CALLS, which it
+    could not keep.  Its `launches` is the wrapped entry's: the entry
+    counts its launches through its module name, which points here while
+    recording."""
+
+    def __init__(self, fn, lock, seen: dict, crc: bool):
+        self._fn, self._lock, self._seen, self._crc = fn, lock, seen, crc
+        self.dropped = set()
+
+    @property
+    def launches(self):
+        return self._fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self._fn.launches = n
+
+    def __call__(self, first, second, *args, **kw):
+        # gf: (matrix, data, out); crc: (blocks, length, init, out)
+        data = first if self._crc else second
+        if data.device.type == "cuda" and data.numel():
+            if self._crc:
+                init = args[0] if args else kw.get("init", 0)
+                key = (tuple(data.shape), second, init)
+            else:
+                key = (tuple(data.shape), np.asarray(first).tobytes())
+            with self._lock:
+                if key in self._seen:
+                    pass
+                elif len(self._seen) < RBD_RECORDED_CALLS:
+                    self._seen[key] = (
+                        (second, init) if self._crc else np.array(first),
+                        data.clone())
+                else:
+                    self.dropped.add(key)
+        return self._fn(first, second, *args, **kw)
+
+
+class ShapeRecorder:
+    """While entered, the three kernels' module entries record the inputs
+    the path gives them (a copy on the same stream, the first call of each
+    distinct shape), so that each kernel can be held against its plain
+    version on the path's own inputs."""
+
+    def __init__(self, torch):
+        import threading
+
+        from ceph_tpu_torch.ops import crc_kernels, gf_kernels
+
+        self._torch = torch
+        self._lock = threading.Lock()
+        self.calls: dict = {"gf_matmul_spec": {}, "gf_matmul_gen": {},
+                            "crc32c_blocks": {}}
+        self._targets = ((gf_kernels, "gf_matmul_spec"),
+                         (gf_kernels, "gf_matmul_gen"),
+                         (crc_kernels, "crc32c_blocks"))
+        self._saved, self.entries = {}, {}
+
+    def __enter__(self):
+        for mod, name in self._targets:
+            self._saved[name] = getattr(mod, name)
+            self.entries[name] = _Recording(
+                self._saved[name], self._lock, self.calls[name],
+                name == "crc32c_blocks")
+            setattr(mod, name, self.entries[name])
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name in self._targets:
+            setattr(mod, name, self._saved[name])
+
+    def hold(self) -> dict:
+        """Each recorded shape: the kernel against its plain version on the
+        path's inputs ({name: [{shape, rows or length, max_abs_err}]}).
+        These launches are made after the path's counts were read."""
+        from ceph_tpu_torch.ops import checksum as cks
+        from ceph_tpu_torch.ops import crc_kernels, gf_kernels
+
+        torch = self._torch
+        out = {}
+        for name, seen in self.calls.items():
+            rows = []
+            for first, data in seen.values():
+                if name == "crc32c_blocks":
+                    length, init = first
+                    got = crc_kernels.crc32c_blocks(data, length, init)
+                    want = cks.crc32c_batch(data.reshape(-1, length), init)
+                    mask = 0xFFFFFFFF
+                    e = int(((got.to(torch.int64) & mask)
+                             - (want.to(torch.int64) & mask)).abs().max())
+                    rows.append({"shape": list(data.shape),
+                                 "length": length, "max_abs_err": e})
+                    continue
+                got = getattr(gf_kernels, name)(first, data)
+                want = getattr(gf_kernels, name + "_plain")(first, data)
+                e = int((got.to(torch.int64) - want.to(torch.int64))
+                        .abs().max())
+                rows.append({"shape": list(data.shape),
+                             "rows": int(first.shape[0]), "max_abs_err": e})
+            out[name] = rows
+        return out
+
+
+class StepSeconds(dict):
+    """A phase's step seconds, each printed as it is set (so that a phase
+    cut short still shows where its time went)."""
+
+    def __init__(self, t0: float):
+        super().__init__()
+        self._t0 = t0
+
+    def __setitem__(self, key, seconds):
+        super().__setitem__(key, seconds)
+        print(json.dumps({"step": key, "seconds": seconds,
+                          "phase_seconds": time.perf_counter() - self._t0}),
+              flush=True)
+
+
+def bench_offsets(size: int, io_size: int, total: int) -> list:
+    """`rbd bench --io-pattern rand`'s offsets (tools/rbd.py's LCG)."""
+    ops, span, state, out = max(1, total // io_size), size - io_size, \
+        0x5DEECE66D, []
+    for _ in range(ops):
+        state = (state * 6364136223846793005 + 1442695040888963407) \
+            & ((1 << 64) - 1)
+        out.append((state >> 16) % (span + 1) if span else 0)
+    return out
+
+
+def rbd_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3o (path `rbd`): self-managed snapshots in the OSDs and the
+    RADOS client under RBD, on a fresh cluster of 3i's shape.  `vol`,
+    RBD_SIZE at order 22 with exclusive lock and object map, data on EC
+    8+3: (a) RBD_FILL filled in 4 MiB writes, 16 in flight; (b) snap s1,
+    RBD_RANDOM_WRITES random 4 KiB writes over the written bytes, 16 in
+    flight; (c) snap s2, s1 protected and cloned to `child`,
+    RBD_CHILD_WRITES 4 KiB writes into the child (copy-ups), the child
+    flattened; (d) vol read whole at head, s1 and
+    s2, the child whole; (e) vol at s1 and s2 with one, then three data
+    shards' OSDs down (killed, MemStores kept), then revived to clean;
+    (f) the rbd CLI's dispatch in this process: export vol@s2, bench
+    write and read (4 KiB, RBD_BENCH_BYTES in all, rand), export at head;
+    (g) s1
+    unprotected and removed, its clones trimmed from every store.  Every
+    read and export against a numpy oracle per version, bit for bit; the
+    clones against the objects the writes after each snap touched, from
+    the SnapSets; the three kernels each launched on the path and held
+    against their plain versions on the path's own inputs."""
+    import argparse
+    import asyncio
+    import contextlib
+    import io as io_mod
+    import os
+    import tempfile
+    import threading
+
+    from ceph_tpu_torch.mon import MonDaemon
+    from ceph_tpu_torch.os.memstore import MemStore
+    from ceph_tpu_torch.osd.daemon import SNAP_SEP, OSDDaemon
+    from ceph_tpu_torch.rados.client import RadosClient
+    from ceph_tpu_torch.rados.embedded import SS_ATTR
+    from ceph_tpu_torch.rbd import RBD, _data
+    from ceph_tpu_torch.tools import rbd as rbd_cli
+
+    phase_t0 = time.perf_counter()
+    obj_size = 1 << RBD_ORDER
+    n_fill = RBD_FILL // obj_size
+    rng = np.random.default_rng(SEED + 50)
+    fill = rng.bytes(RBD_FILL)
+    head = np.frombuffer(fill, np.uint8).copy()
+    rand_offs = rng.choice(RBD_FILL // RBD_IO, RBD_RANDOM_WRITES,
+                           replace=False) * RBD_IO
+    rand_data = [rng.bytes(RBD_IO) for _ in range(RBD_RANDOM_WRITES)]
+    child_offs = rng.choice(RBD_FILL // RBD_IO, RBD_CHILD_WRITES,
+                            replace=False) * RBD_IO
+    child_data = [rng.bytes(RBD_IO) for _ in range(RBD_CHILD_WRITES)]
+    bench_offs = bench_offsets(RBD_SIZE, RBD_IO, RBD_BENCH_BYTES)
+    out: dict = {"phase": "rbd", "card": card,
+                 "image_gib": RBD_SIZE / (1 << 30),
+                 "written_gib": RBD_FILL / (1 << 30), "order": RBD_ORDER,
+                 "seconds": StepSeconds(phase_t0)}
+    secs = out["seconds"]
+    exact: dict = {}
+    oracles: dict = {}
+
+    async def in_flight(jobs, n=RBD_IN_FLIGHT):
+        sem = asyncio.Semaphore(n)
+
+        async def one(job):
+            async with sem:
+                return await job()
+        return await asyncio.gather(*(one(j) for j in jobs))
+
+    def window_ok(buf, off, oracle) -> bool:
+        arr = np.frombuffer(buf, np.uint8)
+        lo = min(off, RBD_FILL)
+        hi = min(off + len(arr), RBD_FILL)
+        if hi > lo and not np.array_equal(arr[:hi - off], oracle[lo:hi]):
+            return False
+        return not arr[max(hi - off, 0):].any()
+
+    async def read_whole(img, oracle) -> tuple:
+        """The image's every byte, RBD_READ_WINDOW at a time, against the
+        oracle (its RBD_FILL bytes, zeros past them); (ok, seconds)."""
+        t0 = time.perf_counter()
+        size = img.size()
+        offs = list(range(0, size, RBD_READ_WINDOW))
+
+        def job(off):
+            async def run():
+                buf = await img.read(off, min(RBD_READ_WINDOW, size - off))
+                return await asyncio.to_thread(window_ok, buf, off, oracle)
+            return run
+        oks = await in_flight([job(o) for o in offs], RBD_READS_IN_FLIGHT)
+        return all(oks), time.perf_counter() - t0
+
+    async def start():
+        mon = MonDaemon(OSD_OSDS, osds_per_host=OSD_OSDS_PER_HOST,
+                        config=dict(OSD_MON_CONFIG))
+        addr = await mon.start()
+        osds, stores = {}, {}
+        for i in range(OSD_OSDS):
+            store = MemStore()
+            store.mkfs()
+            store.mount()
+            stores[i] = store
+            osds[i] = OSDDaemon(i, [addr], store=store,
+                                config=dict(OSD_CONFIG), device=dev)
+            await osds[i].start()
+        client = RadosClient([addr])
+        await client.connect()
+        await client.create_replicated_pool("rbd", size=3,
+                                            pg_num=RBD_META_PGS)
+        await client.create_ec_pool("rbd.data", dict(OSD_PROFILE),
+                                    pg_num=RBD_DATA_PGS)
+        return mon, osds, stores, client, addr
+
+    def clone_objects(stores, snap_id, data: bool = True) -> dict:
+        """{(osd, collection, name): bytes} of every clone object whose
+        clone id is `snap_id`, in every store (without `data`, None for
+        the bytes: the trim's poll, which shares the OSDs' loop)."""
+        got = {}
+        for osd_id, store in stores.items():
+            for cid in store.list_collections():
+                if not cid.startswith(f"{data_pool}."):
+                    continue
+                for oid in store.list_objects(cid):
+                    name = oid.name
+                    if SNAP_SEP in name and \
+                            name.rsplit(SNAP_SEP, 1)[1] == str(snap_id):
+                        got[(osd_id, cid, name)] = \
+                            store.read(cid, oid) if data else None
+        return got
+
+    def snapsets(stores, image_id) -> dict:
+        """{head name: SnapSet} of the image's data objects, from the
+        shards that hold them (all shards carry the same attr)."""
+        prefix = f"rbd_data.{image_id}."
+        out_ss = {}
+        for store in stores.values():
+            for cid in store.list_collections():
+                if not cid.startswith(f"{data_pool}."):
+                    continue
+                for oid in store.list_objects(cid):
+                    if oid.name.startswith(prefix) and \
+                            SNAP_SEP not in oid.name and \
+                            oid.name not in out_ss:
+                        attrs = store.getattrs(cid, oid)
+                        if SS_ATTR in attrs:
+                            out_ss[oid.name] = json.loads(attrs[SS_ATTR])
+        return out_ss
+
+    data_pool = None
+    recorder = ShapeRecorder(torch)
+
+    async def drive():
+        nonlocal data_pool
+        mon, osds, stores, client, addr = await start()
+        data_pool = mon.osdmap.lookup_pool("rbd.data")
+        try:
+            await wait_clean(mon, osds)
+            secs["start_to_clean"] = time.perf_counter() - phase_t0
+            io = client.open_ioctx("rbd")
+            rbd = RBD()
+            for fn in wrappers.values():
+                fn.launches = 0
+            with recorder:
+                await rbd.create(io, "vol", RBD_SIZE, order=RBD_ORDER,
+                                 data_pool="rbd.data", exclusive_lock=True,
+                                 object_map=True)
+                vol = await rbd.open(io, "vol")
+                # (a) the fill
+                t0 = time.perf_counter()
+
+                def fill_job(j):
+                    return lambda: vol.write(
+                        j * obj_size,
+                        memoryview(fill)[j * obj_size:(j + 1) * obj_size])
+                await in_flight([fill_job(j) for j in range(n_fill)])
+                secs["a_fill"] = time.perf_counter() - t0
+                out["fill_gib_per_s"] = RBD_FILL / (1 << 30) / secs["a_fill"]
+                # (b) s1, then the random writes
+                t0 = time.perf_counter()
+                s1 = await vol.snap_create("s1")
+                secs["b_snap_create"] = time.perf_counter() - t0
+                oracles["s1"] = head.copy()
+                lat = []
+
+                def rand_job(i):
+                    async def run():
+                        t1 = time.perf_counter()
+                        await vol.write(int(rand_offs[i]), rand_data[i])
+                        lat.append(time.perf_counter() - t1)
+                    return run
+                t0 = time.perf_counter()
+                await in_flight([rand_job(i)
+                                 for i in range(RBD_RANDOM_WRITES)])
+                secs["b_random_writes"] = time.perf_counter() - t0
+                for off, d in zip(rand_offs, rand_data):
+                    head[off:off + RBD_IO] = np.frombuffer(d, np.uint8)
+                out["random_writes"] = {
+                    "per_s": RBD_RANDOM_WRITES / secs["b_random_writes"],
+                    "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                    "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+                s1_objs = {int(o) // obj_size for o in rand_offs}
+                # (c) s2; s1 protected and cloned; copy-ups; flatten
+                s2 = await vol.snap_create("s2")
+                oracles["s2"] = head.copy()
+                await vol.snap_protect("s1")
+                t0 = time.perf_counter()
+                await rbd.clone(io, "vol", "s1", io, "child",
+                                data_pool="rbd.data")
+                child = await rbd.open(io, "child")
+                oracles["child"] = oracles["s1"].copy()
+
+                def child_job(i):
+                    return lambda: child.write(int(child_offs[i]),
+                                               child_data[i])
+                await in_flight([child_job(i)
+                                 for i in range(RBD_CHILD_WRITES)])
+                for off, d in zip(child_offs, child_data):
+                    oracles["child"][off:off + RBD_IO] = \
+                        np.frombuffer(d, np.uint8)
+                secs["c_clone_and_copyups"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                await child.flatten()
+                secs["c_flatten"] = time.perf_counter() - t0
+                check(child.meta.get("parent") is None,
+                      "the child still has a parent after flatten")
+                await child.close()
+                await vol.close()
+                # (d) whole reads, healthy
+                readers = {}
+                for label in ("head", "s1", "s2"):
+                    img = await rbd.open(io, "vol")
+                    if label != "head":
+                        img.snap_set(label)
+                    readers[label] = img
+                readers["child"] = await rbd.open(io, "child")
+                oracles["head"] = head
+                for label, img in readers.items():
+                    ok, s = await read_whole(img, oracles[label])
+                    exact[f"d_{label}"] = ok
+                    secs[f"d_read_{label}"] = s
+                med = np.median([secs[f"d_read_{k}"] for k in readers])
+                out["read_gib_per_s_healthy"] = {
+                    "written": RBD_FILL / (1 << 30) / med,
+                    "image_sparse": RBD_SIZE / (1 << 30) / med}
+                # (e) one, then three data shards' OSDs down
+                names = [_data(readers["head"].id, j) for j in range(n_fill)]
+                victims = data_shard_victims(
+                    mon.osdmap, client.open_ioctx("rbd.data"), names, 3)
+                out["victims"] = victims
+                for label, kill in (("1_down", victims[:1]),
+                                    ("3_down", victims[1:])):
+                    for v in kill:
+                        await osds.pop(v).kill()
+                        rc, msg = await client.mon_command(
+                            {"prefix": "osd down", "osd": v})
+                        check(rc == 0, f"osd down {v}: {msg}")
+                    await pool_active(mon, osds, data_pool)
+                    for snap in ("s1", "s2"):
+                        ok, s = await read_whole(readers[snap],
+                                                 oracles[snap])
+                        exact[f"e_{snap}_{label}"] = ok
+                        secs[f"e_read_{snap}_{label}"] = s
+                med = np.median([secs["e_read_s1_3_down"],
+                                 secs["e_read_s2_3_down"]])
+                out["read_gib_per_s_3_down"] = {
+                    "written": RBD_FILL / (1 << 30) / med,
+                    "image_sparse": RBD_SIZE / (1 << 30) / med}
+                for img in readers.values():
+                    await img.close()
+                t0 = time.perf_counter()
+
+                async def revive(v):
+                    osd = OSDDaemon(v, [addr], store=stores[v],
+                                    config=dict(OSD_CONFIG), device=dev)
+                    await osd.start()
+                    osds[v] = osd
+                await asyncio.gather(*(revive(v) for v in victims))
+                await wait_clean(mon, osds)
+                secs["e_revive_to_clean"] = time.perf_counter() - t0
+                # (f) the CLI's dispatch: exports and bench
+                cli_io = client.open_ioctx("rbd")
+
+                async def cli(**kw):
+                    """One `rbd` command through the CLI's dispatch, its
+                    standard output caught (a text stream with a buffer,
+                    as the CLI's export to "-" expects)."""
+                    raw = io_mod.BytesIO()
+                    so = io_mod.TextIOWrapper(raw, encoding="utf-8")
+                    with contextlib.redirect_stdout(so):
+                        rc = await rbd_cli._dispatch(
+                            client, cli_io, RBD(), argparse.Namespace(**kw))
+                    so.flush()
+                    check(rc == 0, f"rbd {kw}: rc {rc}")
+                    return raw.getvalue().decode()
+
+                async def export(spec, oracle) -> bool:
+                    """`rbd export` into a FIFO that a thread reads and
+                    holds against the oracle as the bytes come."""
+                    tmp = tempfile.mkdtemp()
+                    fifo = os.path.join(tmp, "export")
+                    os.mkfifo(fifo)
+                    res = {}
+
+                    def reader():
+                        pos, ok = 0, True
+                        with open(fifo, "rb") as f:
+                            while True:
+                                buf = f.read(obj_size)
+                                if not buf:
+                                    break
+                                ok = ok and window_ok(buf, pos, oracle)
+                                pos += len(buf)
+                        res["ok"], res["bytes"] = ok, pos
+                    th = threading.Thread(target=reader)
+                    th.start()
+                    try:
+                        await cli(cmd="export", image=spec, path=fifo)
+                    finally:
+                        while th.is_alive():
+                            # a reader still waiting for a writer (the
+                            # export failed before it opened): EOF
+                            with contextlib.suppress(OSError):
+                                os.close(os.open(fifo, os.O_WRONLY
+                                                 | os.O_NONBLOCK))
+                            await asyncio.to_thread(th.join, 0.1)
+                        os.remove(fifo)
+                        os.rmdir(tmp)
+                    return res.get("ok", False) and res["bytes"] == RBD_SIZE
+
+                t0 = time.perf_counter()
+                exact["f_export_s2"] = await export("vol@s2", oracles["s2"])
+                secs["f_export_s2"] = time.perf_counter() - t0
+                bench = {}
+                for io_type in ("write", "read"):
+                    bench[io_type] = json.loads(await cli(
+                        cmd="bench", image="vol", io_type=io_type,
+                        io_size=str(RBD_IO), io_total=str(RBD_BENCH_BYTES),
+                        io_pattern="rand", io_threads=16, trace=None))
+                    if io_type == "write":
+                        for off in bench_offs:
+                            if off < RBD_FILL:
+                                head[off:off + RBD_IO] = 0
+                out["bench_ops_per_s"] = {k: v["ops_per_sec"]
+                                          for k, v in bench.items()}
+                t0 = time.perf_counter()
+                exact["f_export_head"] = await export("vol", head)
+                secs["f_export_head"] = time.perf_counter() - t0
+                # the clones, from the SnapSets: one under s1 per object
+                # the random writes touched, one under s2 per object that
+                # existed before the bench and that the bench touched
+                ss = snapsets(stores, readers["head"].id)
+                made = {s1: 0, s2: 0}
+                for doc in ss.values():
+                    for c in doc.get("clones", []):
+                        made[c["cloneid"]] = made.get(c["cloneid"], 0) + 1
+                bench_objs = {o // obj_size for off in bench_offs
+                              for o in (off, off + RBD_IO - 1)}
+                want = {s1: len(s1_objs),
+                        s2: len(bench_objs & set(range(n_fill)))}
+                out["clones"] = {"made": {str(k): v for k, v in made.items()},
+                                 "expected": {str(k): v
+                                              for k, v in want.items()}}
+                check(made == want, f"clones made {made}, expected {want}")
+                # (g) trim s1
+                s2_clones = clone_objects(stores, s2)
+                t0 = time.perf_counter()
+                vol = await rbd.open(io, "vol")
+                await vol.snap_unprotect("s1")
+                await vol.snap_remove("s1")
+                await vol.close()
+                while clone_objects(stores, s1, data=False):
+                    check(time.perf_counter() - t0 < RBD_PHASE_TIMEOUT,
+                          "the s1 clones were never trimmed")
+                    await asyncio.sleep(0.05)
+                secs["g_trim"] = time.perf_counter() - t0
+                exact["g_s2_clones_intact"] = \
+                    clone_objects(stores, s2) == s2_clones
+                reader = await rbd.open(io, "vol")
+                reader.snap_set("s2")
+                ok, secs["g_read_s2"] = await read_whole(reader,
+                                                         oracles["s2"])
+                exact["g_s2_after_trim"] = ok
+                await reader.close()
+                out["clones"]["s2_clone_objects"] = len(s2_clones)
+            return {n: fn.launches for n, fn in wrappers.items()}
+        finally:
+            await client.shutdown()
+            for osd in osds.values():
+                await osd.stop()
+            await mon.shutdown()
+
+    launches = asyncio.run(asyncio.wait_for(drive(), RBD_PHASE_TIMEOUT))
+    held = recorder.hold()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs["phase"] = time.perf_counter() - phase_t0
+    dropped = {n: len(e.dropped) for n, e in recorder.entries.items()}
+    out.update({"exact": exact, "launches": launches,
+                "kernels_vs_plain": held, "inputs_not_kept": dropped})
+    print(json.dumps(out))
+    check(all(exact.values()), f"an rbd read or export differs: {exact}")
+    check(not any(dropped.values()), "distinct kernel inputs of the rbd path"
+          f" went unchecked past RBD_RECORDED_CALLS: {dropped}")
+    for name in ("gf_matmul_spec", "gf_matmul_gen", "crc32c_blocks"):
+        check(launches.get(name, 0) > 0,
+              f"{name} never launched on the rbd path: {launches}")
+        check(held[name] and all(r["max_abs_err"] == 0 for r in held[name]),
+              f"{name} disagrees with its plain version at the rbd path's"
+              f" shapes (or none was recorded): {held[name]}")
+    return {"rbd": launches}
+
+
 def main() -> None:
     import torch
 
@@ -6481,6 +7096,11 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "persist"]:
         # phase 3m alone, after the build: no result line
         print(json.dumps({"phase_only": "persist", "launches": persist_phase(
+            torch, dev, card, wrappers)}))
+        return
+    if sys.argv[1:] == ["--phase", "rbd"]:
+        # phase 3o alone, after the build: no result line
+        print(json.dumps({"phase_only": "rbd", "launches": rbd_phase(
             torch, dev, card, wrappers)}))
         return
 
@@ -6694,6 +7314,10 @@ def main() -> None:
     # -- 3n. the XOR-schedule kernel and the bitmatrix codecs ----------------
     xsched_state = xsched_phase(torch, dev, card, wrappers)
     mark("3n")
+
+    # -- 3o. snapshots and RBD on an EC 8+3 data pool ------------------------
+    rbd_launches = rbd_phase(torch, dev, card, wrappers)
+    mark("3o")
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
@@ -6704,7 +7328,7 @@ def main() -> None:
                "compute": compute_state["launches"],
                "mon": mon_state["launches"], **osd_launches,
                **rgw_launches, **persist_launches,
-               **xsched_state["launches"]}
+               **xsched_state["launches"], **rbd_launches}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)

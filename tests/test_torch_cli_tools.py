@@ -1,10 +1,13 @@
-"""The port's cluster tools as processes (ceph_tpu_torch.tools.rados and
-ceph_tpu_torch.tools.vstart), on the CPU.
+"""The port's cluster tools as processes (ceph_tpu_torch.tools.rados,
+ceph_tpu_torch.tools.rbd and ceph_tpu_torch.tools.vstart), on the CPU.
 
 tests/test_cli_tools.py's `test_rados_cli_end_to_end` through `python -m
 ceph_tpu_torch.tools.rados --device cpu` against a port cluster; the same
 commands against a JAX cluster through the JAX CLI and the port's CLI side
-by side (each on its own pool), whose outputs must be equal; and a cluster
+by side (each on its own pool), whose outputs must be equal;
+tests/test_cli_tools.py's `test_rbd_cli_end_to_end` through each
+package's rbd CLI as seeded processes, on a JAX and on a port cluster,
+whose outputs and stores must be equal; and a cluster
 of real processes from `python -m ceph_tpu_torch.tools.vstart --device
 cpu` (TPUStore OSDs): a put and a get through the port CLI, one OSD
 process SIGKILLed (the OS keeps every write it was handed: a process kill,
@@ -22,8 +25,11 @@ import subprocess
 import sys
 import time
 
+import ceph_tpu.rbd as jrbd
+import ceph_tpu_torch.rbd as trbd
 from torch_cluster_helpers import Cluster
 from torch_cluster_helpers import one_torch_thread  # noqa: F401
+from torch_rbd_helpers import SEEDED_MAIN, run_workload
 
 _ENV = {"PYTHONPATH": ".", "JAX_PLATFORMS": "cpu",
         "PATH": "/usr/bin:/bin:/usr/local/bin"}
@@ -166,6 +172,139 @@ def test_port_cli_prints_what_the_jax_cli_prints(tmp_path):
     assert all(rc == 0 for _cmd, rc, _out in got["torch"])
     for name in ("jax", "torch"):
         assert (tmp_path / f"{name}.out").read_bytes() == payload * 2
+
+
+RBD_TOOL = {"jax": ("ceph_tpu.tools.rbd",),
+            "torch": ("ceph_tpu_torch.tools.rbd",)}
+RADOS_TOOL = {"jax": JAX_CLI, "torch": PORT_CLI}
+# what `rbd bench` measures on the wall clock
+_BENCH_CLOCK = ("elapsed_s", "ops_per_sec", "mb_per_sec")
+
+
+def test_rbd_cli_end_to_end(tmp_path):
+    """tests/test_cli_tools.py's `test_rbd_cli_end_to_end` through each
+    package's rbd CLI as seeded processes, on a JAX and on a port cluster
+    (the port's CLI as `python -m ceph_tpu_torch.tools.rbd`): the pools
+    made with each package's rados CLI, then create, ls, info, export, snap
+    create and protect, clone, flatten, import, mirror to a second pool,
+    deep-cp with the snapshot history, migration prepare, execute and
+    commit, bench (one op in flight, where the JAX test has 16); the image
+    written and read back through each package's RBD API.  Every
+    command's exit code and output (bench's wall-clock figures aside),
+    every read and every store (but for the order of concurrent ops) equal
+    between the runs."""
+    rbd_api = {"jax": jrbd.RBD, "torch": trbd.RBD}
+    out_path = tmp_path / "disk.bin"
+
+    async def work(cluster, kind):
+        mon = cluster.mon.addr
+        seeds = iter(range(100))
+        replies = []
+
+        async def tool(module, *args):
+            proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-c", SEEDED_MAIN, str(next(seeds)),
+                *module, "-m", mon, *args,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=_ENV)
+            out, err = await proc.communicate()
+            return proc.returncode, out, err
+
+        async def rbd_cli(*args, ok=True):
+            rc, out, err = await tool(RBD_TOOL[kind], "-p", "rbd", *args)
+            assert (rc == 0) == ok, (args, rc, err)
+            text = out.decode()
+            if args[0] == "bench":
+                doc = json.loads(text)
+                assert doc["ops_per_sec"] > 0
+                text = {k: v for k, v in doc.items()
+                        if k not in _BENCH_CLOCK}
+            replies.append([list(args), rc, text])
+            return text
+
+        await rbd_cli("ls", ok=False)
+        # no pool yet: the rados CLI makes both
+        for pool in ("rbd", "backup"):
+            rc, _, err = await tool(RADOS_TOOL[kind], "mkpool", pool,
+                                    "--size", "2", "--pg-num", "4")
+            assert rc == 0, err
+        await rbd_cli("create", "disk", "--size", "256K", "--order", "14",
+                      "--journaling")
+        assert "disk" in (await rbd_cli("ls")).split()
+        doc = json.loads(await rbd_cli("info", "disk"))
+        assert doc["size"] == 256 << 10
+        assert "journaling" in doc["features"]
+
+        # write through the API, export through the CLI
+        rbd = rbd_api[kind]()
+        ioctx = cluster.client.open_ioctx("rbd")
+        img = await rbd.open(ioctx, "disk")
+        await img.write(0, b"cli export me")
+        await img.close()
+        await rbd_cli("export", "disk", str(out_path))
+        blob = out_path.read_bytes()
+        assert blob[:13] == b"cli export me"
+        assert len(blob) == 256 << 10
+
+        # snapshot + protect + clone + flatten
+        for args in (("snap", "create", "disk@s1"),
+                     ("snap", "protect", "disk@s1"),
+                     ("clone", "disk@s1", "child")):
+            await rbd_cli(*args)
+        assert "@s1" in json.loads(await rbd_cli("info", "child"))\
+            .get("parent", "")
+        await rbd_cli("flatten", "child")
+        assert "parent" not in json.loads(await rbd_cli("info", "child"))
+
+        # import round-trips
+        await rbd_cli("import", str(out_path), "disk2", "--order", "14")
+        assert json.loads(await rbd_cli("info", "disk2"))["size"] \
+            == 256 << 10
+
+        # mirror bootstrap+replay to a second pool
+        doc = json.loads(await rbd_cli("mirror", "disk", "--dst-pool",
+                                       "backup"))
+        assert doc["bootstrapped"] is True
+        bio = cluster.client.open_ioctx("backup")
+        reads = []
+        mirrored = await rbd.open(bio, "disk")
+        reads.append(await mirrored.read(0, 13))
+        await mirrored.close()
+
+        # deep-cp with snapshot history to the backup pool
+        await rbd_cli("deep-cp", "disk", "deep", "--dest-pool", "backup")
+        deep = await rbd.open(bio, "deep")
+        reads.append(await deep.read(0, 13))
+        assert [s["name"] for s in await deep.snap_list()] == ["s1"]
+        await deep.close()
+
+        # migration prepare/execute/commit through the CLI
+        for args in (("migration", "prepare", "disk2", "mig",
+                      "--dest-pool", "backup"),
+                     ("migration", "execute", "mig", "--dest-pool",
+                      "backup"),
+                     ("migration", "commit", "mig", "--dest-pool",
+                      "backup")):
+            await rbd_cli(*args)
+        assert "disk2" not in (await rbd_cli("ls")).split()
+        mig = await rbd.open(bio, "mig")
+        reads.append(await mig.read(0, 13))
+        await mig.close()
+        assert reads == [b"cli export me"] * 3
+
+        # rbd bench, one op in flight: the journal's entries and its
+        # lazily persisted commit position follow the order the ops end in
+        doc = await rbd_cli("bench", "disk", "--io-type", "readwrite",
+                            "--io-size", "4K", "--io-total", "64K",
+                            "--io-threads", "1")
+        assert doc["ops"] == 16
+        assert doc["reads"] + doc["writes"] == 16
+        return replies, [r.hex() for r in reads], blob.hex()
+
+    # deep-cp and migration execute copy objects concurrently: the stores
+    # are compared but for the order those writes landed in; no hit set is
+    # sealed on the wall clock in either run
+    run_workload(work, cluster_kw={"num_osds": 2, "osd_config": {
+        "osd_hit_set_period": 3600.0}}, timeout=240, any_order=True)
 
 
 def test_vstart_cluster_kill_and_restart_an_osd_process(tmp_path):

@@ -5,9 +5,9 @@ edges of the slice, and the port's OSD process entry point, on the CPU.
   against JAX OSDs (JAX mon), and one cluster with OSDs of both packages
   in a `jerasure` 4+2 pool (the name both registries know), clients of
   both packages reading each other's bytes, healthy and degraded;
-- ops of the families the port leaves for later answer EOPNOTSUPP
-  (snapshot writes and reads), and so does omap on an EC pool, as in
-  the reference; omap, object classes and watch/notify are served;
+- omap on an EC pool answers EOPNOTSUPP, as in the reference; omap,
+  object classes and watch/notify are served, and so are snapshot writes
+  and snap reads (equal to the JAX OSDs' replies and stores);
   recovery of a peer's missing object and a post-write repair run, and
   a pg_num increase after them splits the port OSDs' PGs; an OSD with
   no CUDA and no device named raises;
@@ -28,6 +28,7 @@ import torch
 from ceph_tpu_torch.osd import daemon as tdaemon
 from ceph_tpu_torch.msg.messages import OSDOp
 
+from test_torch_osd import _rc, snapshot
 from torch_cluster_helpers import FAST_CONFIG, FAST_MON_CONFIG, Cluster
 from torch_cluster_helpers import one_torch_thread  # noqa: F401
 from torch_mon_helpers import pkg
@@ -171,18 +172,6 @@ def test_later_families_answer_eopnotsupp():
                 with pytest.raises(jerr) as e:
                     await call
                 assert e.value.rc == tdaemon.EOPNOTSUPP
-            # snapshot writes and snap reads
-            snap = await io.create_selfmanaged_snap()
-            with pytest.raises(jerr) as e:
-                await io.write_full("obj", b"new")
-            assert e.value.rc == tdaemon.EOPNOTSUPP
-            io.set_snap_context(0, [])
-            io.snap_set_read(snap)
-            with pytest.raises(jerr) as e:
-                await io.read("obj")
-            assert e.value.rc == tdaemon.EOPNOTSUPP
-            io.snap_set_read(0)
-            assert await io.read("obj") == b"data"
             # the port client's own wire ops answer the same
             tio = cluster.new_client("torch")
             await tio.connect()
@@ -195,6 +184,44 @@ def test_later_families_answer_eopnotsupp():
         finally:
             await cluster.stop()
     run(main())
+
+
+def _snap_ops(osd_kind: str):
+    """Snapshot writes and snap reads from a JAX client on OSDs (and a
+    mon) of `osd_kind`: the replies and every store."""
+    async def main():
+        cluster = Cluster(num_osds=4, kinds=[osd_kind] * 4,
+                          mon_kind=osd_kind, client_kind="jax")
+        await cluster.start()
+        try:
+            await cluster.client.create_replicated_pool("rep", size=2,
+                                                        pg_num=8)
+            await cluster.wait_for_clean()
+            io = cluster.client.open_ioctx("rep")
+            await io.write_full("obj", b"data")
+            snap = await io.create_selfmanaged_snap()
+            replies = [snap, await _rc(io.write_full("obj", b"new"))]
+            io.snap_set_read(snap)
+            replies.append(await _rc(io.read("obj")))
+            io.snap_set_read(0)
+            replies.append(await _rc(io.read("obj")))
+            await asyncio.sleep(0.2)
+            return replies, snapshot(cluster)
+        finally:
+            await cluster.stop()
+    return run(main())
+
+
+def test_snap_writes_and_reads_are_served():
+    """The snapshot half of the edges above, served since snapshots were
+    ported: a JAX client's snap-context write clones the head and its
+    snap read returns the old bytes, on port OSDs as on JAX OSDs, with
+    equal replies and equal stores."""
+    trep, tsnap = _snap_ops("torch")
+    jrep, jsnap = _snap_ops("jax")
+    assert trep[1:] == [{}, b"data", b"new"]
+    assert trep == jrep
+    assert tsnap == jsnap
 
 
 def test_pg_split_after_recovery_and_repair():
