@@ -40,22 +40,35 @@ async def _main() -> None:
     ap.add_argument("--config", type=str, default="{}",
                     help="JSON osd config overrides")
     args = ap.parse_args()
-    device = resolve_device(args.device)
-    if args.store_path:
-        from ceph_tpu_torch.os.tpustore import TPUStore
+    try:
+        device = resolve_device(args.device)
+        if args.store_path:
+            from ceph_tpu_torch.os.tpustore import TPUStore
 
-        store = TPUStore(args.store_path, device=device)
-        if not os.path.exists(os.path.join(args.store_path, "block")):
-            os.makedirs(args.store_path, exist_ok=True)
+            store = TPUStore(args.store_path, device=device)
+            if not os.path.exists(os.path.join(args.store_path,
+                                               "block")):
+                os.makedirs(args.store_path, exist_ok=True)
+                store.mkfs()
+            store.mount()
+        else:
+            store = MemStore()
             store.mkfs()
-        store.mount()
-    else:
-        store = MemStore()
-        store.mkfs()
-        store.mount()
-    osd = OSDDaemon(args.id, args.mon, store=store,
-                    config=json.loads(args.config), device=device)
-    addr = await osd.start(port=args.port)
+            store.mount()
+        osd = OSDDaemon(args.id, args.mon, store=store,
+                        config=json.loads(args.config), device=device)
+        addr = await osd.start(port=args.port)
+    except (KeyboardInterrupt, asyncio.CancelledError):
+        raise
+    except BaseException as e:
+        # boot died (no device, bad store, bind failure, mount
+        # corruption): post a crash report before exiting (the
+        # ceph-crash role) — best-effort over a FRESH connection, never
+        # masks the error
+        from ceph_tpu_torch.common.crash import post_crash
+
+        await post_crash(args.mon, f"osd.{args.id}", e)
+        raise
     print(f"OSD_ADDR {addr}", flush=True)
     try:
         await asyncio.Event().wait()

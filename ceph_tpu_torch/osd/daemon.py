@@ -610,7 +610,7 @@ class OSDDaemon:
             max(int(self.config.get("osd_max_backfills", 1)), 1))
         self.perf["backfills_active"] = 0
         self.perf["backfill_waits"] = 0
-        # op tracking + background scrub
+        # op tracking + background scrub + admin socket
         from ceph_tpu_torch.osd.op_tracker import OpTracker
 
         self.op_tracker = OpTracker(
@@ -620,6 +620,7 @@ class OSDDaemon:
                 "osd_op_complaint_time", 30.0)),
             who=f"osd.{osd_id}")
         self._scrub_task: Optional[asyncio.Task] = None
+        self._admin_socket = None
         self.scrub_stats = {"objects": 0, "errors": 0, "repaired": 0}
         # stage-span tracing: head-sampled ring retention (the bulk),
         # tail-based exemplar retention via the op tracker (the ops
@@ -684,6 +685,9 @@ class OSDDaemon:
         if scrub_iv > 0:
             self._scrub_task = asyncio.get_running_loop().create_task(
                 self._scrub_loop(scrub_iv))
+        admin_path = self.config.get("admin_socket", "")
+        if admin_path:
+            self._start_admin_socket(admin_path)
         return addr
 
     def _prewarm_device(self) -> None:
@@ -696,9 +700,9 @@ class OSDDaemon:
         torch.empty(1, device=self.device)
 
     def _admin_commands(self):
-        """name -> (handler, help): the `ceph tell osd.N` surface
-        (OSD::do_command role; the admin socket that shares this table
-        in the reference is not ported yet)."""
+        """name -> (handler, help): one admin surface served both by
+        the local admin socket and by MOSDCommand over the wire (the
+        `ceph tell osd.N` / OSD::do_command role)."""
         return {
             "dump_ops_in_flight": (
                 lambda cmd: self.op_tracker.dump_in_flight(),
@@ -966,6 +970,28 @@ class OSDDaemon:
         out["pools"] = {str(k): v for k, v in pools.items()}
         return out
 
+    def _start_admin_socket(self, path: str) -> None:
+        from ceph_tpu_torch.common.admin_socket import AdminSocket
+
+        loop = asyncio.get_running_loop()
+
+        def wrap(fn):
+            # the asok serve thread is synchronous: run coroutine
+            # handlers on the daemon loop and wait for the result
+            def call(cmd):
+                out = fn(cmd)
+                if asyncio.iscoroutine(out):
+                    return asyncio.run_coroutine_threadsafe(
+                        out, loop).result(30)
+                return out
+            return call
+
+        sock = AdminSocket(path, version=f"ceph_tpu osd.{self.osd_id}")
+        for name, (fn, help_text) in self._admin_commands().items():
+            sock.register_command(name, wrap(fn), help_text)
+        sock.init()
+        self._admin_socket = sock
+
     async def stop(self) -> None:
         self._stopping = True
         for task in list(self._promote_tasks):
@@ -980,6 +1006,10 @@ class OSDDaemon:
         # flush the group-commit window: every acked txn is durable
         # and no caller is stranded on an unresolved commit future
         await self.committer.stop()
+        if self._admin_socket is not None:
+            # shutdown joins the serve thread: keep that wait OFF the
+            # shared event loop (co-hosted daemons keep running)
+            await asyncio.to_thread(self._admin_socket.shutdown)
         if self._scrub_task is not None:
             self._scrub_task.cancel()
         if self._hb_task is not None:

@@ -23,6 +23,7 @@ same map, and each package decodes the other's.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 from dataclasses import dataclass, field
@@ -57,6 +58,15 @@ TYPE_ERASURE = 3
 
 # pg_pool_t flags
 FLAG_HASHPSPOOL = 1 << 2
+
+# raw CRUSH placements of every cache-enabled map in the process, keyed
+# on everything crush_do_rule reads: the crush map's digest, the in/out
+# weights, the rule, the pps and the size.  The daemons and clients of
+# one cluster in one process hold equal maps, so a map epoch places each
+# PG once instead of once a map; epochs that change neither the crush map
+# nor the weights (pool snaps, downs, boots) place nothing anew.
+_RAW_MEMO: Dict[Tuple, Tuple[int, ...]] = {}
+_RAW_MEMO_MAX = 1 << 17
 
 # cluster flags (OSDMap CEPH_OSDMAP_*)
 FLAG_NAMES = {
@@ -236,6 +246,7 @@ class OSDMap:
         self._cache_placement = False
         self._pcache: Dict[PgId, Tuple] = {}
         self._pcache_epoch = -1
+        self._crush_digest: Optional[Tuple] = None  # (epoch, crush, digest)
 
     def enable_placement_cache(self) -> None:
         """Owner promises mutation-through-incrementals (or whole-map
@@ -316,12 +327,35 @@ class OSDMap:
         pps = pool.raw_pg_to_pps(pg)
         ruleno = self._find_rule(pool)
         raw: List[int] = []
-        if ruleno >= 0:
+        if ruleno >= 0 and self._cache_placement:
+            key = (self._crush_token(), tuple(self.osd_weight), ruleno,
+                   pps, pool.size)
+            hit = _RAW_MEMO.get(key)
+            if hit is None:
+                hit = tuple(crush_mapper.crush_do_rule(
+                    self.crush, ruleno, pps, pool.size, self.osd_weight,
+                    self.crush.choose_args or None))
+                if len(_RAW_MEMO) >= _RAW_MEMO_MAX:
+                    _RAW_MEMO.clear()
+                _RAW_MEMO[key] = hit
+            raw = list(hit)
+        elif ruleno >= 0:
             raw = list(crush_mapper.crush_do_rule(
                 self.crush, ruleno, pps, pool.size, self.osd_weight,
                 self.crush.choose_args or None))
         self._remove_nonexistent(pool, raw)
         return raw, pps
+
+    def _crush_token(self) -> bytes:
+        """The crush map's digest, taken once an epoch (and again if the
+        map was swapped for another object)."""
+        held = self._crush_digest
+        if held is None or held[0] != self.epoch or held[1] is not self.crush:
+            text = json.dumps(to_json(self.crush), sort_keys=True)
+            held = (self.epoch, self.crush, hashlib.blake2b(
+                text.encode(), digest_size=16).digest())
+            self._crush_digest = held
+        return held[2]
 
     def _remove_nonexistent(self, pool: PgPool, osds: List[int]) -> None:
         if pool.can_shift_osds():

@@ -1,6 +1,7 @@
 """Networked RADOS client (Objecter + librados roles; port of the
 write, read, snapshot, xattr, omap, object-class, watch/notify,
-listing, coded-compute and inference slice of ceph_tpu/rados/client.py).
+listing, coded-compute, inference and CephFS-session slice of
+ceph_tpu/rados/client.py).
 
 Reference parity: Objecter (the reference's src/osdc/Objecter.cc) —
 placement computed client-side with the same CRUSH/OSDMap math the OSDs
@@ -34,6 +35,8 @@ from ceph_tpu_torch.msg import Connection, Messenger
 from ceph_tpu_torch.msg.messages import (
     MAuth,
     MAuthReply,
+    MClientCaps,
+    MClientReply,
     MGetMap,
     MMonCommand,
     MMonCommandReply,
@@ -227,6 +230,9 @@ class RadosClient:
         self._watches: Dict[Tuple[int, str, int], tuple] = {}
         self._watch_cookie = 0
         self._watch_keepalive: Optional[asyncio.Task] = None
+        # CephFS cap recalls arriving on this shared messenger are
+        # routed to the mounted filesystem (set by CephFS.__init__)
+        self.fs_caps_handler = None
 
     def _next_watch_cookie(self) -> int:
         self._watch_cookie += 1
@@ -319,8 +325,12 @@ class RadosClient:
                                                 msg.cookie))
             except (ConnectionError, OSError):
                 pass
+        elif isinstance(msg, MClientCaps):
+            if self.fs_caps_handler is not None:
+                await self.fs_caps_handler(conn, msg)
         elif isinstance(msg, (MAuthReply, MOSDOpReply, MMonCommandReply,
-                              MOSDCommandReply, MOSDComputeReply)):
+                              MOSDCommandReply, MOSDComputeReply,
+                              MClientReply)):
             fut = self._futures.pop(msg.tid, None)
             if fut is not None and not fut.done():
                 fut.set_result(msg)

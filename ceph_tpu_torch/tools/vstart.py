@@ -2,16 +2,17 @@
 ceph_tpu/tools/vstart.py).
 
 Spawns real processes of this package — N mons (Paxos quorum when >1),
-M OSDs (TPUStore-backed under --data-dir unless --memstore) and an
-optional S3 gateway — wires them together, waits for health, and prints
-a ready-to-source environment block.  `--stop` tears down a running
+M OSDs (TPUStore-backed under --data-dir unless --memstore), an
+optional MDS pair and S3 gateway — wires them together, waits for
+health, and prints a ready-to-source environment block.  `--stop` tears down a running
 cluster by pidfile.  The OSDs and the gateway run on `--device`: CUDA
 unless another is named (each daemon fails without CUDA and without a
-device).  The MDS is not ported yet: `--mds` exits nonzero.
+device).  The MDS does no device work and takes no `--device`.
 
 Usage:
   python -m ceph_tpu_torch.tools.vstart --data-dir DIR \
-      --mons 3 --osds 4 [--rgw] [--secret auto] [--secure] [--device D]
+      --mons 3 --osds 4 [--mds] [--rgw] [--secret auto] [--secure]
+      [--device D]
   python -m ceph_tpu_torch.tools.vstart --data-dir DIR --stop
 """
 
@@ -101,8 +102,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mons", type=int, default=1)
     ap.add_argument("--osds", type=int, default=3)
     ap.add_argument("--mds", action="store_true",
-                    help="an active+standby MDS pair (not ported yet:"
-                         " exits nonzero)")
+                    help="also start an active+standby MDS pair"
+                         " (creates cephfs.meta/cephfs.data pools)")
     ap.add_argument("--rgw", action="store_true",
                     help="also start the S3 gateway (creates rgw"
                          " pools; access key 'vstart'/'vstartsecret')")
@@ -120,10 +121,6 @@ def main(argv=None) -> int:
 
     if args.stop:
         return stop(args.data_dir)
-    if args.mds:
-        print("error: the MDS is not ported to ceph_tpu_torch yet",
-              file=sys.stderr)
-        return 2
     device = ["--device", args.device] if args.device else []
 
     os.makedirs(args.data_dir, exist_ok=True)
@@ -191,6 +188,11 @@ def main(argv=None) -> int:
                              secure=args.secure)
         await client.connect()
         try:
+            if args.mds:
+                await client.create_replicated_pool(
+                    "cephfs.meta", size=min(2, args.osds), pg_num=8)
+                await client.create_replicated_pool(
+                    "cephfs.data", size=min(2, args.osds), pg_num=8)
             if args.rgw:
                 await client.create_replicated_pool(
                     "rgw.meta", size=min(2, args.osds), pg_num=8)
@@ -205,6 +207,20 @@ def main(argv=None) -> int:
         status = asyncio.run(finish())
     except Exception as e:
         _bail(e)
+
+    if args.mds:
+        for name in ("a", "b"):
+            p = _spawn(args.data_dir, f"mds.{name}", [
+                "ceph_tpu_torch.mds", "--name", name, "--mon", monmap,
+                "--metadata-pool", "cephfs.meta",
+                "--data-pool", "cephfs.data"]
+                + (["--secret", secret] if secret else [])
+                + (["--secure"] if args.secure else []))
+            procs.append(p)
+            try:
+                _read_tag(p, "MDS_ADDR")
+            except Exception as e:
+                _bail(e)
 
     rgw_addr = ""
     if args.rgw:

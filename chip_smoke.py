@@ -9,7 +9,7 @@ Run from the repository root:
 3j and 3k alone, with their checks, and prints no result line;
 `--phase compute` does the same for phase 3g, `--phase rgw` for 3l,
 `--phase persist` for 3m, `--phase xsched` for 3n, `--phase rbd` for
-3o.)
+3o, `--phase cephfs` for 3p.)
 
 Phases; any failure exits nonzero and prints no result line:
 
@@ -257,8 +257,9 @@ Phases; any failure exits nonzero and prints no result line:
    split that was not missing one before it (ROADMAP C7), none short of k
    shards when healthy; every scan answer against
    kernel.reference on the written bytes (64 KiB units), gf_fold's and
-   the nonlinear ones against phase 3g's library answers, all against the
-   twin's; no sub-read bytes in a linear scan; rc 0 for every object but
+   the nonlinear ones against phase 3g's library answers, the scans with
+   OSDs down against the twin's (the twin skips the healthy scans); no
+   sub-read bytes in a linear scan; rc 0 for every object but
    those short of k shards with OSDs down, which answer EAGAIN as the JAX
    OSDs do and must be among those C7 left missing a shard before the
    split; exact answers within INFER_RTOL of model.exact_forward and
@@ -402,6 +403,53 @@ Phases; any failure exits nonzero and prints no result line:
    clones made, whole-image reads healthy and three down as GiB/s of the
    written bytes and of the image (sparse: three quarters absent), flatten
    and trim seconds, bench ops/s, the phase's seconds.
+3p. The admin socket, the MDS and CephFS (path `cephfs`) on a fresh
+   cluster of 3i's shape, laid out as Ceph's own documentation lays a
+   file system out (doc/cephfs/createfs.rst, EC data pools;
+   doc/cephfs/multimds.rst, max_mds 2; doc/cephfs/file-layouts.rst, 4 MiB
+   objects): `cephfs.meta` (size 3) and `cephfs.data` (EC 8+3 at 64 KiB
+   units), 16 PGs each; every OSD serving its admin socket from the
+   `admin_socket` option; four MDS daemons in this loop, ranks 0 and 1
+   with an active and a standby each; clients A and B on RADOS clients of
+   their own; a numpy oracle of every file at every version.  (a) A
+   writes 16 top-level directories (both ranks' by the hash rule) of 32
+   files of 4-64 KiB, 16 in flight (half of 1,024 files, for the time
+   limit); (b) B writes four 64 MiB files in 4
+   MiB writes, 4 in flight a file, while each OSD's admin socket answers
+   `perf dump` and `dump_ops_in_flight` through admin_socket_request;
+   (c) A stats one directory 20 times from its caps (the MDSs' ops_served
+   must not move), A reads B's files and B A's; (d) `mksnap / s1`, then
+   a quarter of the large files' 4 MiB blocks overwritten at random
+   unaligned offsets, 64 small files overwritten, a large file truncated
+   inside a block, 32 unlinked, a file renamed across ranks and a
+   directory renamed across ranks (the subtree export); /.snap/s1 and
+   the head read whole; (e) rank 0's active hard-stopped (no unlock)
+   while B writes: seconds to the standby's first op; (f) three OSDs
+   holding data shards killed (MemStores kept) and marked down, the head
+   and s1 read whole, the three revived to clean; (g) VolumeClient
+   create, getpath and rm of a subvolume; DirMirror of one top-level
+   directory into a second file system on the cluster (two more pools,
+   its own MDS): a bootstrap snapshot and one incremental one, the
+   mirror's head and snapshots equal to the source's; the cephfs CLI's
+   `_dispatch` in this process: `ls`, `get`, `snap ls`; (h) `rmsnap /
+   s1`: its clones go from every store, the head read whole again.
+   Checks: every read bit for bit; every shard of a sample of 16 data
+   objects against encode_with_hinfo of a device="cpu" codec and its
+   hinfo the cleared ledger of an extent write; a snapshot request's
+   error accepted only as a resend's (EEXIST for mksnap, ENOENT for
+   rmsnap, the client's resend count moved, the effect confirmed:
+   ROADMAP C14), each mirror sync copying one snapshot; no two MDS
+   daemons of one rank serving ops within one lock interval of each
+   other (every takeover printed); gf_matmul_spec and
+   gf_matmul_gen launched on the path (counts zeroed at the phase's
+   start) and held against their plain versions on the inputs the path
+   gave them (as 3o); crc32c_blocks not launched: every CephFS data
+   write is an extent write, an EC read-modify-write that clears the
+   hinfo hashes, as in the reference.  Figures: small-file creates/s,
+   large-file write and read GiB/s healthy and three down, the s1 read
+   GiB/s, cached stats/s, failover seconds, mirror sync seconds, the
+   admin socket round trip ms, the takeovers by rank, the launches, the
+   phase's seconds.
 4. Time each kernel with CUDA events (median of 20 after warm-up) beside
    its plain version and its bound, the crc kernel also at the two
    launches the main path makes (512 data and 192 parity blocks of
@@ -419,7 +467,7 @@ Phases; any failure exits nonzero and prints no result line:
    Every kernels-line row carries its launches per path (codec, crushtool,
    osdmap, cluster, codecs, store, store_cluster, compute, mon, osd,
    recovery, recovery_msr, split, osd_compute, rgw, persist, persist_sweep,
-   xsched_codec, xsched) and their sum;
+   xsched_codec, xsched, rbd, cephfs) and their sum;
    bloom_positions' row is timed at the tier's geometry and 65536 hashes,
    bloom_seal's at one PG's seal of the tier, xor_sched's at
    the packed batch (its launches both entries').
@@ -3138,6 +3186,7 @@ OSD_MODELS = MODELS
 OSD_SCAN_REPEATS = 3        # healthy gf_fold scans timed on the card
 LINEAR_KERNELS = ("gf_fold", "gf_fingerprint")
 EAGAIN_RC = -11
+DEGRADED_STAGES = ("1_lost", "3_lost")   # 3k's stages with OSDs down
 # the models' pool (made in 3j, beside msr.data): rgw.data's EC 8+3 at the
 # default stripe unit, where the client's 4096-byte model layout matches the
 # OSDs' (on rgw.data every query would take the exact path: ROADMAP C8); two
@@ -3776,24 +3825,29 @@ def osd_phase(torch, dev, card: str, wrappers: dict) -> dict:
         out["short_of_k"]["data"] = short_of_k(targets)
         healthy_s = []
         t1 = step("b_short_of_k", t1)
-        for _rep in range(OSD_SCAN_REPEATS if card_run else 1):
-            marks = {id(o): o.tracer.counters["spans_retained"]
-                     for o in everyone}
-            healthy_s.append(await scan("data gf_fold", "gf_fold", targets))
-        spans = spans_since(everyone, marks)
-        out["scan_span_seconds"] = {
-            stage: sum(sp["duration_us"] for sp in spans
-                       if sp["name"].startswith(stage)) / 1e6
-            for stage in ("compute_op", "compute eval", "compute decode",
-                          "subcompute")}
-        out["scan_span_counts"] = {
-            stage: sum(sp["name"].startswith(stage) for sp in spans)
-            for stage in out["scan_span_seconds"]}
-        out["seconds"]["scan_gf_fold"] = healthy_s
-        out["seconds"]["scan_gf_fingerprint"] = await scan(
-            "data gf_fingerprint", "gf_fingerprint", targets)
-        for i, (kn, obj, args) in enumerate(nonlinear_cases()):
-            await scan(f"nonlinear {i}", kn, [obj], args)
+        # the CPU twin skips the healthy scans, whose answers are held
+        # against kernel.reference and 3g's library (a scan writes
+        # nothing: the stores are held to the twin's at the end)
+        if card_run:
+            for _rep in range(OSD_SCAN_REPEATS):
+                marks = {id(o): o.tracer.counters["spans_retained"]
+                         for o in everyone}
+                healthy_s.append(await scan("data gf_fold", "gf_fold",
+                                            targets))
+            spans = spans_since(everyone, marks)
+            out["scan_span_seconds"] = {
+                stage: sum(sp["duration_us"] for sp in spans
+                           if sp["name"].startswith(stage)) / 1e6
+                for stage in ("compute_op", "compute eval",
+                              "compute decode", "subcompute")}
+            out["scan_span_counts"] = {
+                stage: sum(sp["name"].startswith(stage) for sp in spans)
+                for stage in out["scan_span_seconds"]}
+            out["seconds"]["scan_gf_fold"] = healthy_s
+            out["seconds"]["scan_gf_fingerprint"] = await scan(
+                "data gf_fingerprint", "gf_fingerprint", targets)
+            for i, (kn, obj, args) in enumerate(nonlinear_cases()):
+                await scan(f"nonlinear {i}", kn, [obj], args)
         t1 = step("b_scans", t1)
 
         # c. the models, stored through the client and served by the OSDs
@@ -4393,9 +4447,10 @@ def osd_compute_report(dev, card: str, k3: dict, twin: dict,
     """Phase 3k's checks and lines: the split's reads, every store (the
     `osd_meta` split bookkeeping included) and pg log against the CPU
     twin's; every scan answer against kernel.reference on the bytes the
-    smoke wrote, against phase 3g's library answer and against the twin's
-    scan; the served queries against model.exact_forward, the budget and
-    the twin; each path's launches against the engines' and the encode
+    smoke wrote and against phase 3g's library answer, those with OSDs
+    down against the twin's (the twin skips the healthy scans); the
+    served queries against model.exact_forward, the budget and the twin;
+    each path's launches against the engines' and the encode
     service's counters.  Returns the launches of the paths `split` and
     `osd_compute`."""
     from ceph_tpu_torch import compute
@@ -4411,8 +4466,14 @@ def osd_compute_report(dev, card: str, k3: dict, twin: dict,
         "pg_logs": final["logs"] == tfinal["logs"],
         "osd_meta": final["osd_meta"] == tfinal["osd_meta"]
         and bool(final["osd_meta"]),
-        "answers": k3["answers"] == twin["answers"]
-        and k3["errors"] == twin["errors"]}
+        # the twin scans with OSDs down only (the healthy scans are held
+        # to kernel.reference below)
+        "answers": set(twin["answers"]) == {
+            label for label in k3["answers"]
+            if label.split()[0] in DEGRADED_STAGES}
+        and all(k3["answers"][label] == twin["answers"][label]
+                and k3["errors"][label] == twin["errors"][label]
+                for label in twin["answers"])}
 
     # every answer against the host reference on the written bytes
     chunk = k3["sinfo_chunk"]
@@ -6991,6 +7052,773 @@ def rbd_phase(torch, dev, card: str, wrappers: dict) -> dict:
     return {"rbd": launches}
 
 
+# phase 3p: the admin socket, the MDS and CephFS on a fresh cluster of 3i's
+# shape.  Ceph's own layout (doc/cephfs/createfs.rst, "Using Erasure Coded
+# pools with CephFS"; doc/cephfs/multimds.rst, max_mds 2): a replicated
+# metadata pool and an EC 8+3 data pool at 64 KiB units, 16 PGs each, two
+# active ranks with a standby each, the default layout's 4 MiB objects
+# (doc/cephfs/file-layouts.rst)
+FS_META, FS_DATA = "cephfs.meta", "cephfs.data"
+FS_PGS = 16
+FS_TOP_DIRS, FS_FILES_PER_DIR = 16, 32   # 512 files; the layout had 1,024
+FS_SMALL_MIN, FS_SMALL_MAX = 4 << 10, 64 << 10
+FS_SMALL_IN_FLIGHT = 16
+FS_LARGE_FILES, FS_LARGE_SIZE, FS_BLOCK = 4, 64 << 20, 4 << 20
+FS_LARGE_IN_FLIGHT = 4      # 4 MiB writes in flight per file
+FS_STAT_ROUNDS = 20         # rounds of cached stats over one directory
+FS_OVERWRITE_SMALL, FS_UNLINK_SMALL = 64, 32
+FS_FAILOVER_WRITE = 16 << 10    # B's writes while rank 0 fails over
+FS_FAILOVER_AFTER = 4       # B's writes after the standby's first op
+FS_LOCK_INTERVAL = 1.0      # an MDS's lock renewal; stale after 5 of them
+FS_PHASE_TIMEOUT = 600.0
+
+
+def cephfs_phase(torch, dev, card: str, wrappers: dict) -> dict:
+    """Phase 3p (path `cephfs`): the admin socket, the MDS and CephFS on
+    a fresh cluster of 3i's shape, every OSD serving its admin socket
+    from the `admin_socket` option; pools FS_META (size 3) and FS_DATA
+    (EC 8+3, 64 KiB units), FS_PGS each; four MDS daemons (ranks 0 and
+    1, an active and a standby each); clients A and B on RADOS clients of
+    their own; a numpy oracle of every file at every version.  (a) A
+    writes FS_TOP_DIRS top-level directories of FS_FILES_PER_DIR files
+    (FS_SMALL_MIN-FS_SMALL_MAX bytes from SEED), FS_SMALL_IN_FLIGHT in
+    flight; (b) B writes FS_LARGE_FILES files of FS_LARGE_SIZE in 4 MiB
+    writes, FS_LARGE_IN_FLIGHT in flight a file, while every OSD's admin
+    socket answers `perf dump` and `dump_ops_in_flight`; (c) A stats one
+    directory from its caps (no MDS op), then A reads what B wrote and B
+    what A wrote; (d) `mksnap / s1`, then a quarter of the large files'
+    blocks overwritten at random unaligned offsets, FS_OVERWRITE_SMALL
+    small files overwritten, a large file truncated inside a block,
+    FS_UNLINK_SMALL unlinked, a file and a directory renamed across
+    ranks (the subtree export); /.snap/s1 and the head read whole; (e)
+    rank 0's active hard-stopped while B writes, the seconds to the
+    standby's first op; (f) three OSDs holding data shards killed (their
+    MemStores kept) and marked down, the head and s1 read whole, the
+    three revived to clean; (g) VolumeClient create / getpath / rm, a
+    DirMirror of one top-level directory into a second file system on
+    the cluster (bootstrap, then one incremental snapshot; the mirror
+    equal to the source), the cephfs CLI's dispatch (`ls`, `get`,
+    `snap ls`); (h) `rmsnap / s1`: its clones go from every store, and
+    the head is read whole again.  Every read against the oracle; every
+    shard of a sample of data objects against encode_with_hinfo of a
+    device="cpu" codec, and its hinfo the cleared ledger of an extent
+    write; gf_matmul_spec and gf_matmul_gen each launched on the path
+    (counts zeroed at the phase's start) and held against their plain
+    versions on the inputs the path gave them, crc32c_blocks not
+    launched (the path's writes are all extent writes)."""
+    import argparse
+    import asyncio
+    import contextlib
+    import io as io_mod
+    import os
+    import tempfile
+
+    from ceph_tpu_torch.cephfs import CephFS, CephFSError
+    from ceph_tpu_torch.cephfs.mirror import DirMirror
+    from ceph_tpu_torch.cephfs.volumes import VolumeClient
+    from ceph_tpu_torch.common.admin_socket import admin_socket_request
+    from ceph_tpu_torch.ec.registry import create_erasure_code
+    from ceph_tpu_torch.mds import (EEXIST, ENOENT, SNAPTABLE_OBJ,
+                                    MDSDaemon, data_obj, owner_rank)
+    from ceph_tpu_torch.mon import MonDaemon
+    from ceph_tpu_torch.os import ObjectId
+    from ceph_tpu_torch.os.memstore import MemStore
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.daemon import SNAP_SEP, OSDDaemon
+    from ceph_tpu_torch.rados.client import RadosClient
+    from ceph_tpu_torch.rados.embedded import HINFO_ATTR, shard_collection
+    from ceph_tpu_torch.tools import cephfs as cephfs_cli
+
+    phase_t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 60)
+    out: dict = {"phase": "cephfs", "card": card,
+                 "seconds": StepSeconds(phase_t0)}
+    secs = out["seconds"]
+    exact: dict = {}
+    tmp = tempfile.mkdtemp()
+
+    # the tree: FS_TOP_DIRS names that the hash rule spreads over both
+    # ranks, the small files' bytes, the large files' bytes
+    tops, i = [], 0
+    while len(tops) < FS_TOP_DIRS or \
+            {owner_rank(f"/{d}/x", 2) for d in tops} != {0, 1}:
+        tops.append(f"d{i:02d}")
+        i += 1
+        if len(tops) > FS_TOP_DIRS:
+            tops.pop(0)
+    rank_of = {d: owner_rank(f"/{d}/x", 2) for d in tops}
+    head: dict = {}         # path -> bytes, the oracle at head
+    for d in tops:
+        for j in range(FS_FILES_PER_DIR):
+            n = int(rng.integers(FS_SMALL_MIN, FS_SMALL_MAX + 1))
+            head[f"/{d}/f{j:03d}"] = rng.bytes(n)
+    small = sorted(head)
+    large = [f"/large/big{j}" for j in range(FS_LARGE_FILES)]
+    large_bytes = {p: np.frombuffer(rng.bytes(FS_LARGE_SIZE), np.uint8)
+                   .copy() for p in large}
+    mirror_dir = tops[0]
+    export_src = next(d for d in tops[1:] if rank_of[d] == 1)
+    export_dst = next(f"moved{k}" for k in range(100)
+                      if owner_rank(f"/moved{k}/x", 2) == 0)
+    file_src = next(p for p in small if p.split("/")[1] == tops[2])
+    file_dst_dir = next(d for d in tops[3:] if d not in (export_src,)
+                        and rank_of[d] != rank_of[tops[2]])
+    failover_dir = next(d for d in tops[4:] if rank_of[d] == 0
+                        and d not in (export_src, file_dst_dir))
+
+    async def in_flight(jobs, n):
+        sem = asyncio.Semaphore(n)
+
+        async def one(job):
+            async with sem:
+                return await job()
+        return await asyncio.gather(*(one(j) for j in jobs))
+
+    def large_now() -> dict:
+        return {p: a.tobytes() for p, a in large_bytes.items()}
+
+    resends: list = []
+
+    async def resent(what: str, fs, call, rc: int, done):
+        """`call()`, a snapshot request of `fs` with no other request of
+        `fs` in flight.  If the client resent it (its reply outlived the
+        client's 10 s wait) and the first send took effect, the resend
+        answers `rc` (EEXIST for mksnap, ENOENT for rmsnap: ROADMAP C14):
+        that error is accepted only when `fs`'s resend count moved during
+        the call and `done()` confirms the effect; any other fails."""
+        before = fs.mds_resends
+        try:
+            return await call()
+        except CephFSError as e:
+            again = fs.mds_resends - before
+            check(e.rc == rc and again > 0 and await done(),
+                  f"{what}: {e} ({again} resends)")
+            resends.append([what, e.rc, again])
+            return None
+
+    # every client or peer op an MDS executed, and every takeover, by
+    # file system and rank: two daemons of one rank must never serve ops
+    # within one lock interval of each other (no split brain)
+    served_ops: dict = {}       # (pool, rank) -> [[start, end, name]]
+    takeovers: dict = {}        # (pool, rank) -> [[phase seconds, name]]
+
+    def watch(mds) -> None:
+        key = (mds.metadata_pool, mds.rank)
+        dispatch, take_over = mds._dispatch, mds._take_over
+
+        async def counted_dispatch(conn, msg):
+            n, t0 = mds.ops_served, time.monotonic()
+            try:
+                await dispatch(conn, msg)
+            finally:
+                if mds.ops_served != n:
+                    served_ops.setdefault(key, []).append(
+                        [t0, time.monotonic(), mds.name])
+
+        async def counted_take_over():
+            await take_over()
+            takeovers.setdefault(key, []).append(
+                [time.perf_counter() - phase_t0, mds.name])
+        mds.msgr.dispatcher = counted_dispatch
+        mds._take_over = counted_take_over
+
+    def split_brain() -> list:
+        """[pool, rank, a, b, gap s] wherever daemon b of a rank began an
+        op less than FS_LOCK_INTERVAL after daemon a's last op ended
+        (negative: while a's was in flight)."""
+        found = []
+        for (pool, rank), ops in served_ops.items():
+            last_end: dict = {}
+            for start, end, name in sorted(ops):
+                for other, other_end in last_end.items():
+                    if other != name and \
+                            start - other_end < FS_LOCK_INTERVAL:
+                        found.append([pool, rank, other, name,
+                                      start - other_end])
+                last_end[name] = max(last_end.get(name, end), end)
+        return found
+
+    async def snap_id(fs, path: str, name: str):
+        """`name`'s snapid among `path`'s snapshots, or None."""
+        return next((x["snapid"] for x in await fs.lssnap(path)
+                     if x["name"] == name), None)
+
+    async def read_all(fs, tree: dict, prefix: str = "") -> tuple:
+        """Every file of `tree` read through `fs` (under `prefix`, a
+        .snap root) against its bytes; (all exact, bytes, seconds)."""
+        t0 = time.perf_counter()
+        paths = sorted(tree)
+
+        def job(p):
+            async def run():
+                got = await fs.read_file(prefix + p)
+                return got == tree[p], len(got)
+            return run
+        res = await in_flight([job(p) for p in paths], FS_SMALL_IN_FLIGHT)
+        return (all(ok for ok, _n in res), sum(n for _ok, n in res),
+                time.perf_counter() - t0)
+
+    async def start():
+        mon = MonDaemon(OSD_OSDS, osds_per_host=OSD_OSDS_PER_HOST,
+                        config=dict(OSD_MON_CONFIG))
+        addr = await mon.start()
+        osds, stores, asoks = {}, {}, {}
+        for k in range(OSD_OSDS):
+            store = MemStore()
+            store.mkfs()
+            store.mount()
+            stores[k] = store
+            asoks[k] = os.path.join(tmp, f"osd.{k}.asok")
+            osds[k] = OSDDaemon(k, [addr], store=store, config={
+                **OSD_CONFIG, "admin_socket": asoks[k]}, device=dev)
+            await osds[k].start()
+        admin = RadosClient([addr])
+        await admin.connect()
+        await admin.create_replicated_pool(FS_META, size=3, pg_num=FS_PGS)
+        await admin.create_ec_pool(FS_DATA, dict(OSD_PROFILE),
+                                   pg_num=FS_PGS)
+        return mon, osds, stores, asoks, admin, addr
+
+    recorder = ShapeRecorder(torch)
+
+    async def drive():
+        mon, osds, stores, asoks, admin, addr = await start()
+        everyone = dict(osds)
+        mdss, clients = [], []
+        meta_pool = mon.osdmap.lookup_pool(FS_META)
+        data_pool = mon.osdmap.lookup_pool(FS_DATA)
+        try:
+            await wait_clean(mon, osds)
+            secs["start_to_clean"] = time.perf_counter() - phase_t0
+            # four MDS daemons: each rank's active first, then standbys
+            by_name = {}
+            for name, rank in (("a0", 0), ("a1", 1), ("b0", 0),
+                               ("b1", 1)):
+                mds = MDSDaemon([addr], FS_META, FS_DATA, name=name,
+                                lock_interval=FS_LOCK_INTERVAL, rank=rank,
+                                num_ranks=2)
+                watch(mds)
+                await mds.start()
+                mdss.append(mds)
+                by_name[name] = mds
+                if name.startswith("a"):
+                    while mds.state != "active":
+                        await asyncio.sleep(0.02)
+            rc_a, rc_b = RadosClient([addr]), RadosClient([addr])
+            for rc in (rc_a, rc_b):
+                await rc.connect()
+                clients.append(rc)
+            fs_a = CephFS(rc_a, FS_META, FS_DATA)
+            fs_b = CephFS(rc_b, FS_META, FS_DATA)
+            secs["mds_up"] = time.perf_counter() - phase_t0
+            for fn in wrappers.values():
+                fn.launches = 0
+            with recorder:
+                # (a) the small files
+                t0 = time.perf_counter()
+                for d in tops:
+                    await fs_a.mkdir(f"/{d}")
+
+                def small_job(p):
+                    return lambda: fs_a.write_file(p, head[p])
+                await in_flight([small_job(p) for p in small],
+                                FS_SMALL_IN_FLIGHT)
+                secs["a_small_files"] = time.perf_counter() - t0
+                out["small_files_per_s"] = len(small) / secs["a_small_files"]
+                out["small_files"] = len(small)
+                out["ranks_of_top_dirs"] = sorted(
+                    rank_of.values()).count(1)
+                # (b) the large files, the admin sockets asked meanwhile
+                asok_rtt = {"perf dump": [], "dump_ops_in_flight": []}
+                asok_bad = []
+
+                async def ask_sockets():
+                    for k, path in asoks.items():
+                        for cmd in asok_rtt:
+                            t1 = time.perf_counter()
+                            doc = await asyncio.to_thread(
+                                admin_socket_request, path,
+                                {"prefix": cmd}, 30.0)
+                            asok_rtt[cmd].append(time.perf_counter() - t1)
+                            good = isinstance(doc, dict) and \
+                                "error" not in doc and (
+                                    cmd != "dump_ops_in_flight"
+                                    or "num_ops" in doc)
+                            if not good:
+                                asok_bad.append([k, cmd, str(doc)[:200]])
+                t0 = time.perf_counter()
+                await fs_b.mkdir("/large")
+
+                async def write_large(p):
+                    f = await fs_b.open(p, "w")
+                    arr = large_bytes[p]
+
+                    def blk(j):
+                        return lambda: f.write(
+                            j * FS_BLOCK,
+                            arr[j * FS_BLOCK:(j + 1) * FS_BLOCK].tobytes())
+                    await in_flight([blk(j) for j in range(
+                        FS_LARGE_SIZE // FS_BLOCK)], FS_LARGE_IN_FLIGHT)
+                    await f.close()
+                asker = asyncio.ensure_future(ask_sockets())
+                await asyncio.gather(*(write_large(p) for p in large))
+                secs["b_large_files"] = time.perf_counter() - t0
+                await asker
+                secs["b_admin_sockets"] = time.perf_counter() - t0
+                out["large_write_gib_per_s"] = (
+                    FS_LARGE_FILES * FS_LARGE_SIZE / (1 << 30)
+                    / secs["b_large_files"])
+                out["admin_socket_ms"] = {
+                    cmd: {"median": 1e3 * statistics.median(v),
+                          "max": 1e3 * max(v), "calls": len(v)}
+                    for cmd, v in asok_rtt.items()}
+                exact["b_admin_sockets_answer"] = not asok_bad
+                out["admin_socket_bad"] = asok_bad[:4]
+                # (c) cached stats, then the cross reads
+                stat_dir = tops[1]
+                names = [p for p in small if p.startswith(f"/{stat_dir}/")]
+                for p in names:           # caps: A wrote these
+                    await fs_a.stat(p)
+                served0 = sum(m.ops_served for m in mdss)
+                t0 = time.perf_counter()
+                stat_ok = True
+                for _r in range(FS_STAT_ROUNDS):
+                    for p in names:
+                        st = await fs_a.stat(p)
+                        stat_ok = stat_ok and st["size"] == len(head[p])
+                secs["c_cached_stats"] = time.perf_counter() - t0
+                out["cached_stats_per_s"] = (FS_STAT_ROUNDS * len(names)
+                                             / secs["c_cached_stats"])
+                out["cached_stat_mds_ops"] = \
+                    sum(m.ops_served for m in mdss) - served0
+                exact["c_cached_stats"] = stat_ok
+                ok, n, s = await read_all(fs_a, large_now())
+                exact["c_a_reads_large"] = ok
+                secs["c_read_large"] = s
+                out["large_read_gib_per_s"] = n / (1 << 30) / s
+                ok, n, s = await read_all(fs_b, head)
+                exact["c_b_reads_small"] = ok
+                secs["c_read_small"] = s
+                out["small_reads_per_s"] = len(head) / s
+                # (d) s1, then the mutations
+                t0 = time.perf_counter()
+                s1 = await resent(
+                    "mksnap / s1", fs_a, lambda: fs_a.mksnap("/", "s1"),
+                    EEXIST, lambda: snap_id(fs_a, "/", "s1"))
+                if s1 is None:
+                    s1 = await snap_id(fs_a, "/", "s1")
+                secs["d_mksnap"] = time.perf_counter() - t0
+                snap_small = dict(head)
+                snap_large = large_now()
+                t0 = time.perf_counter()
+                blocks = [(p, j) for p in large
+                          for j in range(FS_LARGE_SIZE // FS_BLOCK)]
+                picked = rng.choice(len(blocks), len(blocks) // 4,
+                                    replace=False)
+
+                async def overwrite(p, j):
+                    n_b = int(rng.integers(1, 192 << 10))
+                    off = j * FS_BLOCK + int(rng.integers(
+                        1, FS_BLOCK - n_b))
+                    data = rng.bytes(n_b)
+                    large_bytes[p][off:off + n_b] = np.frombuffer(
+                        data, np.uint8)
+                    f = await fs_b.open(p, "r+")
+                    await f.write(off, data)
+                    await f.close()
+                await in_flight([
+                    (lambda b=blocks[k]: overwrite(*b)) for k in picked],
+                    FS_SMALL_IN_FLIGHT)
+                rewrite = [small[k] for k in rng.choice(
+                    len(small), FS_OVERWRITE_SMALL, replace=False)]
+                for p in rewrite:
+                    head[p] = rng.bytes(int(rng.integers(
+                        FS_SMALL_MIN, FS_SMALL_MAX + 1)))
+                await in_flight([small_job(p) for p in rewrite],
+                                FS_SMALL_IN_FLIGHT)
+                cut_path = large[-1]
+                cut = FS_LARGE_SIZE // 2 + 12_345
+                await fs_b.truncate(cut_path, cut)
+                large_bytes[cut_path] = large_bytes[cut_path][:cut].copy()
+                gone = [p for p in small if p not in rewrite
+                        and p.split("/")[1] not in (
+                            mirror_dir, export_src)
+                        and p != file_src][:FS_UNLINK_SMALL * 4:4]
+                for p in gone:
+                    await fs_a.unlink(p)
+                    del head[p]
+                file_dst = f"/{file_dst_dir}/renamed"
+                await fs_a.rename(file_src, file_dst)
+                head[file_dst] = head.pop(file_src)
+                t1 = time.perf_counter()
+                await fs_a.rename(f"/{export_src}", f"/{export_dst}")
+                secs["d_subtree_export"] = time.perf_counter() - t1
+                for p in [p for p in head
+                          if p.startswith(f"/{export_src}/")]:
+                    head[f"/{export_dst}/" + p.split("/", 2)[2]] = \
+                        head.pop(p)
+                secs["d_mutations"] = time.perf_counter() - t0
+                out["mutations"] = {
+                    "large_blocks_overwritten": len(picked),
+                    "small_overwritten": len(rewrite),
+                    "unlinked": len(gone), "truncated_to": cut,
+                    "file_renamed": [file_src, file_dst],
+                    "dir_exported": [export_src, export_dst]}
+                snap_tree = {**snap_small, **snap_large}
+                ok, n, s = await read_all(fs_a, snap_tree, "/.snap/s1")
+                exact["d_s1_whole"] = ok
+                secs["d_read_s1"] = s
+                out["s1_read_gib_per_s"] = n / (1 << 30) / s
+                ok, n, s = await read_all(fs_b, {**head, **large_now()})
+                exact["d_head_whole"] = ok
+                secs["d_read_head"] = s
+                # (e) rank 0's active hard-stopped while B writes
+                a0, b0 = by_name["a0"], by_name["b0"]
+                written = []
+                stop_at = {}
+
+                async def writer():
+                    k = 0
+                    while True:
+                        p = f"/{failover_dir}/failover{k:04d}"
+                        data = rng.bytes(FS_FAILOVER_WRITE)
+                        await fs_b.write_file(p, data)
+                        head[p] = data
+                        written.append((time.perf_counter(), p))
+                        k += 1
+                        if "first_op" in stop_at and sum(
+                                t > stop_at["first_op"]
+                                for t, _p in written) >= FS_FAILOVER_AFTER:
+                            return
+                task = asyncio.ensure_future(writer())
+                while len(written) < 2:
+                    await asyncio.sleep(0.01)
+                stop_at["t"] = time.perf_counter()
+                a0._stopping = True
+                a0._lock_task.cancel()
+                await a0.msgr.shutdown()
+                await a0.client.shutdown()
+                served = b0.ops_served
+                while b0.ops_served == served:
+                    check(time.perf_counter() - stop_at["t"] < 120,
+                          "rank 0's standby never served an op")
+                    await asyncio.sleep(0.005)
+                stop_at["first_op"] = time.perf_counter()
+                await asyncio.wait_for(task, 120)
+                after = [t for t, _p in written if t > stop_at["t"]]
+                out["failover_s"] = stop_at["first_op"] - stop_at["t"]
+                # the standby's takeover itself (its first op waits on
+                # the client, whose request to the stopped active times
+                # out first)
+                out["failover_takeover_s"] = phase_t0 + max(
+                    t for t, name in takeovers[(FS_META, 0)]
+                    if name == "b0") - stop_at["t"]
+                out["failover_first_write_s"] = after[0] - stop_at["t"]
+                out["failover_writes"] = len(written)
+                exact["e_standby_active"] = b0.state == "active"
+                mdss.remove(a0)
+                # (f) three OSDs holding data shards down
+                large_objs = []
+                for p in large:
+                    ino = (await fs_b.stat(p))["ino"]
+                    large_objs += [data_obj(ino, j) for j in range(
+                        -(-len(large_bytes[p]) // FS_BLOCK))]
+                dio = admin.open_ioctx(FS_DATA)
+                victims = data_shard_victims(mon.osdmap, dio, large_objs, 3)
+                out["victims"] = victims
+                for v in victims:
+                    osd = osds.pop(v)
+                    await osd.kill()
+                    # the process's death closes its socket
+                    await asyncio.to_thread(osd._admin_socket.shutdown)
+                    rc, msg = await admin.mon_command(
+                        {"prefix": "osd down", "osd": v})
+                    check(rc == 0, f"osd down {v}: {msg}")
+                await pool_active(mon, osds, data_pool)
+                await pool_active(mon, osds, meta_pool)
+                ok, n, s = await read_all(fs_a, {**head, **large_now()})
+                exact["f_head_3_down"] = ok
+                secs["f_read_head_3_down"] = s
+                out["read_gib_per_s_3_down"] = n / (1 << 30) / s
+                ok, n, s = await read_all(fs_a, snap_tree, "/.snap/s1")
+                exact["f_s1_3_down"] = ok
+                secs["f_read_s1_3_down"] = s
+                out["s1_read_gib_per_s_3_down"] = n / (1 << 30) / s
+                t0 = time.perf_counter()
+
+                async def revive(v):
+                    osd = OSDDaemon(v, [addr], store=stores[v], config={
+                        **OSD_CONFIG, "admin_socket": asoks[v]},
+                        device=dev)
+                    await osd.start()
+                    osds[v] = osd
+                    everyone[v] = osd
+                await asyncio.gather(*(revive(v) for v in victims))
+                await wait_clean(mon, osds)
+                secs["f_revive_to_clean"] = time.perf_counter() - t0
+                # (g) volumes, the mirror, the CLI
+                t0 = time.perf_counter()
+                vc = VolumeClient(fs_a)
+                vpath = await vc.create("pvc", group="csi", size=1 << 30)
+                exact["g_volume"] = (
+                    vpath == "/volumes/csi/pvc"
+                    and await vc.getpath("pvc", group="csi") == vpath)
+                await vc.rm("pvc", group="csi")
+                exact["g_volume"] = exact["g_volume"] and \
+                    await vc.ls(group="csi") == []
+                secs["g_volumes"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                await admin.create_replicated_pool("fs2.meta", size=3,
+                                                   pg_num=FS_PGS)
+                await admin.create_ec_pool("fs2.data", dict(OSD_PROFILE),
+                                           pg_num=FS_PGS)
+                await wait_clean(mon, osds)
+                m2 = MDSDaemon([addr], "fs2.meta", "fs2.data", name="m2",
+                               lock_interval=FS_LOCK_INTERVAL)
+                watch(m2)
+                await m2.start()
+                mdss.append(m2)
+                while m2.state != "active":
+                    await asyncio.sleep(0.02)
+                rc_c = RadosClient([addr])    # the mirror's own mount
+                await rc_c.connect()
+                clients.append(rc_c)
+                fs_dst = CephFS(rc_c, "fs2.meta", "fs2.data")
+                secs["g_second_fs"] = time.perf_counter() - t0
+                mirror = DirMirror(fs_a, fs_dst, f"/{mirror_dir}")
+                mtree0 = {p: b for p, b in head.items()
+                          if p.startswith(f"/{mirror_dir}/")}
+                t0 = time.perf_counter()
+                await resent(
+                    "mksnap m1", fs_a,
+                    lambda: fs_a.mksnap(f"/{mirror_dir}", "m1"), EEXIST,
+                    lambda: snap_id(fs_a, f"/{mirror_dir}", "m1"))
+                boot = await mirror.sync_once()
+                secs["g_mirror_bootstrap"] = time.perf_counter() - t0
+                mnames = sorted(mtree0)
+                for p in mnames[:8]:
+                    head[p] = rng.bytes(int(rng.integers(
+                        FS_SMALL_MIN, FS_SMALL_MAX + 1)))
+                    await fs_a.write_file(p, head[p])
+                for p in mnames[8:12]:
+                    await fs_a.unlink(p)
+                    del head[p]
+                mtree1 = {p: b for p, b in head.items()
+                          if p.startswith(f"/{mirror_dir}/")}
+                t0 = time.perf_counter()
+                await resent(
+                    "mksnap m2", fs_a,
+                    lambda: fs_a.mksnap(f"/{mirror_dir}", "m2"), EEXIST,
+                    lambda: snap_id(fs_a, f"/{mirror_dir}", "m2"))
+                incr = await mirror.sync_once()
+                secs["g_mirror_incremental"] = time.perf_counter() - t0
+                rel0 = {p.split("/", 2)[2]: b for p, b in mtree0.items()}
+                rel1 = {p.split("/", 2)[2]: b for p, b in mtree1.items()}
+                ok_m = boot == 1 and incr == 1 and sorted(
+                    await fs_dst.listdir(f"/{mirror_dir}")) == sorted(rel1)
+                for label, rel, prefix in (
+                        ("m1", rel0, f"/{mirror_dir}/.snap/m1/"),
+                        ("m2", rel1, f"/{mirror_dir}/.snap/m2/"),
+                        ("head", rel1, f"/{mirror_dir}/")):
+                    for name, b in rel.items():
+                        ok_m = ok_m and \
+                            await fs_dst.read_file(prefix + name) == b
+                exact["g_mirror_equal"] = ok_m
+                out["mirror"] = {"files": len(rel1),
+                                 "files_copied": mirror.files_copied,
+                                 "entries_deleted": mirror.entries_deleted}
+                t0 = time.perf_counter()
+
+                async def cli(**kw) -> str:
+                    so = io_mod.StringIO()
+                    with contextlib.redirect_stdout(so):
+                        rc = await cephfs_cli._dispatch(
+                            fs_a, argparse.Namespace(**kw))
+                    check(rc == 0, f"cephfs {kw}: rc {rc}")
+                    return so.getvalue()
+                cli_dir = next(d for d in tops
+                               if d not in (export_src, mirror_dir))
+                listing = await cli(cmd="ls", path=f"/{cli_dir}")
+                want_ls = sorted(p.rsplit("/", 1)[1] for p in head
+                                 if p.startswith(f"/{cli_dir}/"))
+                got_ls = sorted(line.split()[-1]
+                                for line in listing.splitlines())
+                local = os.path.join(tmp, "got.bin")
+                probe = sorted(p for p in head
+                               if p.startswith(f"/{cli_dir}/"))[0]
+                await cli(cmd="get", path=probe, local=local)
+                with open(local, "rb") as f:
+                    got_get = f.read()
+                snaps = [json.loads(line)["name"] for line in (await cli(
+                    cmd="snap", verb="ls", path="/", name="")).splitlines()]
+                exact["g_cli"] = (got_ls == want_ls
+                                  and got_get == head[probe]
+                                  and snaps == ["s1"])
+                secs["g_cli"] = time.perf_counter() - t0
+                # (h) rmsnap s1: its clones go from every store
+                table = await admin.open_ioctx(FS_META).omap_get(
+                    SNAPTABLE_OBJ)
+                rec = json.loads(table[f"{s1:016x}"])
+                ids = {data_pool: rec["data_snap"],
+                       meta_pool: rec["meta_snap"]}
+
+                def s1_clones() -> list:
+                    """[osd, collection, object] of every s1 clone."""
+                    found = []
+                    for osd_id, store in stores.items():
+                        for cid in store.list_collections():
+                            pool = int(cid.split(".", 1)[0]) \
+                                if cid[0].isdigit() else None
+                            if pool not in ids:
+                                continue
+                            for oid in store.list_objects(cid):
+                                name = oid.name
+                                if SNAP_SEP in name and name.rsplit(
+                                        SNAP_SEP, 1)[1] == str(ids[pool]):
+                                    found.append([osd_id, cid, name])
+                    return found
+                before = {tuple(c) for c in s1_clones()}
+                out["s1_clone_objects"] = len(before)
+                t0 = time.perf_counter()
+                async def s1_gone() -> bool:
+                    return await snap_id(fs_a, "/", "s1") is None
+                await resent("rmsnap / s1", fs_a,
+                             lambda: fs_a.rmsnap("/", "s1"), ENOENT, s1_gone)
+                check(await s1_gone(), "s1 outlived its rmsnap")
+                while left := [c for c in s1_clones()
+                               if tuple(c) in before]:
+                    check(time.perf_counter() - t0 < FS_PHASE_TIMEOUT / 4,
+                          f"{len(left)} s1 clones were never trimmed, such"
+                          f" as {left[:4]} (s1: {ids})")
+                    # a poll walks every store: few, off the OSDs' way
+                    await asyncio.sleep(0.5)
+                # a clone under s1 made after its rmsnap would outlive it
+                # (trim runs on a map change): listed, not expected
+                out["s1_clones_made_after_rmsnap"] = s1_clones()[:8]
+                secs["h_trim"] = time.perf_counter() - t0
+                ok, n, s = await read_all(fs_b, {**head, **large_now()})
+                exact["h_head_after_trim"] = ok
+                secs["h_read_head"] = s
+                launches = {nm: fn.launches for nm, fn in wrappers.items()}
+            # every shard of a sample of data objects (large blocks no
+            # write touched after (b), small files written once) against
+            # a device="cpu" codec's encode_with_hinfo, and its hinfo
+            # against the ledger of a partial write: CephFS writes are
+            # extent writes, each an EC read-modify-write whose shards
+            # carry the total chunk size with the hashes cleared
+            # (set_total_chunk_size_clear_hash, as the reference's
+            # overwrite path), so no crc is computed on this path
+            cpu_codec = create_erasure_code({**OSD_PROFILE,
+                                             "device": "cpu"})
+            width = K * 65536
+            cpu_sinfo = ec_util.StripeInfo(K, width)
+            touched = {blocks[k] for k in picked}
+            sample = []
+            for p in large[:-1]:
+                ino = (await fs_b.stat(p))["ino"]
+                for j in range(FS_LARGE_SIZE // FS_BLOCK):
+                    if (p, j) not in touched and len(sample) < 8:
+                        sample.append((data_obj(ino, j), large_bytes[p][
+                            j * FS_BLOCK:(j + 1) * FS_BLOCK].tobytes()))
+            for p in sorted(head):
+                if p.split("/")[1] in tops and p not in rewrite and \
+                        "failover" not in p and len(sample) < 16 and \
+                        p.split("/")[1] != mirror_dir:
+                    ino = (await fs_b.stat(p))["ino"]
+                    sample.append((data_obj(ino, 0), head[p]))
+            bad, checked = [], 0
+            for name, obj in sample:
+                padded = obj + bytes(-len(obj) % width)
+                shards, _h, _c = ec_util.encode_with_hinfo(
+                    cpu_sinfo, cpu_codec, padded, range(K + M))
+                ledger = ec_util.HashInfo(K + M)
+                ledger.set_total_chunk_size_clear_hash(
+                    len(padded) // K)
+                pg = dio.object_pg(name)
+                acting, _p = mon.osdmap.pg_to_acting_osds(pg)
+                for idx, osd_id in enumerate(acting):
+                    cid = shard_collection(pg, idx)
+                    try:
+                        got = stores[osd_id].read(cid, ObjectId(name))
+                        attrs = stores[osd_id].getattrs(cid,
+                                                        ObjectId(name))
+                        good = bytes(got) == bytes(shards[idx]) and \
+                            json.loads(attrs[HINFO_ATTR]) == \
+                            ledger.to_dict()
+                    except (KeyError, IOError):
+                        good = False
+                    checked += 1
+                    if not good:
+                        bad.append([osd_id, cid, name])
+            out["shards_vs_cpu_encode"] = {"objects": len(sample),
+                                           "shards": checked,
+                                           "bad": bad[:5]}
+            exact["shards_vs_cpu_encode"] = not bad and checked > 0
+            return launches
+        finally:
+            for mds in mdss:
+                with contextlib.suppress(Exception):
+                    await mds.stop()
+            for rc in clients:
+                await rc.shutdown()
+            await admin.shutdown()
+            for osd in osds.values():
+                await osd.stop()
+            for v, osd in everyone.items():
+                if v not in osds and osd._admin_socket is not None:
+                    await asyncio.to_thread(osd._admin_socket.shutdown)
+            await mon.shutdown()
+
+    try:
+        launches = asyncio.run(asyncio.wait_for(drive(), FS_PHASE_TIMEOUT))
+    finally:
+        for name in os.listdir(tmp):
+            os.remove(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    held = recorder.hold()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs["phase"] = time.perf_counter() - phase_t0
+    dropped = {n: len(e.dropped) for n, e in recorder.entries.items()}
+    # each rank's active takes over once at the start, rank 0's standby
+    # once more at (e), the mirror's MDS once: the rest are takeovers of
+    # a live rank (a standby breaking a lock whose renewals stalled)
+    expected = {(FS_META, 0): 2, (FS_META, 1): 1, ("fs2.meta", 0): 1}
+    out["takeovers"] = {f"{pool} rank {rank}": events
+                        for (pool, rank), events in sorted(takeovers.items())}
+    out["unplanned_takeovers"] = sum(
+        max(0, len(events) - expected.get(key, 0))
+        for key, events in takeovers.items())
+    out["mds_ops_served"] = {f"{pool} rank {rank}": len(ops)
+                             for (pool, rank), ops in sorted(
+                                 served_ops.items())}
+    out["split_brain"] = split_brain()
+    out.update({"exact": exact, "launches": launches, "resent": resends,
+                "kernels_vs_plain": {n: {"inputs": len(r), "max_abs_err": max(
+                    (x["max_abs_err"] for x in r), default=None)}
+                    for n, r in held.items()},
+                "inputs_not_kept": dropped})
+    print(json.dumps(out))
+    check(all(exact.values()), f"a cephfs check failed: {exact}")
+    check(not out["split_brain"], "two MDS daemons of one rank served ops"
+          f" within one lock interval: {out['split_brain'][:8]}")
+    check(out["cached_stat_mds_ops"] == 0,
+          f"cached stats reached an MDS: {out['cached_stat_mds_ops']} ops")
+    check(not any(dropped.values()), "distinct kernel inputs of the cephfs"
+          f" path went unchecked past RBD_RECORDED_CALLS: {dropped}")
+    for name in ("gf_matmul_spec", "gf_matmul_gen"):
+        check(launches.get(name, 0) > 0,
+              f"{name} never launched on the cephfs path: {launches}")
+        check(held[name] and all(r["max_abs_err"] == 0 for r in held[name]),
+              f"{name} disagrees with its plain version at the cephfs"
+              f" path's shapes (or none was recorded): {held[name]}")
+    # every CephFS data write is an extent write (an EC read-modify-write
+    # whose shards carry a cleared hinfo ledger): no crc on this path
+    check(launches.get("crc32c_blocks", 0) == 0 and not held["crc32c_blocks"],
+          f"crc32c_blocks launched on the cephfs path: {launches}")
+    return {"cephfs": launches}
+
+
 def main() -> None:
     import torch
 
@@ -7101,6 +7929,11 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "rbd"]:
         # phase 3o alone, after the build: no result line
         print(json.dumps({"phase_only": "rbd", "launches": rbd_phase(
+            torch, dev, card, wrappers)}))
+        return
+    if sys.argv[1:] == ["--phase", "cephfs"]:
+        # phase 3p alone, after the build: no result line
+        print(json.dumps({"phase_only": "cephfs", "launches": cephfs_phase(
             torch, dev, card, wrappers)}))
         return
 
@@ -7318,6 +8151,10 @@ def main() -> None:
     # -- 3o. snapshots and RBD on an EC 8+3 data pool ------------------------
     rbd_launches = rbd_phase(torch, dev, card, wrappers)
     mark("3o")
+
+    # -- 3p. the admin socket, the MDS and CephFS on an EC 8+3 data pool ----
+    cephfs_launches = cephfs_phase(torch, dev, card, wrappers)
+    mark("3p")
     # each path's launches, its counts zeroed just before it
     by_path = {"codec": launches,
                "crushtool": {"crush_do_rule_batch": crush_state["launches"]},
@@ -7328,7 +8165,8 @@ def main() -> None:
                "compute": compute_state["launches"],
                "mon": mon_state["launches"], **osd_launches,
                **rgw_launches, **persist_launches,
-               **xsched_state["launches"], **rbd_launches}
+               **xsched_state["launches"], **rbd_launches,
+               **cephfs_launches}
 
     # -- 4. times -----------------------------------------------------------
     parity_out = torch.empty((B, M, CHUNK), dtype=torch.uint8, device=dev)

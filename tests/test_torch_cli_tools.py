@@ -12,8 +12,9 @@ of real processes from `python -m ceph_tpu_torch.tools.vstart --device
 cpu` (TPUStore OSDs): a put and a get through the port CLI, one OSD
 process SIGKILLed (the OS keeps every write it was handed: a process kill,
 not a power cut) and marked down, an exact degraded get, the OSD restarted
-on its store directory, an exact get again, then `--stop`.  `vstart --mds`
-exits nonzero: the MDS is not ported.
+on its store directory, an exact get again, then `--stop`.  With `--mds`
+vstart also starts an active and standby pair of port MDS processes, and
+the port's cephfs CLI puts and gets a file through them.
 """
 
 import asyncio
@@ -308,30 +309,25 @@ def test_rbd_cli_end_to_end(tmp_path):
 
 
 def test_vstart_cluster_kill_and_restart_an_osd_process(tmp_path):
-    """vstart --device cpu: 1 mon and 3 TPUStore OSD processes; the port
-    CLI puts and gets an object on an EC 2+1 pool; one OSD process is
-    SIGKILLed and marked down, the get is exact; the OSD is restarted on
-    its store directory, comes up, and the get is exact again."""
+    """vstart --device cpu --mds: 1 mon, 3 TPUStore OSD processes and an
+    active and standby MDS process; the port cephfs CLI puts and gets a
+    file; the port CLI puts and gets an object on an EC 2+1 pool; one
+    OSD process is SIGKILLed and marked down, the get is exact; the OSD
+    is restarted on its store directory, comes up, and the get is exact
+    again."""
     from ceph_tpu_torch.rados.client import RadosClient
 
     data_dir = tmp_path / "vstart"
-    rc = subprocess.run(
-        [sys.executable, "-m", "ceph_tpu_torch.tools.vstart",
-         "--data-dir", str(data_dir), "--mds"],
-        capture_output=True, env=_ENV, timeout=60)
-    assert rc.returncode != 0 and b"not ported" in rc.stderr
-    assert not (data_dir / "vstart.pids").exists()
-
     up = subprocess.run(
         [sys.executable, "-m", "ceph_tpu_torch.tools.vstart",
          "--data-dir", str(data_dir), "--mons", "1", "--osds", "3",
-         "--device", "cpu"],
+         "--device", "cpu", "--mds"],
         capture_output=True, env=_ENV, timeout=120)
     assert up.returncode == 0, up.stderr[-2000:]
     mon = re.search(rb"export CEPH_TPU_MON=(\S+)", up.stdout)[1].decode()
     pids_file = data_dir / "vstart.pids"
     pids = [int(p) for p in pids_file.read_text().split()]
-    assert len(pids) == 4                     # the mon, then osd.0-2
+    assert len(pids) == 6            # the mon, osd.0-2, then mds.a, mds.b
     restarted = None
     try:
         for i in range(3):
@@ -342,6 +338,13 @@ def test_vstart_cluster_kill_and_restart_an_osd_process(tmp_path):
 
         async def main():
             nonlocal restarted
+            fs_cli = ("ceph_tpu_torch.tools.cephfs",)
+            rc, _, err = await cli(fs_cli, mon, "mkdir", "/d")
+            assert rc == 0, err
+            rc, _, err = await cli(fs_cli, mon, "put", str(src), "/d/f")
+            assert rc == 0, err
+            rc, out, err = await cli(fs_cli, mon, "cat", "/d/f")
+            assert rc == 0 and out == payload, err
             profile = json.dumps({"plugin": "ec_torch",
                                   "technique": "reed_sol_van", "k": "2",
                                   "m": "1", "crush-failure-domain": "osd"})

@@ -276,6 +276,89 @@ def test_cached_map_follows_incrementals():
         assert after[0][:1] + after[0][2:] == before[0][:1] + before[0][2:]
 
 
+def _reweighted_crush(pkg: str, crush, rng):
+    """A copy of `crush` with one straw2 host's first item at half its
+    weight (what an `osd crush reweight` commits as new_crush)."""
+    from ceph_tpu.crush import serialize as jser
+    from ceph_tpu_torch.crush import serialize as tser
+    ser = jser if pkg == "jax" else tser
+    doc = ser.to_json(crush)
+    hosts = [b for b in doc["buckets"] if b["items"]
+             and all(i >= 0 for i in b["items"])]
+    host = hosts[int(rng.integers(len(hosts)))]
+    host["weights"][0] //= 2
+    return ser.from_json(doc)
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_memoised_placement_follows_weights_crush_and_state(name):
+    """A cache-enabled port map places through the process-wide raw
+    memo, keyed on the crush map's digest and the weights: through
+    incrementals that reweight an OSD, swap the crush map and mark OSDs
+    down and up, it answers as the JAX host path on every PG."""
+    jm, tm = _scenario("jax", name), _scenario("port", name)
+    tm.enable_placement_cache()
+    rng = np.random.default_rng(SEED + 23)
+
+    def same():
+        for pg in _all_pgs(tm):
+            assert tm.pg_to_up_acting_osds(pg) == jm.pg_to_up_acting_osds(
+                _jpg(pg)), (tm.epoch, pg)
+    same()
+    for step in ("weight", "crush", "state", "weight"):
+        o = int(rng.integers(24))
+        w = int(rng.choice([0, 0x8000, 0x10000]))
+        seed = int(rng.integers(1 << 30))
+        for pkg, m in (("jax", jm), ("port", tm)):
+            om, _cm = PACKAGES[pkg]
+            inc = om.Incremental(epoch=m.epoch + 1)
+            if step == "weight":
+                inc.new_weight[o] = w
+            elif step == "crush":
+                inc.new_crush = _reweighted_crush(
+                    pkg, m.crush, np.random.default_rng(seed))
+            else:
+                inc.new_state[o] = om.CEPH_OSD_UP      # XOR: flips up
+            m.apply_incremental(inc)
+        same()
+
+
+def test_placement_memo_places_each_pg_once_across_maps(monkeypatch):
+    """Three cache-enabled maps decoded from one encoding (the daemons of
+    one cluster in one process) run CRUSH once per PG between them, and
+    an epoch that changes neither the crush map nor the weights runs it
+    for none."""
+    m = _scenario("port", "down_out")
+    data = m.encode()
+    monkeypatch.setattr(tosdmap, "_RAW_MEMO", {})
+    runs = []
+    real = tosdmap.crush_mapper.crush_do_rule
+
+    def counted(*args, **kw):
+        runs.append(args[2])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tosdmap.crush_mapper, "crush_do_rule", counted)
+    maps = [tosdmap.OSDMap.decode(data) for _ in range(3)]
+    for x in maps:
+        x.enable_placement_cache()
+    pgs = _all_pgs(m)
+    first = [[x.pg_to_up_acting_osds(pg) for pg in pgs] for x in maps]
+    assert len(runs) == len(pgs)
+    assert first[0] == first[1] == first[2] == [
+        m.pg_to_up_acting_osds(pg) for pg in pgs]
+    up = next(o for o in range(24) if m.is_up(o))
+    for x in maps:
+        inc = tosdmap.Incremental(epoch=x.epoch + 1)
+        inc.new_state[up] = tosdmap.CEPH_OSD_UP
+        x.apply_incremental(inc)
+    m.osd_state[up] &= ~tosdmap.CEPH_OSD_UP
+    later = [[x.pg_to_up_acting_osds(pg) for pg in pgs] for x in maps]
+    assert len(runs) == 2 * len(pgs)     # m, uncached, ran its own once
+    assert later[0] == later[1] == later[2] == [
+        m.pg_to_up_acting_osds(pg) for pg in pgs] != first[0]
+
+
 # -- ROADMAP.md C3: pools the JAX OSDMapMapping maps wrong -------------------
 
 

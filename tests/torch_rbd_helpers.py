@@ -63,24 +63,24 @@ _SEEDED = {m.__name__ for m in (jrbd, jjournal, jmigrate, jmirror, jreplay,
                                 tclient)}
 
 
-def _caller_seeded() -> bool:
-    return sys._getframe(2).f_globals.get("__name__") in _SEEDED
-
-
-def seeded_randomness(mp: pytest.MonkeyPatch, seed: int = 0) -> None:
-    """os.urandom and uuid.uuid4 from one seeded stream when an RBD
-    module or the striper calls them; every other caller gets the real
-    ones."""
+def seeded_randomness(mp: pytest.MonkeyPatch, seed: int = 0,
+                      seeded=frozenset(_SEEDED)) -> None:
+    """os.urandom and uuid.uuid4 from one seeded stream when a module
+    named in `seeded` (by default an RBD module, the striper or the RADOS
+    client) calls them; every other caller gets the real ones."""
     rng = random.Random(seed)
     real_urandom, real_uuid4 = os.urandom, uuid.uuid4
 
+    def caller_seeded() -> bool:
+        return sys._getframe(2).f_globals.get("__name__") in seeded
+
     def urandom(n: int) -> bytes:
-        if _caller_seeded():
+        if caller_seeded():
             return rng.randbytes(n)
         return real_urandom(n)
 
     def uuid4() -> uuid.UUID:
-        if _caller_seeded():
+        if caller_seeded():
             return uuid.UUID(bytes=rng.randbytes(16), version=4)
         return real_uuid4()
 
